@@ -1,0 +1,195 @@
+"""Paged, device-resident decode core. Port of
+`repro/serve/batching.py::PagedSlotDecoder`.
+
+The KV caches live in a shared block pool (`serve/kv_pool.py`) addressed
+through the scheduler's page table, and the decode loop is fused:
+`sync_interval` decode+sample ticks run as ONE execution unit with tokens,
+positions and done flags staying on the device throughout; the host sees a
+small (slots, sync_interval + 2) summary once per interval instead of a
+device round trip per token.
+
+All computation is dispatched through the compute manager of a HiCR
+`Runtime` (registry-built): prefill, the commit of a prefilled cache into
+pages, and the fused interval are execution units. The dense `SlotDecoder`
+of the reference is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.runtime import Runtime
+from repro_torch.models.model_zoo import ModelBundle
+
+from .kv_pool import PagedKVPool
+
+# control columns of the (slots, 6) device-resident table
+TOK, POS, DONE, STEPS, EOS, CAP = range(6)
+
+
+class PagedSlotDecoder:
+    """Paged, device-resident decode core.
+
+    KV state lives in a shared block pool (one `(pages, page, KV, hd)`
+    tensor pair per layer, allocated once and registered through the HiCR
+    MemoryManager); each slot addresses its pages through the
+    scheduler-owned page table. Decode control state — last tokens,
+    positions, done flags, per-slot budgets, eos ids, position caps — stays
+    on the device: `run_interval()` runs `sync_interval` fused decode+sample
+    ticks as ONE execution unit and copies only the per-interval summary to
+    the host. A slot that finishes mid-interval freezes in place (its writes
+    go to the null page) and is harvested at the next sync point, so outputs
+    are token-identical to a per-tick loop.
+    """
+
+    def __init__(
+        self,
+        model: ModelBundle,
+        params,
+        *,
+        max_slots: int = 8,
+        max_len: int = 256,
+        page_size: int = 16,
+        pool_pages: Optional[int] = None,
+        sync_interval: int = 8,
+        runtime: Optional[Runtime] = None,
+    ):
+        if model.paged_ops is None:
+            raise ValueError(f"model family {model.cfg.family!r} has no paged KV-cache path")
+        if sync_interval < 1:
+            raise ValueError("sync_interval must be >= 1")
+        self.params = params
+        self.max_slots = max_slots
+        self.sync_interval = sync_interval
+        self.rt = runtime or Runtime("torchdev")
+        #: device of the runtime's processing unit: pools, control table
+        #: and every execution unit's tensors live here
+        self.device: torch.device = self.rt.processing_unit.context
+        emb = params["embed"]["embedding"]
+        if emb.device != self.device:
+            raise ValueError(f"params live on {emb.device}, the runtime on {self.device}")
+        po = model.paged_ops
+        self.layout = po.layout(
+            max_slots=max_slots, max_len=max_len, page_size=page_size, num_pages=pool_pages,
+        )
+        self.kv = PagedKVPool(self.rt, model, self.layout, device=self.device)
+
+        cm = self.rt.compute_manager
+        layout = self.layout
+        prefill_fn = model.make_prefill(layout.cache_len)
+
+        def paged_prefill(p, b):
+            # greedy pick fused into the unit: admission copies one int32 to
+            # the host, not a logits row
+            logits, state = prefill_fn(p, b)
+            return torch.argmax(logits, dim=-1).to(torch.int32), state
+
+        self._prefill_unit = cm.create_execution_unit(paged_prefill, name="paged_prefill")
+
+        # per-slot ring rows are static: keep them on the device so an
+        # admission never uploads them
+        if layout.ring:
+            ring_rows = layout.ring_table(device=self.device)
+        else:
+            ring_rows = torch.zeros((max_slots, 1), dtype=torch.int32, device=self.device)
+        self._ring_rows = [ring_rows[s] for s in range(max_slots)]
+
+        def commit_and_arm(pools, state, full_row, ring_row, ctl, slot, arm):
+            """One dispatch per admission: scatter the prefilled dense cache
+            into the slot's pages AND arm the slot's control row (in place).
+            `arm` is [token, pos, 0, steps_left, eos, cap] — one upload."""
+            pools = po.commit_prefill(layout, pools, state, full_row, ring_row)
+            ctl[slot] = arm
+            return pools, ctl
+
+        self._commit_unit = cm.create_execution_unit(commit_and_arm, name="commit_and_arm")
+
+        K = sync_interval
+
+        def fused_ticks(p, pools, table, ctl):
+            """K decode+sample ticks on the device, no host sync inside.
+            Emits a (slots, K) buffer of sampled tokens (-1 where the slot
+            was already done); freezes a slot the tick it hits eos, its
+            budget or its position cap. Ticks after every slot finished run
+            the model on frozen slots; their writes go to the null page and
+            their tokens are masked, so the output is unchanged."""
+            out = torch.full((ctl.shape[0], K), -1, dtype=torch.int32, device=ctl.device)
+            for i in range(K):
+                tokens, pos = ctl[:, TOK], ctl[:, POS]
+                active = ctl[:, DONE] == 0
+                logits, pools = po.decode_step(layout, p, pools, table, tokens, pos, active)
+                new_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                tok = torch.where(active, new_tok, tokens)
+                out[:, i] = torch.where(active, tok, torch.full_like(tok, -1))
+                live = active.to(torch.int32)
+                steps_left = ctl[:, STEPS] - live
+                pos = pos + live
+                done = ~active | (
+                    active & ((tok == ctl[:, EOS]) | (steps_left <= 0) | (pos >= ctl[:, CAP]))
+                )
+                ctl = torch.stack(
+                    [tok, pos, done.to(torch.int32), steps_left, ctl[:, EOS], ctl[:, CAP]], dim=1,
+                )
+            # single host-transfer payload: [tokens x K | done | pos] per slot
+            summary = torch.cat([out, ctl[:, [DONE, POS]]], dim=1)
+            return pools, ctl, summary
+
+        self._fused_unit = cm.create_execution_unit(fused_ticks, name=f"fused_decode_x{K}")
+
+        # device-resident control table; DONE=1 everywhere: free slots never decode
+        ctl0 = np.zeros((max_slots, 6), np.int32)
+        ctl0[:, DONE] = 1
+        ctl0[:, EOS] = -1  # -1: no eos (real tokens are >= 0)
+        self.ctl = torch.as_tensor(ctl0, device=self.device)
+
+    # -- admission ----------------------------------------------------------
+    def prefill(self, prompt: Sequence[int]):
+        """B=1 dense prefill with page-aligned cache headroom. Returns
+        (first greedy token, dense decoder state to commit into pages)."""
+        tokens = torch.as_tensor(np.asarray(prompt, dtype=np.int32)[None, :], device=self.device)
+        first, state = self.rt.run(self._prefill_unit, self.params, {"tokens": tokens})
+        return int(first.cpu()[0]), state
+
+    def load(
+        self,
+        slot: int,
+        state,
+        last_token: int,
+        pos: int,
+        *,
+        steps_left: int,
+        eos_id: Optional[int],
+        capacity: int,
+        full_row: np.ndarray,
+    ) -> None:
+        """Commit a prefilled dense state into `slot`'s pool pages and arm
+        its device-side control row. `full_row` is the slot's page-table row
+        (0-padded past the pages drawn so far); `capacity` is the position
+        ceiling implied by the slot's page reservation."""
+        if not 0 <= slot < self.max_slots:
+            raise IndexError(f"slot {slot} out of range [0, {self.max_slots})")
+        arm = np.asarray(
+            [last_token, pos, 0, steps_left, eos_id if eos_id is not None else -1, capacity],
+            dtype=np.int32,
+        )
+        self.kv.pools, self.ctl = self.rt.run(
+            self._commit_unit, self.kv.pools, state,
+            torch.as_tensor(np.asarray(full_row, np.int32), device=self.device),
+            self._ring_rows[slot], self.ctl, slot, torch.as_tensor(arm, device=self.device),
+        )
+
+    # -- one fused interval --------------------------------------------------
+    def run_interval(self, full_table: np.ndarray):
+        """Run `sync_interval` fused ticks against the current page table.
+        Returns (token_buffer (slots, K) with -1 for inactive ticks,
+        done mask (slots,), positions (slots,)) as host arrays — the only
+        device->host copy of the interval."""
+        table = torch.as_tensor(np.asarray(full_table, np.int32), device=self.device)
+        self.kv.pools, self.ctl, summary = self.rt.run(
+            self._fused_unit, self.params, self.kv.pools, table, self.ctl,
+        )
+        summary = summary.cpu().numpy()
+        K = self.sync_interval
+        return summary[:, :K], summary[:, K].astype(bool), summary[:, K + 1]
