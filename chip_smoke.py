@@ -3,32 +3,47 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- full-width gemma3-1b served by the paged
-continuous-batching scheduler -- and fails (non-zero exit) if any phase
-fails. It imports nothing of JAX or of the JAX package. Phases:
+Drives the port's paths -- full-width gemma3-1b served by the paged and by
+the dense continuous-batching scheduler and by the serial engine, and the
+paper's Test Case 2 (heterogeneous inference) -- and fails (non-zero exit)
+if any phase fails. It imports nothing of JAX or of the JAX package. Phases:
 
 1. device: the card from `nvidia-smi` (name, power limit);
 2. build: compile the CUDA kernels from `src/repro_torch/csrc` with nvcc for
-   sm_90a and print the `-Xptxas -v` report (registers, shared memory,
-   spills);
+   sm_90a (one nvcc per source, in parallel) and print the `-Xptxas -v`
+   report (registers, shared memory, spills);
 3. kernels: hold each CUDA kernel against its plain PyTorch version on the
-   card at the serving path's shapes and at ragged / edge shapes, and time
-   kernel, plain version and (flash only) the library call
-   `F.scaled_dot_product_attention` with CUDA events;
+   card at the paths' shapes and at ragged / edge shapes, and time kernel,
+   plain version and the library call where one computes the same function
+   (`F.scaled_dot_product_attention`, `torch.addmm`) with CUDA events;
 4. reduced: REDUCED gemma3-1b in fp32 (TF32 off): prefill plus 16
    teacher-forced paged decode ticks on the card against the same functions
    on the CPU;
 5. serve: full gemma3-1b (26 layers, d_model 1152, vocab 262144, bf16) serves
    16 synthetic requests (prompts 64-1024 tokens, 16-64 new tokens) on 8
-   slots through `ContinuousBatchingScheduler.serve()`; both kernels' launch
-   counts are read around that run and must be exactly what the path needs.
+   slots through `ContinuousBatchingScheduler.serve()` with the paged KV
+   pool; the kernels' launch counts are read around that run and must be
+   exactly what the path needs;
+6. reduced-dense: REDUCED fp32 on the card against the CPU through the dense
+   decode: 16 teacher-forced ticks (logits within 1e-4), a dense continuous
+   serve and a serial `generate` (equal tokens);
+7. serve-dense: the same 16 requests through the dense scheduler
+   (``kv_mode="dense"``, `max_len` 1088), launch counts exact, tokens
+   compared with phase 5's (reported, not required: bf16);
+8. serial: `ServeEngine.generate` on 8 prompts of 512 tokens for 32 steps;
+9. tc2: the paper's Test Case 2, all three rows (``numpy`` on the port's
+   `hostcpu` backend, ``torch`` and ``fused_linear`` on the card): equal
+   accuracy above 0.85, img-0 scores within 1e-4, `fused_linear` launched
+   twice per batch.
 
-The line before the last is one JSON object with every kernel's numbers;
-the last line is the device JSON. Needs one card; the first run on a fresh
-checkout builds the kernels (seconds).
+Each path's launch counts are zeroed just before it runs and read just
+after. The line before the last is one JSON object with every kernel's
+numbers; the last line is the device JSON. Needs one card; the first run on
+a fresh checkout builds the kernels (seconds).
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -41,7 +56,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # each input type's arithmetic (bf16 on the tensor cores, fp32 on CUDA cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+L2_BYTES = 50 * 2**20  # H100 L2 cache: inputs cycled past twice this are read cold
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+LINEAR_TOL = TOL  # tests/test_kernels.py::TestFusedLinear: 2e-5 fp32; 2e-2 bf16
 PAGED_TOL = {"float32": dict(atol=1e-5, rtol=0.0), "bfloat16": dict(atol=5e-2, rtol=0.0)}
 REDUCED_ATOL = 1e-4
 
@@ -57,6 +74,14 @@ def log(msg: str) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+def run_phase(name: str, fn, *args):
+    """Run one phase and log its wall time (the script has a time limit)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {name}: {time.perf_counter() - t0:.1f}s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +134,36 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Device time of one call of `fn`: the summed durations of the device
+    activities (kernels, copies, fills) a `torch.profiler` trace of `iters`
+    warmed-up calls records, over `iters`. Unlike `time_ms` it excludes the
+    host's launch gaps, so it tells a host-bound timing from a device-bound
+    one."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    require(bool(spans), "the profiler recorded no device activity")
+    return sum(spans) / 1e3 / iters
+
+
+def cold_device_ms(torch, fn, inputs, nbytes: int) -> float:
+    """Device time of `fn(*inputs)` with its inputs cold in L2, as a serving
+    path finds a layer's cache after the other layers ran: the inputs are
+    cloned until the copies hold more than twice the L2 and each call takes
+    the next copy. `nbytes` is the bytes of one copy."""
+    copies = [tuple(t.clone() for t in inputs) for _ in range(2 * L2_BYTES // nbytes + 2)]
+    turn = iter(range(1 << 30))
+    return device_ms(torch, lambda: fn(*copies[next(turn) % len(copies)]),
+                     iters=2 * len(copies))
 
 
 def _max_err_and_ok(torch, got, want, tol) -> tuple:
@@ -171,6 +226,8 @@ def check_flash(torch, gen) -> dict:
         torch, gen, Sq=Sq, Skv=Sq, H=H, KV=KV, hd=hd, dtype=torch.bfloat16)
     t_kernel = time_ms(torch, lambda: flash_attention.flash_attention(q, k, v, **kw))
     t_plain = time_ms(torch, lambda: ref.attention(q, k, v, **kw))
+    d_kernel = device_ms(torch, lambda: flash_attention.flash_attention(q, k, v, **kw))
+    d_plain = device_ms(torch, lambda: ref.attention(q, k, v, **kw))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t_lib = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
@@ -189,7 +246,8 @@ def check_flash(torch, gen) -> dict:
     b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
     log(f"[kernels] flash_attention timing B=1 Sq=Skv={Sq} H={H} KV={KV} hd={hd} bf16 causal: "
         f"kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms "
-        f"(sdpa max_abs_err vs plain {lib_err:.3e}); window=512: kernel {t_kernel_w:.4f} ms; "
+        f"(sdpa max_abs_err vs plain {lib_err:.3e}); device time per call: kernel "
+        f"{d_kernel:.4f} ms, plain {d_plain:.4f} ms; window=512: kernel {t_kernel_w:.4f} ms; "
         f"bound {max(b_bytes, b_ops) * 1e3:.2f} us ({n_bytes} B, {flops} FLOP)")
     return {
         "name": "flash_attention",
@@ -201,6 +259,8 @@ def check_flash(torch, gen) -> dict:
         "tolerance": worst_tol,
         "ms": t_kernel,
         "plain_ms": t_plain,
+        "device_ms": d_kernel,
+        "plain_device_ms": d_plain,
         "bound_ms": max(b_bytes, b_ops),
         "bound_us": max(b_bytes, b_ops) * 1e3,
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
@@ -263,6 +323,12 @@ def check_paged(torch, gen) -> dict:
     t_kernel = time_ms(torch, lambda: paged_decode_attention.paged_decode_attention(
         q, kp, vp, tbl, pos), iters=100)
     t_plain = time_ms(torch, lambda: ref.paged_decode_attention(q, kp, vp, tbl, pos))
+    d_kernel = device_ms(torch, lambda: paged_decode_attention.paged_decode_attention(
+        q, kp, vp, tbl, pos))
+    d_plain = device_ms(torch, lambda: ref.paged_decode_attention(q, kp, vp, tbl, pos))
+    d_cold = cold_device_ms(
+        torch, lambda k_, v_: paged_decode_attention.paged_decode_attention(q, k_, v_, tbl, pos),
+        (kp, vp), kp.nbytes + vp.nbytes)
     B, H, hd = q.shape
     KV = kp.shape[2]
     n_valid = sum(p + 1 for p in uneven)
@@ -272,6 +338,8 @@ def check_paged(torch, gen) -> dict:
     b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
     log(f"[kernels] paged_decode_attention timing B={B} H={H} KV={KV} hd={hd} page=16 "
         f"n_pages=68 pos={uneven} bf16: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms; "
+        f"device time per call: kernel {d_kernel:.4f} ms, plain {d_plain:.4f} ms, kernel "
+        f"with the pools cold in L2 {d_cold:.4f} ms; "
         f"bound {max(b_bytes, b_ops) * 1e3:.2f} us ({n_bytes} B, {flops} FLOP)")
     return {
         "name": "paged_decode_attention",
@@ -283,6 +351,9 @@ def check_paged(torch, gen) -> dict:
         "tolerance": worst_tol,
         "ms": t_kernel,
         "plain_ms": t_plain,
+        "device_ms": d_kernel,
+        "plain_device_ms": d_plain,
+        "cold_device_ms": d_cold,
         "bound_ms": max(b_bytes, b_ops),
         "bound_us": max(b_bytes, b_ops) * 1e3,
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
@@ -291,10 +362,192 @@ def check_paged(torch, gen) -> dict:
     }
 
 
+def _decode_case(torch, gen, *, pos, dtype, B=8, S=1088, H=4, KV=1, hd=256, poison=False):
+    """Dense per-slot caches as the dense serving path holds them; with
+    `poison`, every slot past pos holds 1e4 (must never reach the output)."""
+    k = torch.randn((B, S, KV, hd), generator=gen, device="cuda")
+    v = torch.randn((B, S, KV, hd), generator=gen, device="cuda")
+    if poison:
+        past = torch.arange(S, device="cuda")[None, :] > torch.as_tensor(pos, device="cuda")[:, None]
+        k[past] = 1e4
+        v[past] = 1e4
+    q = torch.randn((B, H, hd), generator=gen, device="cuda").to(dtype)
+    pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+    return q, k.to(dtype), v.to(dtype), pos_t
+
+
+def check_decode(torch, gen) -> dict:
+    from repro_torch.kernels import decode_attention, ref
+
+    uneven = [0, 15, 16, 100, 511, 512, 777, 1087]
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [
+            dict(pos=uneven, dtype=dtype),  # global layers: max_len 1088, ragged S
+            # local layers: a ring of 512, eff_pos clamped to 511
+            dict(pos=[0, 5, 200, 511, 511, 511, 300, 17], dtype=dtype, S=512),
+            dict(pos=[299, 0, 64, 150], dtype=dtype, B=4, S=300, H=8, KV=2, hd=128),  # GQA
+            dict(pos=uneven, dtype=dtype, poison=True),
+            dict(pos=[5, 15], dtype=dtype, B=2, S=16, hd=16),  # REDUCED widths
+        ]
+    worst, worst_tol = 0.0, None
+    for case in cases:
+        q, k, v, pos = _decode_case(torch, gen, **case)
+        got = decode_attention.decode_attention(q, k, v, pos)
+        want = ref.decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        name = str(case["dtype"]).split(".")[-1]
+        err, ok = _max_err_and_ok(torch, got, want, TOL[name])
+        desc = ", ".join(f"{k}={v}" for k, v in case.items() if k != "dtype")
+        log(f"[kernels] decode_attention {name} {desc}: max_abs_err={err:.3e} "
+            f"tol={TOL[name]} {'ok' if ok else 'FAIL'}")
+        require(ok, f"decode_attention disagrees with its plain version ({desc}, {name})")
+        if err > worst:
+            worst, worst_tol = err, TOL[name]
+
+    # timing at the dense serving path's global-layer shape: 8 slots, uneven
+    # positions in the 1088-deep cache, bf16
+    q, k, v, pos = _decode_case(torch, gen, pos=uneven, dtype=torch.bfloat16)
+    t_kernel = time_ms(torch, lambda: decode_attention.decode_attention(q, k, v, pos), iters=100)
+    t_plain = time_ms(torch, lambda: ref.decode_attention(q, k, v, pos))
+    d_kernel = device_ms(torch, lambda: decode_attention.decode_attention(q, k, v, pos))
+    d_plain = device_ms(torch, lambda: ref.decode_attention(q, k, v, pos))
+    d_cold = cold_device_ms(
+        torch, lambda k_, v_: decode_attention.decode_attention(q, k_, v_, pos), (k, v),
+        k.nbytes + v.nbytes)
+    d_plain_cold = cold_device_ms(torch, lambda k_, v_: ref.decode_attention(q, k_, v_, pos),
+                                  (k, v), k.nbytes + v.nbytes)
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    # the library yardstick: one SDPA call with a boolean validity mask
+    qt, kt, vt = q[:, :, None, :], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None].long())[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_lib = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=100)
+    lib_out = sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)[:, :, 0]
+    lib_err = float((lib_out.float() - ref.decode_attention(q, k, v, pos).float()).abs().max())
+    n_valid = sum(p + 1 for p in uneven)
+    elem = q.element_size()
+    n_bytes = 2 * q.numel() * elem + 2 * n_valid * KV * hd * elem + B * 4
+    flops = 4 * H * hd * n_valid
+    b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+    log(f"[kernels] decode_attention timing B={B} S={S} H={H} KV={KV} hd={hd} pos={uneven} "
+        f"bf16: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms (sdpa "
+        f"max_abs_err vs plain {lib_err:.3e}); device time per call: kernel {d_kernel:.4f} ms "
+        f"(split + combine), plain {d_plain:.4f} ms; with the caches cold in L2: kernel "
+        f"{d_cold:.4f} ms, plain {d_plain_cold:.4f} ms; split_len "
+        f"{decode_attention.split_len(B, KV, S)}; bound {max(b_bytes, b_ops) * 1e3:.3f} us "
+        f"({n_bytes} B, {flops} FLOP)")
+    return {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:70",
+        "launches": 0,
+        "max_abs_err": worst,
+        "tolerance": worst_tol,
+        "ms": t_kernel,
+        "plain_ms": t_plain,
+        "device_ms": d_kernel,
+        "plain_device_ms": d_plain,
+        "cold_device_ms": d_cold,
+        "plain_cold_device_ms": d_plain_cold,
+        "bound_ms": max(b_bytes, b_ops),
+        "bound_us": max(b_bytes, b_ops) * 1e3,
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "library_ms": t_lib,
+        "timed_shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16, {n_valid} valid positions",
+    }
+
+
+def _linear_bound_ms(M, K, N, elem, dtype_name) -> tuple:
+    n_bytes = (M * K + K * N + N + M * N) * elem
+    flops = 2 * M * N * K
+    b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations"), n_bytes, flops
+
+
+def check_fused_linear(torch, gen) -> dict:
+    from repro_torch.kernels import fused_linear
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain and library products in full fp32
+    shapes = [(256, 64, 32), (256, 32, 10), (128, 128, 128), (256, 384, 128), (77, 50, 10)]
+    worst, worst_tol = 0.0, None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for M, K, N in shapes:
+            x, w, b = (0.3 * torch.randn(sh, generator=gen, device="cuda")
+                       for sh in ((M, K), (K, N), (N,)))
+            x, w, b = (t.to(dtype) for t in (x, w, b))
+            for act in ("none", "relu", "gelu"):
+                got = fused_linear.fused_linear(x, w, b, act=act)
+                want = fused_linear.fused_linear_ref(x, w, b, act=act)
+                torch.cuda.synchronize()
+                err, ok = _max_err_and_ok(torch, got, want, LINEAR_TOL[name])
+                ok = ok and got.dtype == dtype
+                log(f"[kernels] fused_linear {name} M={M} K={K} N={N} act={act}: "
+                    f"max_abs_err={err:.3e} tol={LINEAR_TOL[name]} {'ok' if ok else 'FAIL'}")
+                require(ok, f"fused_linear disagrees with its plain version "
+                        f"(M={M} K={K} N={N} act={act}, {name})")
+                if err > worst:
+                    worst, worst_tol = err, LINEAR_TOL[name]
+
+    def timings(M, K, N, dtype, act, iters):
+        x, w, b = (0.3 * torch.randn(sh, generator=gen, device="cuda")
+                   for sh in ((M, K), (K, N), (N,)))
+        x, w, b = (t.to(dtype) for t in (x, w, b))
+        t_kernel = time_ms(torch, lambda: fused_linear.fused_linear(x, w, b, act=act), iters=iters)
+        t_plain = time_ms(torch, lambda: fused_linear.fused_linear_ref(x, w, b, act=act),
+                          iters=iters)
+        t_lib = time_ms(torch, lambda: torch.addmm(b, x, w), iters=iters)
+        d_kernel = device_ms(torch, lambda: fused_linear.fused_linear(x, w, b, act=act),
+                             iters=iters)
+        d_plain = device_ms(torch, lambda: fused_linear.fused_linear_ref(x, w, b, act=act),
+                            iters=iters)
+        name = str(dtype).split(".")[-1]
+        bound, by, n_bytes, flops = _linear_bound_ms(M, K, N, x.element_size(), name)
+        err = float((fused_linear.fused_linear(x, w, b, act=act).float()
+                     - fused_linear.fused_linear_ref(x, w, b, act=act).float()).abs().max())
+        log(f"[kernels] fused_linear timing M={M} K={K} N={N} {name} act={act}: kernel "
+            f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, addmm {t_lib:.4f} ms (bias only; the "
+            f"activation would be one more launch); device time per call: kernel "
+            f"{d_kernel:.4f} ms, plain {d_plain:.4f} ms; max_abs_err vs plain {err:.3e}; bound "
+            f"{bound * 1e3:.3f} us by {by} ({n_bytes} B, {flops} FLOP); "
+            f"{flops / (d_kernel * 1e-3) / 1e12:.2f} TFLOP/s on the device time")
+        return dict(shape=f"M={M} K={K} N={N} {name} act={act}", ms=t_kernel, plain_ms=t_plain,
+                    device_ms=d_kernel, plain_device_ms=d_plain, library_ms=t_lib,
+                    bound_ms=bound, bound_by=by, max_abs_err=err)
+
+    # the Test Case 2 path: layer 1 (256 x 64 @ 64 x 32, relu), fp32
+    main = timings(256, 64, 32, torch.float32, "relu", iters=100)
+    large = [timings(*LARGE_GEMM, torch.float32, "none", iters=5),
+             timings(*LARGE_GEMM, torch.bfloat16, "none", iters=5)]
+    return {
+        "name": "fused_linear",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/fused_linear.cu",
+        "replaces": "src/repro/kernels/fused_linear.py:44",
+        "launches": 0,
+        "max_abs_err": worst,
+        "tolerance": worst_tol,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "device_ms": main["device_ms"],
+        "plain_device_ms": main["plain_device_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_us": main["bound_ms"] * 1e3,
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "timed_shape": main["shape"],
+        "other_timings": large,
+    }
+
+
 def phase_kernels(torch) -> list:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    return [check_flash(torch, gen), check_paged(torch, gen)]
+    return [check_flash(torch, gen), check_paged(torch, gen), check_decode(torch, gen),
+            check_fused_linear(torch, gen)]
 
 
 # ---------------------------------------------------------------------------
@@ -350,19 +603,11 @@ def phase_reduced(torch) -> None:
     cfg = get_config("gemma3-1b", reduced=True)
     require(cfg.compute_dtype == "float32", "REDUCED gemma3-1b computes in fp32")
     params_cpu = build(cfg).init(seed=0, device="cpu")
-
-    def to(tree, device):
-        if isinstance(tree, dict):
-            return {k: to(v, device) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, device) for v in tree]
-        return tree.to(device)
-
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (45, 12, 3)]
     steps = rng.integers(1, cfg.vocab_size, (16, len(prompts))).tolist()
     ops.reset_launch_counts()
-    on_card = reduced_logits(torch, cfg, to(params_cpu, "cuda"), prompts, steps, "cuda")
+    on_card = reduced_logits(torch, cfg, _to_device(params_cpu, "cuda"), prompts, steps, "cuda")
     counts = ops.launch_counts()
     on_cpu = reduced_logits(torch, cfg, params_cpu, prompts, steps, "cpu")
     require(counts["flash_attention"] == len(prompts) * cfg.num_layers
@@ -378,11 +623,18 @@ def phase_reduced(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 5. serve full-width gemma3-1b
+# 5 and 7. serve full-width gemma3-1b (paged, then dense)
 # ---------------------------------------------------------------------------
 
 
-def phase_serve(torch) -> dict:
+LARGE_GEMM = (4096, 4096, 4096)  # M, K, N of the large fused_linear timings
+SERVE_REQUESTS = dict(n=16, prompt_range=(64, 1025), steps_range=(16, 65), seed=0)
+
+
+def phase_serve(torch, kv_mode: str = "paged") -> tuple:
+    """Full-width gemma3-1b serves the 16 synthetic requests through the
+    continuous-batching scheduler in `kv_mode`. Returns (launch counts of
+    the served run, {rid: tokens})."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -393,34 +645,39 @@ def phase_serve(torch) -> dict:
     from repro_torch.serve.scheduler import ContinuousBatchingScheduler
     from repro_torch.serve.workload import synthetic_requests
 
+    tag = "[serve]" if kv_mode == "paged" else f"[serve-{kv_mode}]"
+    gc.collect()  # earlier phases' weights: peak memory counts this phase's only
     cfg = get_config("gemma3-1b")
     model = build(cfg)
-    prompt_range, steps_range, n_req = (64, 1025), (16, 65), 16
+    n_req = SERVE_REQUESTS["n"]
+    prompt_range, steps_range = SERVE_REQUESTS["prompt_range"], SERVE_REQUESTS["steps_range"]
     max_len = (prompt_range[1] - 1) + (steps_range[1] - 1)
     with Runtime("torchdev") as rt:
         t0 = time.perf_counter()
         params = model.init(seed=0, device=rt.processing_unit.context,
                             dtype=dtype_of(cfg.compute_dtype))
         torch.cuda.synchronize()
-        log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        log(f"{tag} {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
             f"{cfg.num_heads}q/{cfg.num_kv_heads}kv heads x {cfg.resolved_head_dim}, d_ff "
             f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.compute_dtype}; weights initialised on "
             f"the card in {time.perf_counter() - t0:.1f}s")
         sched = ContinuousBatchingScheduler(
-            model, params, max_batch=8, max_len=max_len, runtime=rt, kv_mode="paged",
+            model, params, max_batch=8, max_len=max_len, runtime=rt, kv_mode=kv_mode,
             page_size=16, sync_interval=8,
         )
-        layout = sched.decoder.layout
-        log(f"[serve] layout: cache_len {layout.cache_len}, ring {layout.ring} "
-            f"(w_pages {layout.w_pages}), pool pages {layout.num_pages}")
+        if kv_mode == "paged":
+            layout = sched.decoder.layout
+            log(f"{tag} layout: cache_len {layout.cache_len}, ring {layout.ring} "
+                f"(w_pages {layout.w_pages}), pool pages {layout.num_pages}")
         # warm-up: CUDA context, cuBLAS handles, kernel library
         warm = synthetic_requests(cfg.vocab_size, 2, prompt_range=(64, 65), steps_range=(9, 10),
                                   seed=1, rid_prefix="warm")
         sched.serve(warm)
-        require(sched.decoder.kv.pages_used == 0, "warm-up left pages allocated")
+        if kv_mode == "paged":
+            require(sched.decoder.kv.pages_used == 0, "warm-up left pages allocated")
 
         requests = synthetic_requests(cfg.vocab_size, n_req, prompt_range=prompt_range,
-                                      steps_range=steps_range, seed=0)
+                                      steps_range=steps_range, seed=SERVE_REQUESTS["seed"])
         admitted_at = {}
         admit = sched.try_admit
 
@@ -442,6 +699,9 @@ def phase_serve(torch) -> dict:
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         ticks = sched.ticks - ticks0
+        if kv_mode == "dense":
+            log(f"{tag} dense caches: {sched.decoder.cache_capacity} positions deep on the "
+                f"global layers")
 
     require(len(results) == n_req, f"{len(results)} of {n_req} requests finished")
     n_tok = 0
@@ -452,23 +712,227 @@ def phase_serve(torch) -> dict:
                 f"{r.rid}: {len(toks)} tokens ({fin.finish_reason}), budget {r.max_new_tokens}")
         require(bool(np.all((toks >= 0) & (toks < cfg.vocab_size))), f"{r.rid}: token out of range")
         n_tok += len(toks)
-    require(sched.decoder.kv.pages_used == 0, "pages still allocated after the drain")
     require(counts["flash_attention"] == n_req * cfg.num_layers,
             f"flash_attention launched {counts['flash_attention']} times, "
             f"expected {n_req * cfg.num_layers}")
-    require(counts["paged_decode_attention"] == ticks * cfg.num_layers,
-            f"paged_decode_attention launched {counts['paged_decode_attention']} times, "
+    decode_kernel = "paged_decode_attention" if kv_mode == "paged" else "decode_attention"
+    require(counts[decode_kernel] == ticks * cfg.num_layers,
+            f"{decode_kernel} launched {counts[decode_kernel]} times, "
             f"expected {ticks * cfg.num_layers}")
+    if kv_mode == "paged":
+        require(sched.decoder.kv.pages_used == 0, "pages still allocated after the drain")
     ttft = np.asarray([admitted_at[r.rid] - t0 for r in requests])
     plens = [len(r.prompt) for r in requests]
-    log(f"[serve] {n_req} requests (prompts {min(plens)}-{max(plens)} tokens, "
+    log(f"{tag} {n_req} requests (prompts {min(plens)}-{max(plens)} tokens, "
         f"{sum(plens)} prompt tokens), {n_tok} generated tokens in {wall:.3f}s: "
         f"{n_tok / wall:.1f} tok/s; TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f} ms, "
         f"p90 {np.percentile(ttft, 90) * 1e3:.1f} ms (from a common start, queueing included); "
         f"{ticks} decode ticks; peak device memory {peak / 2**30:.2f} GiB; launches {counts}")
     for r in requests[:3]:
-        log(f"[serve] {r.rid}: prompt {len(r.prompt)} tokens -> {results[r.rid].tokens[:8]}...")
+        log(f"{tag} {r.rid}: prompt {len(r.prompt)} tokens -> {results[r.rid].tokens[:8]}...")
+    return counts, {rid: fin.tokens for rid, fin in results.items()}
+
+
+# ---------------------------------------------------------------------------
+# 6. REDUCED model through the dense decode, on the card vs the CPU
+# ---------------------------------------------------------------------------
+
+
+def dense_logits(torch, cfg, params, prompts, steps_tokens, device):
+    """Prefill each prompt into its slot of dense per-slot caches, then run
+    teacher-forced dense decode ticks at per-slot positions; returns every
+    logits tensor on the CPU."""
+    import numpy as np
+
+    from repro_torch.models import transformer as tf
+
+    B = len(prompts)
+    max_len = max(len(p) for p in prompts) + len(steps_tokens)
+    caches, outs = None, []
+    for s, prompt in enumerate(prompts):
+        tokens = torch.as_tensor(np.asarray([prompt], np.int32), device=device)
+        logits, one = tf.lm_prefill(cfg, params, tokens, tf.init_caches(cfg, 1, max_len,
+                                                                         device=device))
+        outs.append(logits.cpu())
+        if caches is None:
+            caches = [tuple(torch.zeros((B,) + t.shape[1:], dtype=t.dtype, device=device)
+                            for t in kv) for kv in one]
+        for (bk, bv), (k, v) in zip(caches, one):
+            bk[s], bv[s] = k[0], v[0]
+    pos = torch.as_tensor([len(p) for p in prompts], dtype=torch.int32, device=device)
+    for step_tokens in steps_tokens:
+        tokens = torch.as_tensor(np.asarray(step_tokens, np.int32)[:, None], device=device)
+        logits, caches = tf.lm_decode_step(cfg, params, caches, tokens, pos)
+        outs.append(logits.cpu())
+        pos = pos + 1
+    return outs
+
+
+def phase_reduced_dense(torch) -> None:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    from repro_torch.serve.workload import synthetic_requests
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("gemma3-1b", reduced=True)
+    model = build(cfg)
+    params_cpu = model.init(seed=0, device="cpu")
+    params_card = _to_device(params_cpu, "cuda")
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (45, 12, 3)]
+    steps = rng.integers(1, cfg.vocab_size, (16, len(prompts))).tolist()
+    ops.reset_launch_counts()
+    on_card = dense_logits(torch, cfg, params_card, prompts, steps, "cuda")
+    counts = ops.launch_counts()
+    on_cpu = dense_logits(torch, cfg, params_cpu, prompts, steps, "cpu")
+    require(counts["decode_attention"] == len(steps) * cfg.num_layers
+            and counts["flash_attention"] == len(prompts) * cfg.num_layers,
+            f"reduced dense run did not go through the kernels: {counts}")
+    worst = max(float((a - b).abs().max()) for a, b in zip(on_card, on_cpu))
+    same_greedy = all(torch.equal(a.argmax(-1), b.argmax(-1)) for a, b in zip(on_card, on_cpu))
+    log(f"[reduced-dense] gemma3-1b REDUCED fp32, prefill of {len(prompts)} prompts + "
+        f"{len(steps)} teacher-forced dense ticks at per-slot positions: max |logits card - cpu| "
+        f"= {worst:.3e} (atol {REDUCED_ATOL}), greedy tokens equal: {same_greedy}, "
+        f"launches {counts}")
+    require(worst <= REDUCED_ATOL, f"REDUCED dense logits differ by {worst:.3e} > {REDUCED_ATOL}")
+    require(same_greedy, "REDUCED dense greedy tokens differ between the card and the CPU")
+
+    requests = synthetic_requests(cfg.vocab_size, 6, prompt_range=(3, 12), steps_range=(2, 14),
+                                  seed=0)
+    engine_prompts = rng.integers(1, cfg.vocab_size, (3, 9)).astype(np.int32)
+    served, generated, launches = {}, {}, {}
+    for device, params in (("cuda", params_card), ("cpu", params_cpu)):
+        with Runtime("torchdev", device=device) as rt:
+            ops.reset_launch_counts()
+            sched = ContinuousBatchingScheduler(model, params, max_batch=4, max_len=64,
+                                                runtime=rt, kv_mode="dense")
+            served[device] = {rid: f.tokens for rid, f in sched.serve(requests).items()}
+            launches[device] = ops.launch_counts()
+            engine = ServeEngine(model, params, max_len=40, runtime=rt)
+            generated[device] = engine.generate(engine_prompts, steps=12).tokens
+    log(f"[reduced-dense] dense serve of {len(requests)} requests and serial generate "
+        f"(3 x 9 prompts, 12 steps): card tokens equal CPU tokens: serve "
+        f"{served['cuda'] == served['cpu']}, generate "
+        f"{bool(np.array_equal(generated['cuda'], generated['cpu']))}; card serve launches "
+        f"{launches['cuda']}")
+    require(launches["cuda"]["decode_attention"] > 0, "the dense serve launched no decode kernel")
+    require(served["cuda"] == served["cpu"], "REDUCED dense serve tokens differ card vs CPU")
+    require(bool(np.array_equal(generated["cuda"], generated["cpu"])),
+            "REDUCED serial generate tokens differ card vs CPU")
+
+
+# ---------------------------------------------------------------------------
+# 8. serial engine, full width
+# ---------------------------------------------------------------------------
+
+
+def phase_serial(torch) -> dict:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models.common import dtype_of
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("gemma3-1b")
+    model = build(cfg)
+    B, S, steps = 8, 512, 32
+    gc.collect()  # earlier phases' weights: peak memory counts this phase's only
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab_size, (B, S)).astype(np.int32)
+    with Runtime("torchdev") as rt:
+        params = model.init(seed=0, device=rt.processing_unit.context,
+                            dtype=dtype_of(cfg.compute_dtype))
+        engine = ServeEngine(model, params, max_len=S + steps, runtime=rt)
+        engine.generate(prompts[:, :64], steps=2)  # warm-up
+        first = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, steps=steps,
+                              on_first_token=lambda: first.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    toks = out.tokens
+    require(toks.shape == (B, steps), f"serial generate returned {toks.shape}")
+    require(bool(np.all((toks >= 0) & (toks < cfg.vocab_size))), "serial token out of range")
+    require(counts["flash_attention"] == cfg.num_layers
+            and counts["decode_attention"] == steps * cfg.num_layers,
+            f"serial launches {counts}, expected flash {cfg.num_layers} and decode "
+            f"{steps * cfg.num_layers}")
+    require(bool(np.isfinite(out.prefill_logits).all()), "serial prefill logits not finite")
+    log(f"[serial] ServeEngine.generate B={B} prompts of {S} tokens, {steps} steps: "
+        f"{B * steps} tokens in {wall:.3f}s: {B * steps / wall:.1f} tok/s; first token after "
+        f"{(first[0] - t0) * 1e3:.1f} ms; peak device memory {peak / 2**30:.2f} GiB; "
+        f"launches {counts}; row 0 -> {toks[0, :8].tolist()}...")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# 9. the paper's Test Case 2: heterogeneous inference
+# ---------------------------------------------------------------------------
+
+
+def phase_tc2(torch) -> dict:
+    from repro_torch.apps import mlp_inference
+    from repro_torch.backends import hostcpu, torchdev
+    from repro_torch.kernels import ops
+
+    weights = mlp_inference.train_weights()
+    host_res = hostcpu.HostTopologyManager().query_topology().all_compute_resources()[0]
+    card_res = torchdev.TorchTopologyManager().query_topology().all_compute_resources()[0]
+    n_test, batch = 2000, 256
+    n_batches = -(-n_test // batch)
+    results, counts, walls = {}, {}, {}
+    for kernel, cm, res in (("numpy", hostcpu.HostComputeManager(), host_res),
+                            ("torch", torchdev.TorchComputeManager(), card_res),
+                            ("fused_linear", torchdev.TorchComputeManager(), card_res)):
+        mlp_inference.run_inference(cm, res, kernel=kernel, weights=weights, n_test=batch,
+                                    batch_size=batch)  # warm-up
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results[kernel] = mlp_inference.run_inference(cm, res, kernel=kernel, weights=weights,
+                                                      n_test=n_test, batch_size=batch)
+        walls[kernel] = time.perf_counter() - t0
+        counts[kernel] = ops.launch_counts()
+    for kernel, r in results.items():
+        log(f"[tc2] {kernel:>12}: accuracy {r.accuracy:.4f}, img-0 class {r.img0_class}, "
+            f"score {r.img0_score:.7f}; {n_test} images in {walls[kernel] * 1e3:.1f} ms; "
+            f"launches {counts[kernel]}")
+    accs = {r.accuracy for r in results.values()}
+    scores = [r.img0_score for r in results.values()]
+    require(len(accs) == 1, f"Test Case 2 accuracies diverged: {accs}")
+    require(min(accs) > 0.85, f"Test Case 2 accuracy {min(accs)} <= 0.85")
+    require(len({r.img0_class for r in results.values()}) == 1, "img-0 class differs across rows")
+    require(max(scores) - min(scores) < 1e-4, f"img-0 scores spread {max(scores) - min(scores)}")
+    require(counts["fused_linear"]["fused_linear"] == 2 * n_batches,
+            f"fused_linear launched {counts['fused_linear']['fused_linear']} times, "
+            f"expected {2 * n_batches}")
+    require(all(c["fused_linear"] == 0 for k, c in counts.items() if k != "fused_linear"),
+            "a row other than fused_linear launched the kernel")
+    log(f"[tc2] Table 2 holds: accuracy {min(accs):.4f} on every row, img-0 score spread "
+        f"{max(scores) - min(scores):.2e}")
+    return counts["fused_linear"]
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
 
 
 def main() -> int:
@@ -488,19 +952,36 @@ def main() -> int:
         print(f"chip_smoke: the port (src/repro_torch) is not importable: {e}", file=sys.stderr)
         return 2
     try:
+        t_start = time.perf_counter()
         phase_device(torch)
-        phase_build()
-        kernels = phase_kernels(torch)
-        phase_reduced(torch)
-        counts = phase_serve(torch)
+        run_phase("build", phase_build)
+        kernels = run_phase("kernels", phase_kernels, torch)
+        run_phase("reduced", phase_reduced, torch)
+        paged_counts, paged_tokens = run_phase("serve", phase_serve, torch, "paged")
+        run_phase("reduced-dense", phase_reduced_dense, torch)
+        dense_counts, dense_tokens = run_phase("serve-dense", phase_serve, torch, "dense")
+        agree = sum(sum(a == b for a, b in zip(dense_tokens[rid], paged_tokens[rid]))
+                    for rid in paged_tokens)
+        total = sum(len(t) for t in paged_tokens.values())
+        log(f"[serve-dense] tokens equal to the paged run's at the same position: {agree} of "
+            f"{total} ({agree / total:.3f}; bf16 sums in another order may flip a greedy "
+            f"pick, so reported, not required)")
+        run_phase("serial", phase_serial, torch)
+        tc2_counts = run_phase("tc2", phase_tc2, torch)
+        log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
 
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    # each kernel's launches on its own path: flash and paged decode on the
+    # paged serve (as in earlier runs), dense decode on the dense serve,
+    # fused_linear on Test Case 2's fused_linear row
+    path_counts = {"flash_attention": paged_counts, "paged_decode_attention": paged_counts,
+                   "decode_attention": dense_counts, "fused_linear": tc2_counts}
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        k["launches"] = path_counts[k["name"]][k["name"]]
     forbidden = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "repro" or m.startswith("repro.")]
     if forbidden:

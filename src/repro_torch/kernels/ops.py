@@ -1,6 +1,6 @@
 """Kernel entry points the models call, dispatched by the tensor's device.
 
-* CPU tensor: the plain PyTorch version (`ref`).
+* CPU tensor: the plain PyTorch version (`ref`, `fused_linear_ref`).
 * CUDA tensor: the hand-written kernel. If it cannot build or launch, the
   call raises; nothing falls back to the plain version.
 
@@ -13,7 +13,9 @@ from typing import Dict, Optional
 
 import torch
 
+from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import fused_linear as _linear
 from . import paged_decode_attention as _paged
 from . import ref
 
@@ -40,6 +42,18 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0, prefix_len: int 
     )
 
 
+def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, H, hd); k/v_cache: (B, S, KV, hd); pos: scalar or (B,) int32
+    -> (B, H, hd). Validity is slot <= pos; `window` reaches the plain
+    version only, which ignores it as the reference's oracle does (ring
+    buffers are fully valid through the caller's clamp), so the kernel takes
+    none."""
+    if _on_cuda(q, "decode_attention"):
+        return _decode.decode_attention(q, k_cache, v_cache, pos, scale=scale)
+    return ref.decode_attention(q, k_cache, v_cache, pos, window=window, scale=scale)
+
+
 def paged_decode_attention(q, k_pool, v_pool, page_table, pos, *, window: int = 0,
                            scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, H, hd); k/v_pool: (P, page, KV, hd); page_table: (B, n_pages);
@@ -53,14 +67,26 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, pos, *, window: int = 
     )
 
 
+def fused_linear(x, w, b, *, act: str = "none") -> torch.Tensor:
+    """act(x @ w + b): x (M, K), w (K, N), b (N,) -> (M, N) in x's dtype."""
+    if _on_cuda(x, "fused_linear"):
+        return _linear.fused_linear(x, w, b, act=act)
+    return _linear.fused_linear_ref(x, w, b, act=act)
+
+
+_KERNELS = {
+    "flash_attention": _flash,
+    "paged_decode_attention": _paged,
+    "decode_attention": _decode,
+    "fused_linear": _linear,
+}
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far in this process, by kernel name."""
-    return {
-        "flash_attention": _flash.launches,
-        "paged_decode_attention": _paged.launches,
-    }
+    return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    _flash.launches = 0
-    _paged.launches = 0
+    for mod in _KERNELS.values():
+        mod.launches = 0

@@ -1,9 +1,10 @@
 """Where the serving path's time goes on the card: a traced run of the same
 workload as `chip_smoke.py`'s serve phase (full gemma3-1b, 8 slots, 16
-synthetic requests with 64-1024-token prompts and 16-64 new tokens, page 16,
-sync interval 8), under `torch.profiler`.
+synthetic requests with 64-1024-token prompts and 16-64 new tokens; paged:
+page 16, sync interval 8), under `torch.profiler`.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--seed 0]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--seed 0] \
+        [--kv-mode paged|dense]
 
 Prints the untraced wall time of the run, then for the traced run: the
 device's busy time (union of kernel intervals) and idle share of the traced
@@ -46,6 +47,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--kv-mode", choices=("paged", "dense"), default="paged")
     args = ap.parse_args(argv)
     cfg = get_config("gemma3-1b")
     model = build(cfg)
@@ -53,7 +55,7 @@ def main(argv=None):
         params = model.init(seed=0, device=rt.processing_unit.context,
                             dtype=dtype_of(cfg.compute_dtype))
         sched = ContinuousBatchingScheduler(
-            model, params, max_batch=8, max_len=1088, runtime=rt, kv_mode="paged",
+            model, params, max_batch=8, max_len=1088, runtime=rt, kv_mode=args.kv_mode,
             page_size=16, sync_interval=8,
         )
         sched.serve(synthetic_requests(cfg.vocab_size, 2, prompt_range=(64, 65),
@@ -69,7 +71,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n_tok = sum(len(f.tokens) for f in results.values())
-        print(f"untraced: {n_tok} tokens in {wall:.3f}s ({n_tok / wall:.1f} tok/s)")
+        print(f"untraced ({args.kv_mode}): {n_tok} tokens in {wall:.3f}s "
+              f"({n_tok / wall:.1f} tok/s)")
 
         host = defaultdict(float)
         admit, step = sched.try_admit, sched.step
@@ -82,8 +85,8 @@ def main(argv=None):
                 return out
             return run
 
-        sched.try_admit, sched.step = timed("admission (prefill + commit)", admit), \
-            timed("decode intervals", step)
+        sched.try_admit, sched.step = timed("admission (prefill + load)", admit), \
+            timed("decode steps", step)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()

@@ -1,6 +1,6 @@
 """Attention layers: GQA/MQA self-attention prefill that fills a dense KV
-cache, and the paged KV-cache decode path. Port of the serving half of
-`repro/models/attention.py`.
+cache, one-token decode over that dense cache, and the paged KV-cache decode
+path. Port of the serving half of `repro/models/attention.py`.
 
 Weights keep the reference's einsum shapes, heads as their own dimension:
 
@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops
-from .common import ParamInit, apply_rope
+from .common import ParamInit, apply_rope, resolve_device
 
 
 def init_attention(pi: ParamInit, cfg: ArchConfig):
@@ -80,11 +80,49 @@ def prefill_attention(
     return _out_proj(p, out), (k_cache, v_cache)
 
 
+def slot_positions(pos, batch: int, device) -> torch.Tensor:
+    """A decode position as (batch,) int32 on `device`: a per-slot (batch,)
+    tensor as is, a scalar (the serial engine's shared position) broadcast."""
+    return torch.as_tensor(pos, device=device).to(torch.int32).reshape(-1).expand(batch)
+
+
+def decode_self_attention(
+    cfg: ArchConfig, p, x: torch.Tensor, cache: Tuple[torch.Tensor, torch.Tensor], pos, *,
+    window: int = 0,
+):
+    """One-token decode step over a dense per-slot KV cache, batched over
+    slots. x: (B, 1, d); pos: each slot's current position, (B,) or a scalar
+    shared by the whole batch (the serial engine). The reference vmaps a B=1
+    step over slots; here the batch dimension is written out, so RoPE, the
+    ring slot ``pos % window``, the ``eff_pos`` clamp and the cache write are
+    per slot. The write lands at the slot index clamped into the buffer, as
+    the reference's `dynamic_update_slice` clamps its start (only inactive
+    slots, whose outputs are discarded, run past the buffer). The cache is
+    written in place. Returns (out (B,1,d), cache)."""
+    B = x.shape[0]
+    pos = slot_positions(pos, B, x.device)
+    q, k, v = _project_qkv(cfg, p, x, pos[:, None])  # (B,1,H,hd) / (B,1,KV,hd)
+    k_cache, v_cache = cache
+    S_buf = k_cache.shape[1]
+    slot = torch.remainder(pos, window) if window and S_buf == window else pos
+    slot = torch.clamp(slot, 0, S_buf - 1).long()
+    rows = torch.arange(B, device=x.device)
+    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+    # ring buffers are fully valid once warm: validity is slot <= eff_pos
+    eff_pos = torch.clamp(pos, max=S_buf - 1)
+    out = ops.decode_attention(q[:, 0], k_cache, v_cache, eff_pos, window=window)
+    return _out_proj(p, out)[:, None, :], (k_cache, v_cache)
+
+
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, *, window: int = 0,
                   dtype=torch.bfloat16, device=None):
+    """One layer's (k, v) dense cache (batch, S_buf, KV, hd), zeroed on
+    `device` (None: the current CUDA device)."""
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     S_buf = min(window, max_len) if window else max_len
     shape = (batch, S_buf, KV, hd)
+    device = resolve_device(device)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -166,9 +204,11 @@ def paged_layout(
 
 def init_paged_kv_pool(cfg: ArchConfig, n_pages: int, page_size: int, *,
                        dtype=torch.bfloat16, device=None):
-    """One layer's (k, v) block-pool tensors: (n_pages, page, KV, hd)."""
+    """One layer's (k, v) block-pool tensors: (n_pages, page, KV, hd), zeroed
+    on `device` (None: the current CUDA device)."""
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     shape = (n_pages, page_size, KV, hd)
+    device = resolve_device(device)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 

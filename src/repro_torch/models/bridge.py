@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ArchConfig
+from .common import resolve_device
 from .transformer import unit_structure
 
 #: leaves kept in fp32 whatever the matrices' storage dtype (rms_norm reads
@@ -49,11 +50,13 @@ def unstack_layers(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
     return {"embed": dict(tree["embed"]), "final_norm": tree["final_norm"], "layers": layers}
 
 
-def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any], *, device="cpu",
+def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any], *, device=None,
                     dtype: Optional[torch.dtype] = None) -> dict:
     """The reference's `init_lm` params (nested dicts of numpy arrays) as the
-    port's params on `device`. `dtype` stores the matrices in another dtype
-    (norm weights stay fp32)."""
+    port's params on `device` (None: the current CUDA device, raising where
+    there is none; pass ``device="cpu"`` for the CPU). `dtype` stores the
+    matrices in another dtype (norm weights stay fp32)."""
+    device = resolve_device(device)
     flat = unstack_layers(cfg, tree)
 
     def convert(path_key: str):

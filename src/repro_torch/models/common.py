@@ -10,11 +10,20 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.backends.torchdev import resolve_device as _backend_device
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a constructor allocates on. None means the current CUDA
+    device and raises where there is none (the CPU only when asked, with
+    ``device="cpu"``); any other value is taken as given (``"meta"`` too)."""
+    return _backend_device(None) if device is None else torch.device(device)
 
 
 class ParamInit:

@@ -34,10 +34,15 @@ class PagedOps:
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     cfg: ArchConfig
-    init: Callable  # (seed=0, device=..., dtype=None) -> params
+    init: Callable  # (seed=0, device=None, dtype=None) -> params
+    #: (batch, max_len, device=None) -> per-layer dense decoder state
+    init_state: Callable
     #: (max_len) -> prefill(params, batch) whose caches have headroom for
     #: `max_len` positions, made on the tokens' device
     make_prefill: Callable
+    #: (params, state, {"tokens": (B,1), "pos": scalar or (B,)})
+    #: -> (logits (B,V), state), the dense caches updated in place
+    decode_step: Callable
     paged_ops: PagedOps
 
 
@@ -57,10 +62,15 @@ def _build_transformer(cfg: ArchConfig) -> ModelBundle:
 
         return prefill
 
+    def decode_step(params, state, batch):
+        return transformer.lm_decode_step(cfg, params, state, batch["tokens"], batch["pos"])
+
     return ModelBundle(
         cfg=cfg,
         init=functools.partial(transformer.init_lm, cfg),
+        init_state=functools.partial(transformer.init_caches, cfg),
         make_prefill=make_prefill,
+        decode_step=decode_step,
         paged_ops=PagedOps(
             layout=functools.partial(paged_layout, cfg),
             init_pools=functools.partial(transformer.init_paged_caches, cfg),

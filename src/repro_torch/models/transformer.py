@@ -18,13 +18,23 @@ import torch
 from repro_torch.configs import ArchConfig
 from .attention import (
     PagedLayout,
+    decode_self_attention,
     init_attention,
     init_kv_cache,
     init_paged_kv_pool,
     paged_decode_self_attention,
     prefill_attention,
+    slot_positions,
 )
-from .common import ParamInit, dtype_of, embed, init_embedding, rms_norm, unembed
+from .common import (
+    ParamInit,
+    dtype_of,
+    embed,
+    init_embedding,
+    resolve_device,
+    rms_norm,
+    unembed,
+)
 from .ffn import ffn, init_ffn
 
 # ---------------------------------------------------------------------------
@@ -59,14 +69,16 @@ def serving_windows(cfg: ArchConfig) -> List[int]:
     return layer_windows(cfg) if has_units(cfg) else [0] * cfg.num_layers
 
 
-def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cpu", dtype=None):
-    """Seeded parameters on `device`. Matrices are stored in `dtype`
+def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None, dtype=None):
+    """Seeded parameters on `device` (None: the current CUDA device, raising
+    where there is none; pass ``device="cpu"`` for the CPU). Matrices are
+    stored in `dtype`
     (default: the config's param dtype; the compute dtype stores them once
     at full width, which changes no number since every use casts to it);
     norm weights stay fp32, as `rms_norm` reads them."""
     if cfg.is_moe:
         raise NotImplementedError("MoE layers are not ported yet")
-    pi = ParamInit(seed, device, dtype or dtype_of(cfg.param_dtype))
+    pi = ParamInit(seed, resolve_device(device), dtype or dtype_of(cfg.param_dtype))
     d = cfg.d_model
     params = {
         "embed": init_embedding(pi, cfg.vocab_size, d, tie=cfg.tie_embeddings),
@@ -90,7 +102,8 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cpu", dtype=None):
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
     """Per-layer (k, v) caches: ring buffers of `window` entries on local
-    layers, `max_len` deep on global ones."""
+    layers, `max_len` deep on global ones, on `device` (None: the current
+    CUDA device)."""
     cd = dtype_of(cfg.compute_dtype)
     return [
         init_kv_cache(cfg, batch, max_len, window=w, dtype=cd, device=device)
@@ -103,6 +116,15 @@ def _prefill_layer(cfg, p_l, h, cache_kv, *, window, prefix_len=0):
     attn_out, new_cache = prefill_attention(
         cfg, p_l["attn"], attn_in, cache_kv, window=window, prefix_len=prefix_len
     )
+    h = h + attn_out
+    ffn_in = rms_norm(h, p_l["ln2"], eps=cfg.norm_eps)
+    return h + ffn(cfg, p_l["ffn"], ffn_in), new_cache
+
+
+def _decode_layer(cfg, p_l, h, cache_kv, pos, *, window):
+    attn_in = rms_norm(h, p_l["ln1"], eps=cfg.norm_eps)
+    attn_out, new_cache = decode_self_attention(cfg, p_l["attn"], attn_in, cache_kv, pos,
+                                                window=window)
     h = h + attn_out
     ffn_in = rms_norm(h, p_l["ln2"], eps=cfg.norm_eps)
     return h + ffn(cfg, p_l["ffn"], ffn_in), new_cache
@@ -124,6 +146,20 @@ def lm_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, caches, *, prefix_
     return unembed(params["embed"], h[:, 0], tie=cfg.tie_embeddings), caches
 
 
+def lm_decode_step(cfg: ArchConfig, params, caches, tokens: torch.Tensor, pos):
+    """One decode step over dense per-layer caches. tokens: (B, 1); pos: a
+    scalar shared by the batch (the serial engine) or (B,) per-slot
+    positions (the slot decoder). Returns (logits (B,V), caches), the caches
+    updated in place."""
+    cd = dtype_of(cfg.compute_dtype)
+    pos = slot_positions(pos, tokens.shape[0], tokens.device)  # once for every layer
+    h = embed(params["embed"], tokens, compute_dtype=cd)  # (B,1,d)
+    for i, (p_l, w) in enumerate(zip(params["layers"], serving_windows(cfg))):
+        h, caches[i] = _decode_layer(cfg, p_l, h, caches[i], pos, window=w)
+    h = rms_norm(h, params["final_norm"], eps=cfg.norm_eps)
+    return unembed(params["embed"], h[:, 0], tie=cfg.tie_embeddings), caches
+
+
 # ---------------------------------------------------------------------------
 # paged KV-cache serving: block-pool caches + page-table decode
 # ---------------------------------------------------------------------------
@@ -131,9 +167,10 @@ def lm_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, caches, *, prefix_
 
 def init_paged_caches(cfg: ArchConfig, layout: PagedLayout, *, device=None):
     """Per-layer (k, v) block pools shared by every slot (the page table is
-    the slot axis). Global layers pool `layout.num_pages` pages addressed by
-    the dynamic full table; local layers pool every slot's fixed ring pages,
-    or page like global layers when the layout has no ring."""
+    the slot axis), on `device` (None: the current CUDA device). Global
+    layers pool `layout.num_pages` pages addressed by the dynamic full table;
+    local layers pool every slot's fixed ring pages, or page like global
+    layers when the layout has no ring."""
     cd = dtype_of(cfg.compute_dtype)
     n_local = layout.ring_pages_total if layout.ring else layout.num_pages
     return [

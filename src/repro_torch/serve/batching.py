@@ -1,17 +1,24 @@
-"""Paged, device-resident decode core. Port of
-`repro/serve/batching.py::PagedSlotDecoder`.
+"""Batched decode cores. Port of `repro/serve/batching.py`.
 
-The KV caches live in a shared block pool (`serve/kv_pool.py`) addressed
-through the scheduler's page table, and the decode loop is fused:
-`sync_interval` decode+sample ticks run as ONE execution unit with tokens,
-positions and done flags staying on the device throughout; the host sees a
-small (slots, sync_interval + 2) summary once per interval instead of a
-device round trip per token.
+`SlotDecoder` owns `max_slots` dense per-slot caches sized for `max_len`
+positions. Admission prefills one request at a time (B=1 prefill with cache
+headroom) and copies its caches into a free slot; every tick then runs ONE
+batched decode step over all slots at each slot's own position, and copies
+the new tokens to the host (one device round trip per tick, as the
+reference's dense mode does).
+
+`PagedSlotDecoder` is the paged, device-resident variant: the KV caches live
+in a shared block pool (`serve/kv_pool.py`) addressed through the
+scheduler's page table, and the decode loop is fused: `sync_interval`
+decode+sample ticks run as ONE execution unit with tokens, positions and
+done flags staying on the device throughout; the host sees a small
+(slots, sync_interval + 2) summary once per interval instead of a device
+round trip per token.
 
 All computation is dispatched through the compute manager of a HiCR
-`Runtime` (registry-built): prefill, the commit of a prefilled cache into
-pages, and the fused interval are execution units. The dense `SlotDecoder`
-of the reference is not ported yet.
+`Runtime` (registry-built): prefill, the batched decode step, the slot pack,
+the commit of a prefilled cache into pages and the fused interval are
+execution units.
 """
 from __future__ import annotations
 
@@ -27,6 +34,120 @@ from .kv_pool import PagedKVPool
 
 # control columns of the (slots, 6) device-resident table
 TOK, POS, DONE, STEPS, EOS, CAP = range(6)
+
+
+class SlotDecoder:
+    """Dense per-slot decode core (the reference's `SlotDecoder`).
+
+    Caches are one ``(max_slots, S_buf, KV, hd)`` tensor pair per layer,
+    allocated at the first admission from the prefill's cache shapes (ring
+    buffers of the window on local layers, `max_len` deep on global ones)
+    and written in place. The reference vmaps a B=1 decode over the slot
+    axis; here the slot axis is the batch, with per-slot positions. Tokens
+    and positions live on the host (`last_tokens`, `pos`) and are uploaded
+    every tick; values in slots without a live request are garbage that the
+    caller ignores.
+    """
+
+    def __init__(
+        self,
+        model: ModelBundle,
+        params,
+        *,
+        max_slots: int = 8,
+        max_len: int = 256,
+        runtime: Optional[Runtime] = None,
+    ):
+        self.model = model
+        self.params = params
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.rt = runtime or Runtime("torchdev")
+        self.device: torch.device = self.rt.processing_unit.context
+        emb = params["embed"]["embedding"]
+        if emb.device != self.device:
+            raise ValueError(f"params live on {emb.device}, the runtime on {self.device}")
+        cm = self.rt.compute_manager
+        prefill_fn = model.make_prefill(max_len)
+
+        def prefill(p, b):
+            # greedy pick fused into the unit: admission copies one int32 to
+            # the host, not a logits row
+            logits, state = prefill_fn(p, b)
+            return torch.argmax(logits, dim=-1).to(torch.int32), state
+
+        self._prefill_unit = cm.create_execution_unit(prefill, name="prefill")
+
+        def batched_decode(p, states, tokens, pos):
+            # states: per-layer (max_slots, S_buf, KV, hd) caches; tokens and
+            # pos (max_slots,): each slot decodes at its own position
+            logits, states = model.decode_step(p, states, {"tokens": tokens[:, None], "pos": pos})
+            return torch.argmax(logits, dim=-1).to(torch.int32), states
+
+        self._decode_unit = cm.create_execution_unit(batched_decode, name="batched_decode")
+
+        def pack(bufs, state, slot):
+            for (bk, bv), (k, v) in zip(bufs, state):
+                bk[slot] = k[0]
+                bv[slot] = v[0]
+            return bufs
+
+        self._pack_unit = cm.create_execution_unit(pack, name="pack_slot")
+
+        self._states = None  # per-layer slot caches, sized from the first prefill
+        self._cache_capacity: Optional[int] = None
+        self.last_tokens = np.zeros((max_slots,), dtype=np.int32)
+        self.pos = np.zeros((max_slots,), dtype=np.int32)
+
+    @property
+    def cache_capacity(self) -> int:
+        """Cache positions a slot can actually hold: the deepest allocated
+        buffer (global layers; ring layers are shorter), the scheduler's
+        eviction ceiling."""
+        if self._cache_capacity is None:
+            if self._states is None:
+                return self.max_len
+            self._cache_capacity = max(k.shape[1] for k, _ in self._states)
+        return self._cache_capacity
+
+    # -- admission ----------------------------------------------------------
+    def prefill(self, prompt: Sequence[int]):
+        """B=1 prefill with max_len cache headroom. Returns (first greedy
+        token, decoder state)."""
+        tokens = torch.as_tensor(np.asarray(prompt, dtype=np.int32)[None, :], device=self.device)
+        first, state = self.rt.run(self._prefill_unit, self.params, {"tokens": tokens})
+        return int(first.cpu()[0]), state
+
+    def load(self, slot: int, state, last_token: int, pos: int) -> None:
+        """Copy a prefilled B=1 state into `slot` of the slot caches."""
+        if not 0 <= slot < self.max_slots:
+            raise IndexError(f"slot {slot} out of range [0, {self.max_slots})")
+        if self._states is None:
+            self._states = [
+                tuple(torch.zeros((self.max_slots,) + t.shape[1:], dtype=t.dtype,
+                                  device=self.device) for t in kv)
+                for kv in state
+            ]
+        self._states = self.rt.run(self._pack_unit, self._states, state, slot)
+        self.last_tokens[slot] = last_token
+        self.pos[slot] = pos
+
+    # -- one decode tick ----------------------------------------------------
+    def step(self) -> np.ndarray:
+        """Advance every slot one token. Returns the (max_slots,) array of
+        new greedy tokens; values in slots without a live request are
+        garbage and must be ignored by the caller."""
+        if self._states is None:
+            raise RuntimeError("no request was ever loaded into the decoder")
+        new_tokens, self._states = self.rt.run(
+            self._decode_unit, self.params, self._states,
+            torch.as_tensor(self.last_tokens, device=self.device),
+            torch.as_tensor(self.pos, device=self.device),
+        )
+        new_tokens = new_tokens.cpu().numpy()  # the tick's one device -> host copy
+        self.last_tokens = new_tokens.copy()
+        self.pos = self.pos + 1
+        return new_tokens
 
 
 class PagedSlotDecoder:

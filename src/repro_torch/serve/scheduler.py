@@ -1,20 +1,26 @@
-"""Continuous-batching scheduler over the paged decoder. Port of
-`repro/serve/scheduler.py` in ``kv_mode="paged"``.
+"""Continuous-batching scheduler: slot-based request table over the dense
+`SlotDecoder` or the paged `PagedSlotDecoder`. Port of
+`repro/serve/scheduler.py`.
 
 Requests are admitted whenever a slot is free — including mid-decode of
 other requests — and slots are evicted the moment a request hits its eos
 token, its token budget or the cache ceiling; freed slots are reused by the
-next admission. Slots share a block-pool KV cache addressed through a
-scheduler-owned page table (`PagedSlotDecoder`): pages are reserved at
-admission (admission control is page availability, not a slot count),
-drawn as a request grows, and freed at eviction. Each scheduler tick runs
-`sync_interval` fused decode+sample ticks on the device, so tokens,
-positions and done flags cross to the host only at sync points.
+next admission. Two KV-cache modes:
 
-Token semantics match the reference's scheduler exactly: the first emitted
-token is the greedy pick from the prefill logits; each later token comes
-from one decode step at the request's own position. The dense KV mode and
-the prefix cache are not ported yet.
+* ``kv_mode="dense"`` (the default, as in the reference) — every slot owns
+  a `max_len`-deep cache (`SlotDecoder`); one batched decode step per
+  scheduler tick, tokens synced to the host every tick.
+* ``kv_mode="paged"`` — slots share a block-pool cache addressed through a
+  scheduler-owned page table (`PagedSlotDecoder`): pages are reserved at
+  admission (admission control is page availability, not a slot count),
+  drawn as a request grows, and freed at eviction. Each scheduler tick runs
+  `sync_interval` fused decode+sample ticks on the device, so tokens,
+  positions and done flags cross to the host only at sync points.
+
+Token semantics match the reference's scheduler exactly in both modes: the
+first emitted token is the greedy pick from the prefill logits; each later
+token comes from one decode step at the request's own position. The prefix
+cache (``prefix_cache=True``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import numpy as np
 from repro_torch.core.runtime import Runtime
 from repro_torch.models.model_zoo import ModelBundle
 
-from .batching import PagedSlotDecoder
+from .batching import PagedSlotDecoder, SlotDecoder
 
 
 @dataclasses.dataclass
@@ -52,13 +58,14 @@ class FinishedRequest:
 @dataclasses.dataclass
 class SchedulerProgress:
     """Snapshot for a streaming front door: tokens emitted so far per
-    *active* request (copies), the KV-pool occupancy, and the admission
-    headroom in free slots."""
+    *active* request (copies), the KV-pool occupancy in paged mode
+    (None/None in dense mode: there is no shared pool to meter), and the
+    admission headroom in free slots."""
 
     requests: Dict[str, List[int]]
-    pages_free: int
-    pages_used: int
-    free_slots: int
+    pages_free: Optional[int] = None
+    pages_used: Optional[int] = None
+    free_slots: int = 0
 
 
 @dataclasses.dataclass
@@ -81,7 +88,7 @@ class ContinuousBatchingScheduler:
         max_batch: int = 8,
         max_len: int = 256,
         runtime: Optional[Runtime] = None,
-        kv_mode: str = "paged",
+        kv_mode: str = "dense",
         page_size: int = 16,
         pool_pages: Optional[int] = None,
         sync_interval: int = 8,
@@ -89,24 +96,34 @@ class ContinuousBatchingScheduler:
     ):
         if kv_mode not in ("dense", "paged"):
             raise ValueError(f"kv_mode must be 'dense' or 'paged', got {kv_mode!r}")
-        if kv_mode == "dense":
-            raise NotImplementedError("kv_mode='dense' is not ported yet")
+        if prefix_cache and kv_mode != "paged":
+            raise ValueError(
+                "prefix_cache requires kv_mode='paged' (prefixes are shared "
+                "as pool pages; dense slots own private caches)"
+            )
         if prefix_cache:
             raise NotImplementedError("prefix_cache=True is not ported yet")
         self.kv_mode = kv_mode
         self.max_batch = max_batch
         self.max_len = max_len
-        self.decoder = PagedSlotDecoder(
-            model, params, max_slots=max_batch, max_len=max_len,
-            page_size=page_size, pool_pages=pool_pages,
-            sync_interval=sync_interval, runtime=runtime,
-        )
-        #: scheduler-owned page table: logical page j of slot s -> physical
-        #: pool page (0 = null/unallocated)
-        self._page_table = np.zeros((max_batch, self.decoder.layout.n_pages_seq), dtype=np.int32)
-        #: host mirror of per-slot positions (set at admission, refreshed at
-        #: every sync point) — growth never reads back from the device
-        self._pos_host = np.zeros((max_batch,), dtype=np.int32)
+        if kv_mode == "dense":
+            self.decoder = SlotDecoder(
+                model, params, max_slots=max_batch, max_len=max_len, runtime=runtime
+            )
+        else:
+            self.decoder = PagedSlotDecoder(
+                model, params, max_slots=max_batch, max_len=max_len,
+                page_size=page_size, pool_pages=pool_pages,
+                sync_interval=sync_interval, runtime=runtime,
+            )
+            #: scheduler-owned page table: logical page j of slot s ->
+            #: physical pool page (0 = null/unallocated)
+            self._page_table = np.zeros(
+                (max_batch, self.decoder.layout.n_pages_seq), dtype=np.int32
+            )
+            #: host mirror of per-slot positions (set at admission, refreshed
+            #: at every sync point) — growth never reads back from the device
+            self._pos_host = np.zeros((max_batch,), dtype=np.int32)
         self._table: List[Optional[_Active]] = [None] * max_batch
         self._free: deque[int] = deque(range(max_batch))
         self._finished: List[FinishedRequest] = []
@@ -125,19 +142,21 @@ class ContinuousBatchingScheduler:
         requests = {
             row.request.rid: list(row.emitted) for row in self._table if row is not None
         }
-        kv = self.decoder.kv
-        return SchedulerProgress(
-            requests=requests, pages_free=kv.pages_free, pages_used=kv.pages_used,
-            free_slots=self.free_slots,
-        )
+        if self.kv_mode == "paged":
+            kv = self.decoder.kv
+            return SchedulerProgress(
+                requests=requests, pages_free=kv.pages_free, pages_used=kv.pages_used,
+                free_slots=self.free_slots,
+            )
+        return SchedulerProgress(requests=requests, free_slots=self.free_slots)
 
     # -- admission (any time, including mid-decode) -------------------------
     def try_admit(self, request: Request) -> bool:
         """Prefill `request` and seat it in a free slot. Returns False when
-        the table is full or the KV pool cannot reserve the request's
-        worst-case pages (backpressure); a request needing more pages than
-        the pool holds raises. Requests finishing at their first token are
-        completed without consuming a slot."""
+        the table is full or, in paged mode, when the KV pool cannot reserve
+        the request's worst-case pages (backpressure); a request needing
+        more pages than the pool holds raises. Requests finishing at their
+        first token are completed without consuming a slot."""
         if request.max_new_tokens < 1:
             raise ValueError(f"request {request.rid!r}: max_new_tokens must be >= 1")
         prompt_len = len(request.prompt)
@@ -152,32 +171,40 @@ class ContinuousBatchingScheduler:
         if not self._free:
             return False
 
-        layout = self.decoder.layout
-        kv = self.decoder.kv
-        pages_total = layout.pages_for(total_positions)
-        if pages_total > kv.capacity:
-            raise ValueError(
-                f"request {request.rid!r} needs {pages_total} KV pages, "
-                f"pool capacity is {kv.capacity}"
-            )
-        if not kv.reserve(pages_total):
-            return False  # retry once pages free up
+        pages_total = 0
+        if self.kv_mode == "paged":
+            kv = self.decoder.kv
+            pages_total = self.decoder.layout.pages_for(total_positions)
+            if pages_total > kv.capacity:
+                raise ValueError(
+                    f"request {request.rid!r} needs {pages_total} KV pages, "
+                    f"pool capacity is {kv.capacity}"
+                )
+            if not kv.reserve(pages_total):
+                return False  # retry once pages free up
 
         try:
             first, state = self.decoder.prefill(request.prompt)
         except BaseException:
-            kv.free((), unreserve=pages_total)  # a failed prefill must not strand the reservation
+            if pages_total:  # a failed prefill must not strand the reservation
+                self.decoder.kv.free((), unreserve=pages_total)
             raise
         emitted = [first]
         if request.max_new_tokens == 1 or first == request.eos_id:
-            kv.free((), unreserve=pages_total)
+            if pages_total:
+                self.decoder.kv.free((), unreserve=pages_total)
             self._finished.append(self._finish(request, emitted))
             return True
         slot = self._free.popleft()
+        if self.kv_mode == "dense":
+            self.decoder.load(slot, state, first, prompt_len)
+            self._table[slot] = _Active(request=request, slot=slot, emitted=emitted)
+            return True
+        layout = self.decoder.layout
         # draw pages for everything prefill wrote + the first decode write;
         # the rest of the reservation is drawn as the slot grows
         pages_now = layout.pages_for(prompt_len + 1)
-        drawn = kv.draw(pages_now)
+        drawn = self.decoder.kv.draw(pages_now)
         self._page_table[slot, :] = 0
         self._page_table[slot, : len(drawn)] = drawn
         self.decoder.load(
@@ -207,13 +234,39 @@ class ContinuousBatchingScheduler:
 
     # -- one scheduler tick --------------------------------------------------
     def step(self) -> List[FinishedRequest]:
-        """Run one fused `sync_interval`-tick interval on the device and
-        evict every request that completed; also drains requests that
-        finished at admission. Returns the newly finished requests."""
+        """Advance decoding and evict every request that completed; also
+        drains requests that finished at admission. Dense mode runs one
+        batched decode tick; paged mode runs one fused `sync_interval`-tick
+        interval on the device and harvests at the sync point. Returns the
+        newly finished requests."""
         done, self._finished = self._finished, []
-        if self.active_count == 0:  # nothing to decode: skip the interval
+        if self.active_count == 0:  # nothing to decode: skip the tick
             return done
+        if self.kv_mode == "dense":
+            return done + self._step_dense()
         return done + self._step_paged()
+
+    def _step_dense(self) -> List[FinishedRequest]:
+        done: List[FinishedRequest] = []
+        new_tokens = self.decoder.step()
+        self.ticks += 1
+        # the eviction ceiling comes from the decoder's allocated cache
+        # depth, not a separately tracked token budget
+        capacity = self.decoder.cache_capacity
+        for slot, row in enumerate(self._table):
+            if row is None:
+                continue
+            tok = int(new_tokens[slot])
+            row.emitted.append(tok)
+            req = row.request
+            hit_eos = tok == req.eos_id
+            out_of_budget = len(row.emitted) >= req.max_new_tokens
+            out_of_cache = int(self.decoder.pos[slot]) >= capacity
+            if hit_eos or out_of_budget or out_of_cache:
+                done.append(self._finish(req, row.emitted))
+                self._table[slot] = None
+                self._free.append(slot)
+        return done
 
     def _grow_pages(self) -> None:
         """Before an interval: draw enough reserved pages for every active

@@ -1,16 +1,22 @@
 """The port stands alone: importing every module of `repro_torch` pulls in
-neither JAX nor the JAX package, and its `torchdev` runtime never falls back
-to the CPU on its own."""
+neither JAX nor the JAX package, and neither its `torchdev` runtime nor its
+constructors fall back to the CPU on their own."""
 import os
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.runtime import Runtime  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.attention import paged_layout  # noqa: E402
+from repro_torch.models.bridge import params_from_jax  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
@@ -45,3 +51,35 @@ def test_torchdev_without_a_device_never_picks_the_cpu(monkeypatch):
         Runtime("torchdev", device="cuda")
     with Runtime("torchdev", device="cpu") as rt:  # the CPU only when asked
         assert rt.processing_unit.context == torch.device("cpu")
+
+
+def test_constructors_default_to_the_card_and_never_pick_the_cpu(monkeypatch):
+    """With no device named, every constructor allocates on the current CUDA
+    device; where there is none it raises, naming ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("gemma3-1b", reduced=True)
+    model = build(cfg)
+    layout = paged_layout(cfg, max_slots=2, max_len=32, page_size=8)
+    params = model.init(seed=0, device="cpu")
+    tree = {"embed": {"embedding": np.zeros((cfg.vocab_size, cfg.d_model), np.float32)},
+            "final_norm": np.zeros((cfg.d_model,), np.float32),
+            "layers": {k: np.zeros((cfg.num_layers, 2), np.float32) for k in ("ln1", "ln2")}}
+    for make in (lambda **kw: model.init(seed=0, **kw),
+                 lambda **kw: transformer.init_lm(cfg, **kw),
+                 lambda **kw: params_from_jax(cfg, tree, **kw),
+                 lambda **kw: model.init_state(2, 32, **kw),
+                 lambda **kw: transformer.init_caches(cfg, 2, 32, **kw),
+                 lambda **kw: transformer.init_paged_caches(cfg, layout, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        leaves, stack = [], [make(device="cpu")]  # the CPU only when asked
+        while stack:
+            node = stack.pop()
+            if isinstance(node, torch.Tensor):
+                leaves.append(node)
+            elif isinstance(node, dict):
+                stack.extend(node.values())
+            elif isinstance(node, (list, tuple)):
+                stack.extend(node)
+        assert leaves and all(t.device.type == "cpu" for t in leaves)
+    assert params["embed"]["embedding"].device.type == "cpu"

@@ -1,11 +1,12 @@
 """The port's kernel layer against the JAX reference.
 
-On the CPU the port's plain PyTorch versions (`repro_torch.kernels.ref`) are
-held against the reference's Pallas kernels (interpret mode, through
-`repro.kernels.ops` with ``impl="pallas"``) and its jnp oracles, on the same
-numpy inputs, at the reference's own tolerances (`tests/test_kernels.py`:
-2e-5 fp32 / 2e-2 bf16 for attention; `tests/test_kernels_paged.py`: 1e-5 fp32
-/ 5e-2 bf16 for paged decode). Tests marked ``gpu`` hold the CUDA kernels
+On the CPU the port's plain PyTorch versions (`repro_torch.kernels.ref`,
+`fused_linear.fused_linear_ref`) are held against the reference's Pallas
+kernels (interpret mode, through `repro.kernels.ops` with ``impl="pallas"``
+or the kernel module itself) and its jnp oracles, on the same numpy inputs,
+at the reference's own tolerances (`tests/test_kernels.py`: 2e-5 fp32 /
+2e-2 bf16 for attention and dense decode, 2e-5 for fused_linear;
+`tests/test_kernels_paged.py`: 1e-5 fp32 / 5e-2 bf16 for paged decode). Tests marked ``gpu`` hold the CUDA kernels
 against the plain versions on the card at the serving path's shapes; they
 skip where there is no card, and they need no JAX (the machine with the card
 may not have it; there the reference comparisons skip instead).
@@ -18,16 +19,20 @@ torch = pytest.importorskip("torch")
 try:  # the JAX reference, on the CPU
     import jax.numpy as jnp
 
+    from repro.kernels import fused_linear as jlinear
     from repro.kernels import ops as jops
     from repro.kernels import ref as jref
 except ImportError:
-    jnp = jops = jref = None
+    jnp = jops = jref = jlinear = None
+from repro_torch.kernels import decode_attention as tdecode  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import fused_linear as tlinear  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as tpaged  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LINEAR_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -148,6 +153,111 @@ def test_paged_plain_matches_jax_pallas_and_oracle(reference, case, window, dtyp
 
 
 # ---------------------------------------------------------------------------
+# dense decode: port's plain version vs JAX Pallas (interpret) and oracle
+# ---------------------------------------------------------------------------
+
+
+def _decode_case(seed, *, B, S, H, KV, hd, pos, poison=False):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    kc = rng.standard_normal((B, S, KV, hd)).astype(np.float32)
+    vc = rng.standard_normal((B, S, KV, hd)).astype(np.float32)
+    pos = np.asarray(pos, np.int32)
+    if poison:  # cache slots past each slot's pos must never leak into the output
+        for b, p in enumerate(np.broadcast_to(pos, (B,))):
+            kc[b, p + 1 :] = 999.0
+            vc[b, p + 1 :] = -999.0
+    return q, kc, vc, pos
+
+
+# S a multiple of min(512, S) wherever the JAX Pallas kernel runs (its
+# block-multiple assertion); shapes of `tests/test_kernels.py::DECODE_SHAPES`
+# plus per-slot positions, poison past pos, a REDUCED ring of 16 and
+# gemma3's head_dim 256
+DECODE_CASES = [
+    pytest.param(dict(B=1, S=512, H=4, KV=4, hd=64, pos=256), id="s512"),
+    pytest.param(dict(B=2, S=1024, H=8, KV=2, hd=64, pos=512), id="s1024-gqa"),
+    pytest.param(dict(B=4, S=2048, H=8, KV=1, hd=128, pos=1024), id="s2048-mqa"),
+    pytest.param(dict(B=3, S=512, H=4, KV=4, hd=64, pos=[10, 200, 511]), id="per-slot-pos"),
+    pytest.param(dict(B=2, S=256, H=2, KV=1, hd=32, pos=[100, 37], poison=True), id="poison"),
+    pytest.param(dict(B=4, S=16, H=4, KV=1, hd=16, pos=[0, 5, 15, 15]), id="ring-16"),
+    pytest.param(dict(B=8, S=64, H=4, KV=1, hd=256, pos=[0, 1, 15, 16, 31, 40, 62, 63]),
+                 id="mqa-hd256"),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_plain_matches_jax_pallas_and_oracle(reference, case, dtype):
+    q, kc, vc, pos = _decode_case(5, **case)
+    (jq, tq), (jk, tk), (jv, tv) = _pair(q, dtype), _pair(kc, dtype), _pair(vc, dtype)
+    # the window reaches the plain version only, which ignores it as the
+    # reference's oracle does
+    got = tops.decode_attention(tq, tk, tv, torch.from_numpy(pos), window=16)
+    assert got.dtype == TDT[dtype] and got.shape == q.shape
+    tol = ATTN_TOL[dtype]
+    jp = jnp.asarray(pos)
+    want_pallas = jops.decode_attention(jq, jk, jv, jp, impl="pallas")
+    want_ref = jref.decode_attention(jq, jk, jv, jp, window=16)
+    np.testing.assert_allclose(_np(got), _np(want_pallas), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(got), _np(want_ref), rtol=tol, atol=tol)
+    if case.get("poison"):
+        clean = _decode_case(5, **dict(case, poison=False))
+        base = tref.decode_attention(*(torch.from_numpy(a) for a in clean[:3]),
+                                     torch.from_numpy(pos))
+        np.testing.assert_allclose(_np(got), _np(base), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# fused linear: port's plain version vs JAX Pallas (interpret) and oracle
+# ---------------------------------------------------------------------------
+
+# (M, K, N, act, Pallas blocks (bm, bn, bk)): `tests/test_kernels.py::
+# TestFusedLinear`'s shapes, Test Case 2's two layers with the reference
+# app's blocks, and a ragged shape the Pallas blocks divide
+LINEAR_CASES = [
+    pytest.param(256, 128, 256, "gelu", (128, 128, 128), id="256x128x256-gelu"),
+    *[pytest.param(M, K, N, act, (128, 128, 128), id=f"{M}x{K}x{N}-{act}")
+      for M, K, N in [(128, 128, 128), (256, 384, 128)] for act in ("none", "relu", "gelu")],
+    pytest.param(256, 64, 32, "relu", (8, 16, 16), id="tc2-layer1"),
+    pytest.param(256, 32, 10, "none", (8, 10, 16), id="tc2-layer2"),
+    pytest.param(77, 50, 10, "gelu", (7, 10, 10), id="ragged-77x50x10"),
+]
+
+
+@pytest.mark.parametrize("M,K,N,act,blocks", LINEAR_CASES)
+def test_fused_linear_plain_matches_jax_pallas_and_oracle(reference, M, K, N, act, blocks):
+    rng = np.random.default_rng(M + 7 * K + 31 * N)
+    x = (0.3 * rng.standard_normal((M, K))).astype(np.float32)
+    w = (0.3 * rng.standard_normal((K, N))).astype(np.float32)
+    b = (0.3 * rng.standard_normal((N,))).astype(np.float32)
+    got = tops.fused_linear(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+                            act=act)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    bm, bn, bk = blocks
+    want_pallas = jlinear.fused_linear(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), act=act,
+                                       block_m=bm, block_n=bn, block_k=bk, interpret=True)
+    want_ref = jlinear.fused_linear_ref(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), act=act)
+    tol = LINEAR_TOL["float32"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_pallas), rtol=tol, atol=tol)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_ref), rtol=tol, atol=tol)
+
+
+def test_fused_linear_bf16_output_in_x_dtype(reference):
+    rng = np.random.default_rng(8)
+    x, w = rng.standard_normal((64, 48)).astype(np.float32), rng.standard_normal((48, 24)).astype(np.float32)
+    b = rng.standard_normal((24,)).astype(np.float32)
+    (jx, tx), (jw, tw), (jb, tb) = _pair(x, "bfloat16"), _pair(w, "bfloat16"), _pair(b, "bfloat16")
+    got = tops.fused_linear(tx, tw, tb, act="relu")
+    assert got.dtype == torch.bfloat16
+    want = jlinear.fused_linear_ref(jx, jw, jb, act="relu")
+    np.testing.assert_allclose(_np(got), _np(want), rtol=LINEAR_TOL["bfloat16"],
+                               atol=LINEAR_TOL["bfloat16"])
+    with pytest.raises(ValueError, match="act"):
+        tops.fused_linear(tx, tw, tb, act="tanh")
+
+
+# ---------------------------------------------------------------------------
 # dispatch by device
 # ---------------------------------------------------------------------------
 
@@ -164,7 +274,15 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     torch.testing.assert_close(tops.paged_decode_attention(qd, kp, vp, table, pos),
                                tref.paged_decode_attention(qd, kp, vp, table, pos),
                                rtol=0, atol=0)
-    assert tops.launch_counts() == {"flash_attention": 0, "paged_decode_attention": 0}
+    qd, kc, vc, pos = (torch.from_numpy(a) for a in _decode_case(
+        4, B=2, S=12, H=4, KV=1, hd=16, pos=[3, 11]))
+    torch.testing.assert_close(tops.decode_attention(qd, kc, vc, pos),
+                               tref.decode_attention(qd, kc, vc, pos), rtol=0, atol=0)
+    x, w, b = torch.randn(5, 7), torch.randn(7, 3), torch.randn(3)
+    torch.testing.assert_close(tops.fused_linear(x, w, b, act="gelu"),
+                               tlinear.fused_linear_ref(x, w, b, act="gelu"), rtol=0, atol=0)
+    assert tops.launch_counts() == {"flash_attention": 0, "paged_decode_attention": 0,
+                                    "decode_attention": 0, "fused_linear": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -178,6 +296,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tpaged.paged_decode_attention(
             torch.zeros((2, 4, 16)), torch.zeros((3, 4, 1, 16)), torch.zeros((3, 4, 1, 16)),
             torch.zeros((2, 2), dtype=torch.int32), torch.zeros((2,), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        tdecode.decode_attention(torch.zeros((2, 4, 16)), torch.zeros((2, 8, 1, 16)),
+                                 torch.zeros((2, 8, 1, 16)), torch.zeros((2,), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        tlinear.fused_linear(torch.zeros((4, 8)), torch.zeros((8, 2)), torch.zeros((2,)))
 
 
 def test_flash_wrapper_rejects_unsupported_head_dim():
@@ -233,3 +356,52 @@ def test_paged_kernel_matches_plain_on_card(cuda, window, dtype):
     torch.cuda.synchronize()
     assert tpaged.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=PAGED_TOL[dtype])
+
+
+def _decode_on_card(cuda, dtype, *, B, S, H, KV, hd, pos, poison=False, seed=6):
+    q, kc, vc, pos = (torch.from_numpy(a).to(cuda) for a in _decode_case(
+        seed, B=B, S=S, H=H, KV=KV, hd=hd, pos=pos, poison=poison))
+    return tuple(x.to(TDT[dtype]) for x in (q, kc, vc)) + (pos,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    dict(B=8, S=1088, H=4, KV=1, hd=256, pos=[0, 15, 16, 100, 511, 512, 777, 1087]),
+    dict(B=8, S=512, H=4, KV=1, hd=256, pos=[0, 5, 200, 511, 511, 511, 300, 17]),  # clamped ring
+    dict(B=4, S=300, H=8, KV=2, hd=128, pos=[299, 0, 64, 150]),
+    dict(B=3, S=777, H=4, KV=1, hd=256, pos=[700, 33, 776], poison=True),
+    dict(B=2, S=16, H=4, KV=1, hd=16, pos=[5, 15]),
+], ids=["global-1088", "ring-512", "gqa-ragged-300", "poison", "reduced-ring-16"])
+def test_decode_kernel_matches_plain_on_card(cuda, case, dtype):
+    q, kc, vc, pos = _decode_on_card(cuda, dtype, **case)
+    before = tdecode.launches
+    got = tops.decode_attention(q, kc, vc, pos)
+    want = tref.decode_attention(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert tdecode.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # a Python int is broadcast over the batch
+    torch.testing.assert_close(tops.decode_attention(q, kc, vc, 7).float(),
+                               tref.decode_attention(q, kc, vc, 7).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["none", "relu", "gelu"])
+@pytest.mark.parametrize("M,K,N", [(256, 64, 32), (256, 32, 10), (128, 128, 128),
+                                   (256, 384, 128), (77, 50, 10)])
+def test_fused_linear_kernel_matches_plain_on_card(cuda, M, K, N, act, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
+    gen = torch.Generator(device=cuda).manual_seed(M * K + N)
+    x, w, b = (0.3 * torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((M, K), (K, N), (N,)))
+    x, w, b = (t.to(TDT[dtype]) for t in (x, w, b))
+    before = tlinear.launches
+    got = tops.fused_linear(x, w, b, act=act)
+    want = tlinear.fused_linear_ref(x, w, b, act=act)
+    torch.cuda.synchronize()
+    assert tlinear.launches == before + 1 and got.dtype == x.dtype
+    tol = LINEAR_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

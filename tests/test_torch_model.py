@@ -32,7 +32,7 @@ def reduced():
     cfg = get_config("gemma3-1b", reduced=True)
     jcfg = jax_get_config("gemma3-1b", reduced=True)
     jparams, _ = jtf.init_lm(jcfg, jax.random.PRNGKey(0))
-    tparams = params_from_jax(cfg, jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_jax(cfg, jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     return cfg, jcfg, jparams, tparams
 
 
@@ -122,7 +122,7 @@ def test_prefill_logits_match_reference(reduced):
     jlogits, jcaches = jax.jit(lambda p, t, c: jtf.lm_prefill(jcfg, p, t, c))(
         jparams, jnp.asarray(tokens), jtf.init_caches(jcfg, 2, 40))
     tlogits, tcaches = ttf.lm_prefill(cfg, tparams, torch.from_numpy(tokens),
-                                      ttf.init_caches(cfg, 2, 40))
+                                      ttf.init_caches(cfg, 2, 40, device="cpu"))
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=ATOL, rtol=0)
     assert np.array_equal(tlogits.argmax(-1).numpy(), np.asarray(jlogits).argmax(-1))
     # the ring caches of local layers and the full caches of the global one
@@ -147,7 +147,7 @@ def test_paged_decode_teacher_forced_matches_reference(reduced):
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in (13, 5)]
     table = np.zeros((B, tlayout.n_pages_seq), np.int32)
     jpools = jtf.init_paged_caches(jcfg, jlayout)
-    tpools = ttf.init_paged_caches(cfg, tlayout)
+    tpools = ttf.init_paged_caches(cfg, tlayout, device="cpu")
     jring, tring = jlayout.ring_table(), tlayout.ring_table()
     # jitted: eager JAX dispatches (and compiles) op by op
     jprefill = jax.jit(lambda p, t, c: jtf.lm_prefill(jcfg, p, t, c))
@@ -160,7 +160,7 @@ def test_paged_decode_teacher_forced_matches_reference(reduced):
         jl, jc = jprefill(jparams, jnp.asarray(prompt[None]),
                           jtf.init_caches(jcfg, 1, jlayout.cache_len))
         tl, tc = ttf.lm_prefill(cfg, tparams, torch.from_numpy(prompt[None]),
-                                ttf.init_caches(cfg, 1, tlayout.cache_len))
+                                ttf.init_caches(cfg, 1, tlayout.cache_len, device="cpu"))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
         jpools = jcommit(jpools, jc, jnp.asarray(table[s]), jring[s])
         tpools = ttf.commit_prefill_paged(cfg, tlayout, tpools, tc, torch.from_numpy(table[s]),
@@ -181,3 +181,63 @@ def test_paged_decode_teacher_forced_matches_reference(reduced):
     # the live slots' pages agree too (the inactive slot wrote only null/own pages)
     jk = np.asarray(jpools["units"]["k_global"][0])
     np.testing.assert_allclose(tpools[5][0][1:].numpy(), jk[1:], atol=ATOL, rtol=0)
+
+
+def test_dense_decode_teacher_forced_matches_reference(reduced):
+    """Three slots of dense caches (ring 16 on local layers, 40 deep on the
+    global ones) at per-slot positions: the reference vmaps its B=1
+    `lm_decode_step` over slots as its `SlotDecoder` does; the port runs one
+    batched step with pos (B,). 20 teacher-forced ticks wrap the rings."""
+    cfg, jcfg, jparams, tparams = reduced
+    max_len = 40
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in (13, 5, 9)]
+    jprefill = jax.jit(lambda p, t: jtf.lm_prefill(jcfg, p, t, jtf.init_caches(jcfg, 1, max_len)))
+    jstates, tcaches = [], None
+    for s, prompt in enumerate(prompts):
+        jl, jc = jprefill(jparams, jnp.asarray(prompt[None]))
+        tl, tc = ttf.lm_prefill(cfg, tparams, torch.from_numpy(prompt[None]),
+                                ttf.init_caches(cfg, 1, max_len, device="cpu"))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+        jstates.append(jc)
+        if tcaches is None:
+            tcaches = [tuple(torch.zeros((len(prompts),) + t.shape[1:]) for t in kv) for kv in tc]
+        for (bk, bv), (k, v) in zip(tcaches, tc):
+            bk[s], bv[s] = k[0], v[0]
+    jstates = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *jstates)
+
+    @jax.jit
+    def jdecode(p, states, tokens, pos):
+        def one(state, tok, position):
+            return jtf.lm_decode_step(jcfg, p, state, tok, position)
+        return jax.vmap(one)(states, tokens[:, None, None], pos)
+
+    pos = np.asarray([len(p) for p in prompts], np.int32)
+    for step in range(20):
+        tokens = rng.integers(1, cfg.vocab_size, len(prompts)).astype(np.int32)
+        jl, jstates = jdecode(jparams, jstates, jnp.asarray(tokens), jnp.asarray(pos))
+        tl, tcaches = ttf.lm_decode_step(cfg, tparams, tcaches, torch.from_numpy(tokens)[:, None],
+                                         torch.from_numpy(pos))
+        jl = np.asarray(jl)[:, 0]
+        np.testing.assert_allclose(tl.numpy(), jl, atol=ATOL, rtol=0, err_msg=f"tick {step}")
+        assert np.array_equal(tl.argmax(-1).numpy(), jl.argmax(-1)), step
+        pos = pos + 1
+    # the global layer's cache agrees for every written position
+    jg = np.asarray(jstates["units"]["k_global"][:, 0, 0])  # (B, S, KV, hd)
+    np.testing.assert_allclose(tcaches[5][0].numpy(), jg, atol=ATOL, rtol=0)
+
+
+def test_dense_decode_scalar_pos_matches_reference(reduced):
+    """The serial engine's form: one scalar position for the whole batch."""
+    cfg, jcfg, jparams, tparams = reduced
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(1, cfg.vocab_size, (2, 7)).astype(np.int32)
+    jl, jc = jtf.lm_prefill(jcfg, jparams, jnp.asarray(prompts), jtf.init_caches(jcfg, 2, 24))
+    tl, tc = ttf.lm_prefill(cfg, tparams, torch.from_numpy(prompts),
+                            ttf.init_caches(cfg, 2, 24, device="cpu"))
+    jdecode = jax.jit(lambda p, c, t, pos: jtf.lm_decode_step(jcfg, p, c, t, pos))
+    for pos in range(7, 17):
+        tokens = rng.integers(1, cfg.vocab_size, (2, 1)).astype(np.int32)
+        jl, jc = jdecode(jparams, jc, jnp.asarray(tokens), jnp.int32(pos))
+        tl, tc = ttf.lm_decode_step(cfg, tparams, tc, torch.from_numpy(tokens), pos)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
