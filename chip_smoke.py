@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Drives the port's paths -- full-width gemma3-1b served by the paged and by
-the dense continuous-batching scheduler and by the serial engine, and the
-paper's Test Case 2 (heterogeneous inference) -- and fails (non-zero exit)
-if any phase fails. It imports nothing of JAX or of the JAX package. Phases:
+the dense continuous-batching scheduler and by the serial engine, the
+paper's Test Case 2 (heterogeneous inference), and full-width xlstm-125m
+served by the dense scheduler and the serial engine and through its
+forward/loss -- and fails (non-zero exit) if any phase fails. It imports
+nothing of JAX or of the JAX package. Phases:
 
 1. device: the card from `nvidia-smi` (name, power limit);
 2. build: compile the CUDA kernels from `src/repro_torch/csrc` with nvcc for
@@ -15,7 +17,9 @@ if any phase fails. It imports nothing of JAX or of the JAX package. Phases:
 3. kernels: hold each CUDA kernel against its plain PyTorch version on the
    card at the paths' shapes and at ragged / edge shapes, and time kernel,
    plain version and the library call where one computes the same function
-   (`F.scaled_dot_product_attention`, `torch.addmm`) with CUDA events;
+   (`F.scaled_dot_product_attention`, `torch.addmm`; none for the gated
+   linear scan) with CUDA events, the profiler's device time and, where a
+   path finds its inputs cold, with the inputs cycled past the L2;
 4. reduced: REDUCED gemma3-1b in fp32 (TF32 off): prefill plus 16
    teacher-forced paged decode ticks on the card against the same functions
    on the CPU;
@@ -34,7 +38,18 @@ if any phase fails. It imports nothing of JAX or of the JAX package. Phases:
 9. tc2: the paper's Test Case 2, all three rows (``numpy`` on the port's
    `hostcpu` backend, ``torch`` and ``fused_linear`` on the card): equal
    accuracy above 0.85, img-0 scores within 1e-4, `fused_linear` launched
-   twice per batch.
+   twice per batch;
+10. reduced-xlstm: REDUCED xlstm-125m in fp32 on the card against the CPU:
+   forward logits and loss, prefill plus 16 teacher-forced ticks carrying
+   the recurrent states (within 1e-4), a dense continuous serve and a serial
+   `generate` (equal tokens);
+11. serve-xlstm: full xlstm-125m (12 blocks, 9 mLSTM + 3 sLSTM, d_model 768,
+   vocab 50304, bf16) serves phase 5's 16 requests on 8 slots through the
+   dense scheduler, then `ServeEngine.generate` on 8 prompts of 512 tokens
+   for 32 steps; the scan kernel must launch exactly twice per mLSTM block
+   per prefill and per tick, and no other kernel;
+12. loss-xlstm: full-width `ModelBundle.loss` on 4 x 2048 seeded tokens:
+   finite, near ln(vocab) for random weights, exactly 18 scan launches.
 
 Each path's launch counts are zeroed just before it runs and read just
 after. The line before the last is one JSON object with every kernel's
@@ -45,6 +60,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -543,11 +559,158 @@ def check_fused_linear(torch, gen) -> dict:
     }
 
 
+SCAN_CHUNK = 64  # positions per chunk of the scan kernel (csrc/linear_scan.cu)
+
+
+def scan_check_chunk(S: int) -> int:
+    """Chunk of the plain version the scan kernel is held against: at most
+    16 positions. The plain version cumulates the log decay in fp32 over a
+    chunk, and at xlstm's dk = 384 a chunk of 128 leaves rounding in the gates
+    that alone exceeds the fp32 tolerance against a float64 recurrence; at 16
+    positions it does not. The kernel ignores the chunk (fp64 decay)."""
+    return math.gcd(S, 16)
+
+
+def _scan_case(torch, gen, *, B, H, S, dk, dv, dtype, init=False, shared_qk=False, **_):
+    """Scan inputs laid out as the model paths hand them over: q, k, v are
+    head-split views of (B, S, H, d) projections and log_a a view of a
+    (B, S, H) gate (the mLSTM), or q and k one (B, S, dk) tensor broadcast
+    over the heads (`shared_qk`: Mamba2's C and B). Scales follow
+    `tests/test_kernels.py::TestGatedLinearScan`."""
+    def heads(d, shared=False):
+        if shared:
+            x = 0.5 * torch.randn((B, 1, S, d), generator=gen, device="cuda")
+            return x.to(dtype).expand(B, H, S, d)
+        x = 0.5 * torch.randn((B, S, H, d), generator=gen, device="cuda")
+        return x.to(dtype).transpose(1, 2)
+
+    q, k, v = heads(dk, shared_qk), heads(dk, shared_qk), heads(dv)
+    log_a = -torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device="cuda")).transpose(1, 2)
+    s0 = 0.5 * torch.randn((B, H, dk, dv), generator=gen, device="cuda") if init else None
+    return q, k, v, log_a, s0
+
+
+def _scan_bound_ms(B, H, S, dk, dv, elem, dtype_name, init) -> tuple:
+    """Bytes: q, k, v, log_a (and the initial state) read once, y and the
+    final state written once. Operations of the chunkwise form at the
+    kernel's chunk, intra-chunk scores counted once per (b, h): scores and
+    their product with v (2 S L (dk + dv)), the inter-chunk read and the
+    state update (4 S dk dv)."""
+    n_bytes = (B * H * S * (2 * dk + 2 * dv) * elem + B * H * S * 4
+               + B * H * dk * dv * 4 * (2 if init else 1))
+    L = min(SCAN_CHUNK, S)
+    flops = B * H * (2 * S * L * (dk + dv) + 4 * S * dk * dv)
+    b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations"), n_bytes, flops
+
+
+def check_scan(torch, gen) -> dict:
+    from repro_torch.kernels import linear_scan, ref
+    from repro_torch.models.ssm import _chunk_for
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
+    bf16, fp32 = torch.bfloat16, torch.float32
+    xl = dict(H=4, dk=384, dv=384)  # xlstm-125m's mLSTM: 4 heads of 384
+    cases = [
+        dict(xl, tag="loss", B=4, S=2048, dtype=bf16),
+        dict(xl, tag="loss-normaliser", B=4, S=2048, dtype=bf16, dv=1),
+        dict(xl, tag="prefill-777", B=1, S=777, dtype=bf16),
+        dict(xl, tag="prefill-777-state", B=1, S=777, dtype=bf16, init=True),
+        dict(xl, tag="prefill-777-normaliser", B=1, S=777, dtype=bf16, dv=1, init=True),
+        dict(xl, tag="decode", B=8, S=1, dtype=bf16, init=True),
+        dict(xl, tag="decode-normaliser", B=8, S=1, dtype=bf16, dv=1, init=True),
+        dict(tag="mamba2", B=1, H=32, S=1024, dk=64, dv=224, dtype=bf16, shared_qk=True),
+        dict(xl, tag="fp32-512", B=2, S=512, dtype=fp32),
+        dict(xl, tag="fp32-777-state", B=1, S=777, dtype=fp32, init=True),
+        dict(xl, tag="fp32-decode", B=8, S=1, dtype=fp32, init=True),
+        dict(tag="fp32-mamba2", B=1, H=32, S=1024, dk=64, dv=224, dtype=fp32, shared_qk=True),
+        dict(tag="fp32-reduced", B=2, H=4, S=45, dk=32, dv=32, dtype=fp32, init=True),
+        # the reference's SCAN_SHAPES (tests/test_kernels.py)
+        *[dict(tag=f"ref-{B}x{H}x{S}x{dk}x{dv}", B=B, H=H, S=S, dk=dk, dv=dv, dtype=dt)
+          for B, H, S, dk, dv in [(1, 1, 128, 32, 32), (2, 4, 256, 64, 64), (1, 2, 256, 16, 64),
+                                  (2, 2, 512, 32, 16)] for dt in (fp32, bf16)],
+    ]
+    worst, worst_tol = 0.0, None
+    for case in cases:
+        q, k, v, log_a, s0 = _scan_case(torch, gen, **case)
+        chunk = scan_check_chunk(case["S"])
+        y, st = linear_scan.gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=s0)
+        y_ref, st_ref = ref.gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=s0)
+        torch.cuda.synchronize()
+        name = str(case["dtype"]).split(".")[-1]
+        err_y, ok_y = _max_err_and_ok(torch, y, y_ref, TOL[name])
+        err_s, ok_s = _max_err_and_ok(torch, st, st_ref, TOL[name])
+        ok = ok_y and ok_s and y.dtype == case["dtype"] and st.dtype == fp32
+        desc = ", ".join(f"{k_}={v_}" for k_, v_ in case.items() if k_ != "dtype")
+        log(f"[kernels] gated_linear_scan {name} {desc}: max_abs_err y={err_y:.3e} "
+            f"state={err_s:.3e} tol={TOL[name]} {'ok' if ok else 'FAIL'}")
+        require(ok, f"gated_linear_scan disagrees with its plain version ({desc}, {name})")
+        if max(err_y, err_s) > worst:
+            worst, worst_tol = max(err_y, err_s), TOL[name]
+
+    def timings(case, iters):
+        q, k, v, log_a, s0 = _scan_case(torch, gen, **case)
+        chunk = _chunk_for(case["S"])
+        kern = lambda q_, k_, v_, la_: linear_scan.gated_linear_scan(  # noqa: E731
+            q_, k_, v_, la_, chunk=chunk, initial_state=s0)
+        plain = lambda: ref.gated_linear_scan(  # noqa: E731
+            q, k, v, log_a, chunk=chunk, initial_state=s0)
+        t_kernel = time_ms(torch, lambda: kern(q, k, v, log_a), iters=iters)
+        t_plain = time_ms(torch, plain, iters=iters)
+        d_kernel = device_ms(torch, lambda: kern(q, k, v, log_a), iters=iters)
+        d_plain = device_ms(torch, plain, iters=iters)
+        ins = (q, k, v, log_a)
+        nbytes = sum(t.untyped_storage().nbytes() for t in ins)
+        d_cold = cold_device_ms(torch, kern, ins, nbytes)
+        name = str(case["dtype"]).split(".")[-1]
+        B, H, S, dk, dv = (case[x] for x in ("B", "H", "S", "dk", "dv"))
+        bound, by, n_bytes, flops = _scan_bound_ms(B, H, S, dk, dv, q.element_size(), name,
+                                                   s0 is not None)
+        shape = (f"{case['tag']}: B={B} H={H} S={S} dk={dk} dv={dv} {name}"
+                 f"{' with initial_state' if s0 is not None else ''}")
+        log(f"[kernels] gated_linear_scan timing {shape}: kernel {t_kernel:.4f} ms, plain "
+            f"{t_plain:.4f} ms; device time per call: kernel {d_kernel:.4f} ms, plain "
+            f"{d_plain:.4f} ms, kernel with the inputs cold in L2 {d_cold:.4f} ms; bound "
+            f"{bound * 1e3:.3f} us by {by} ({n_bytes} B, {flops} FLOP); "
+            f"{flops / (d_kernel * 1e-3) / 1e12:.2f} TFLOP/s on the device time")
+        return dict(shape=shape, ms=t_kernel, plain_ms=t_plain, device_ms=d_kernel,
+                    plain_device_ms=d_plain, cold_device_ms=d_cold, bound_ms=bound, bound_by=by)
+
+    # every xlstm shape of the paths, Mamba2's, and two fp32 shapes
+    by_tag = {case["tag"]: case for case in cases}
+    main = timings(by_tag["loss"], iters=10)
+    other = [timings(by_tag[tag], iters) for tag, iters in (
+        ("loss-normaliser", 10), ("prefill-777", 10), ("prefill-777-state", 10),
+        ("prefill-777-normaliser", 10), ("decode", 50), ("decode-normaliser", 50),
+        ("mamba2", 20), ("fp32-512", 10), ("fp32-decode", 50))]
+    return {
+        "name": "gated_linear_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/linear_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan.py:76",
+        "launches": 0,
+        "max_abs_err": worst,
+        "tolerance": worst_tol,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "device_ms": main["device_ms"],
+        "plain_device_ms": main["plain_device_ms"],
+        "cold_device_ms": main["cold_device_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_us": main["bound_ms"] * 1e3,
+        "bound_by": main["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a gated linear scan
+        "timed_shape": main["shape"],
+        "other_timings": other,
+    }
+
+
 def phase_kernels(torch) -> list:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     return [check_flash(torch, gen), check_paged(torch, gen), check_decode(torch, gen),
-            check_fused_linear(torch, gen)]
+            check_fused_linear(torch, gen), check_scan(torch, gen)]
 
 
 # ---------------------------------------------------------------------------
@@ -927,6 +1090,305 @@ def phase_tc2(torch) -> dict:
     return counts["fused_linear"]
 
 
+# ---------------------------------------------------------------------------
+# 10. REDUCED xlstm on the card vs the CPU
+# ---------------------------------------------------------------------------
+
+
+def xlstm_logits(torch, cfg, params, prompts, steps_tokens, device):
+    """Prefill each prompt from zero states (B=1), stack the states as the
+    slots of one batch, then run teacher-forced decode ticks; returns every
+    logits tensor on the CPU."""
+    import numpy as np
+
+    from repro_torch.models import xlstm_model as xm
+
+    outs, states = [], []
+    for prompt in prompts:
+        tokens = torch.as_tensor(np.asarray([prompt], np.int32), device=device)
+        logits, st = xm.lm_prefill(cfg, params, tokens, xm.init_states(cfg, 1, device=device))
+        outs.append(logits.cpu())
+        states.append(st)
+    batch = [{k: torch.cat([st[i][k] for st in states]) for k in states[0][i]}
+             for i in range(cfg.num_layers)]
+    for step_tokens in steps_tokens:
+        tokens = torch.as_tensor(np.asarray(step_tokens, np.int32)[:, None], device=device)
+        logits, batch = xm.lm_decode_step(cfg, params, batch, tokens, 0)
+        outs.append(logits.cpu())
+    return outs
+
+
+def phase_reduced_xlstm(torch) -> None:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models import xlstm_model as xm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    from repro_torch.serve.workload import synthetic_requests
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("xlstm-125m", reduced=True)
+    require(cfg.compute_dtype == "float32", "REDUCED xlstm-125m computes in fp32")
+    n_mlstm = xm.block_kinds(cfg).count("mlstm")
+    model = build(cfg)
+    params_cpu = model.init(seed=0, device="cpu")
+    params_card = _to_device(params_cpu, "cuda")
+    rng = np.random.default_rng(2)
+
+    # the stateless forward and loss
+    tokens = rng.integers(0, cfg.vocab_size, (2, 96)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (2, 96)).astype(np.int32)
+    out = {}
+    for device, params in (("cuda", params_card), ("cpu", params_cpu)):
+        t = torch.as_tensor(tokens, device=device)
+        ops.reset_launch_counts()
+        logits, _ = xm.lm_forward(cfg, params, t)
+        loss, _ = model.loss(params, {"tokens": t, "labels": torch.as_tensor(labels, device=device)})
+        out[device] = (logits.cpu(), float(loss), ops.launch_counts())
+    err_logits = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    err_loss = abs(out["cuda"][1] - out["cpu"][1])
+    log(f"[reduced-xlstm] xlstm-125m REDUCED fp32 forward (2 x 96 tokens): max |logits card - "
+        f"cpu| = {err_logits:.3e}, loss card {out['cuda'][1]:.6f} cpu {out['cpu'][1]:.6f} "
+        f"(atol {REDUCED_ATOL}); card launches {out['cuda'][2]}")
+    require(out["cuda"][2]["gated_linear_scan"] == 2 * 2 * n_mlstm,
+            f"forward + loss launched {out['cuda'][2]['gated_linear_scan']} scans, expected "
+            f"{4 * n_mlstm}")
+    require(err_logits <= REDUCED_ATOL and err_loss <= REDUCED_ATOL,
+            f"REDUCED xlstm forward differs: logits {err_logits:.3e}, loss {err_loss:.3e}")
+
+    # prefill from zero states + teacher-forced decode ticks carrying the states
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (45, 12, 3)]
+    steps = rng.integers(1, cfg.vocab_size, (16, len(prompts))).tolist()
+    ops.reset_launch_counts()
+    on_card = xlstm_logits(torch, cfg, params_card, prompts, steps, "cuda")
+    counts = ops.launch_counts()
+    on_cpu = xlstm_logits(torch, cfg, params_cpu, prompts, steps, "cpu")
+    require(counts["gated_linear_scan"] == 2 * n_mlstm * (len(prompts) + len(steps)),
+            f"reduced xlstm run did not go through the scan kernel: {counts}")
+    worst = max(float((a - b).abs().max()) for a, b in zip(on_card, on_cpu))
+    same_greedy = all(torch.equal(a.argmax(-1), b.argmax(-1)) for a, b in zip(on_card, on_cpu))
+    log(f"[reduced-xlstm] prefill of {len(prompts)} prompts + {len(steps)} teacher-forced "
+        f"ticks carrying the states: max |logits card - cpu| = {worst:.3e} (atol "
+        f"{REDUCED_ATOL}), greedy tokens equal: {same_greedy}, launches {counts}")
+    require(worst <= REDUCED_ATOL, f"REDUCED xlstm logits differ by {worst:.3e} > {REDUCED_ATOL}")
+    require(same_greedy, "REDUCED xlstm greedy tokens differ between the card and the CPU")
+
+    requests = synthetic_requests(cfg.vocab_size, 6, prompt_range=(3, 40), steps_range=(2, 14),
+                                  seed=0)
+    engine_prompts = rng.integers(1, cfg.vocab_size, (3, 9)).astype(np.int32)
+    served, generated, launches = {}, {}, {}
+    for device, params in (("cuda", params_card), ("cpu", params_cpu)):
+        with Runtime("torchdev", device=device) as rt:
+            ops.reset_launch_counts()
+            sched = ContinuousBatchingScheduler(model, params, max_batch=4, max_len=64,
+                                                runtime=rt, kv_mode="dense")
+            served[device] = {rid: f.tokens for rid, f in sched.serve(requests).items()}
+            launches[device] = ops.launch_counts()
+            engine = ServeEngine(model, params, max_len=40, runtime=rt)
+            generated[device] = engine.generate(engine_prompts, steps=12).tokens
+    log(f"[reduced-xlstm] dense serve of {len(requests)} requests and serial generate "
+        f"(3 x 9 prompts, 12 steps): card tokens equal CPU tokens: serve "
+        f"{served['cuda'] == served['cpu']}, generate "
+        f"{bool(np.array_equal(generated['cuda'], generated['cpu']))}; card serve launches "
+        f"{launches['cuda']}")
+    require(launches["cuda"]["gated_linear_scan"] > 0, "the xlstm serve launched no scan kernel")
+    require(served["cuda"] == served["cpu"], "REDUCED xlstm serve tokens differ card vs CPU")
+    require(bool(np.array_equal(generated["cuda"], generated["cpu"])),
+            "REDUCED xlstm serial generate tokens differ card vs CPU")
+
+
+# ---------------------------------------------------------------------------
+# 11. serve full-width xlstm-125m (dense scheduler, then the serial engine)
+# ---------------------------------------------------------------------------
+
+
+def phase_serve_xlstm(torch) -> dict:
+    """Full-width xlstm-125m serves the 16 synthetic requests through the
+    dense continuous-batching scheduler, then the serial engine runs 8 x 512
+    prompts for 32 steps. Returns the launch counts of the served run."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models import xlstm_model as xm
+    from repro_torch.models.common import dtype_of
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    from repro_torch.serve.workload import synthetic_requests
+
+    gc.collect()  # earlier phases' weights: peak memory counts this phase's only
+    cfg = get_config("xlstm-125m")
+    model = build(cfg)
+    per_step = 2 * xm.block_kinds(cfg).count("mlstm")  # scans per prefill and per tick
+    n_req = SERVE_REQUESTS["n"]
+    prompt_range, steps_range = SERVE_REQUESTS["prompt_range"], SERVE_REQUESTS["steps_range"]
+    max_len = (prompt_range[1] - 1) + (steps_range[1] - 1)
+    with Runtime("torchdev") as rt:
+        t0 = time.perf_counter()
+        params = model.init(seed=0, device=rt.processing_unit.context,
+                            dtype=dtype_of(cfg.compute_dtype))
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        log(f"[serve-xlstm] {cfg.name}: {cfg.num_layers} blocks ({xm.block_kinds(cfg)}), d_model "
+            f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.ssm_expand * cfg.d_model // cfg.num_heads}"
+            f", vocab {cfg.vocab_size}, {cfg.compute_dtype}; {n_params} parameters initialised "
+            f"on the card in {time.perf_counter() - t0:.1f}s")
+        sched = ContinuousBatchingScheduler(model, params, max_batch=8, max_len=max_len,
+                                            runtime=rt, kv_mode="dense")
+        warm = synthetic_requests(cfg.vocab_size, 2, prompt_range=(64, 65), steps_range=(9, 10),
+                                  seed=1, rid_prefix="warm")
+        sched.serve(warm)
+        requests = synthetic_requests(cfg.vocab_size, n_req, prompt_range=prompt_range,
+                                      steps_range=steps_range, seed=SERVE_REQUESTS["seed"])
+        admitted_at = {}
+        admit = sched.try_admit
+
+        def timed_admit(request):
+            ok = admit(request)
+            if ok:  # the first token is the prefill's greedy pick
+                admitted_at[request.rid] = time.perf_counter()
+            return ok
+
+        sched.try_admit = timed_admit
+        ticks0 = sched.ticks
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = sched.serve(requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ticks = sched.ticks - ticks0
+
+        require(len(results) == n_req, f"{len(results)} of {n_req} requests finished")
+        n_tok = 0
+        for r in requests:
+            fin = results[r.rid]
+            toks = np.asarray(fin.tokens)
+            require(len(toks) == r.max_new_tokens and fin.finish_reason == "length",
+                    f"{r.rid}: {len(toks)} tokens ({fin.finish_reason}), budget {r.max_new_tokens}")
+            require(bool(np.all((toks >= 0) & (toks < cfg.vocab_size))),
+                    f"{r.rid}: token out of range")
+            n_tok += len(toks)
+        want = per_step * (n_req + ticks)
+        require(counts["gated_linear_scan"] == want,
+                f"gated_linear_scan launched {counts['gated_linear_scan']} times, expected "
+                f"{per_step} per prefill and per tick = {want}")
+        require(all(n == 0 for name, n in counts.items() if name != "gated_linear_scan"),
+                f"the xlstm serve launched another kernel: {counts}")
+        ttft = np.asarray([admitted_at[r.rid] - t0 for r in requests])
+        plens = [len(r.prompt) for r in requests]
+        log(f"[serve-xlstm] {n_req} requests (prompts {min(plens)}-{max(plens)} tokens, "
+            f"{sum(plens)} prompt tokens), {n_tok} generated tokens in {wall:.3f}s: "
+            f"{n_tok / wall:.1f} tok/s; TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f} ms, "
+            f"p90 {np.percentile(ttft, 90) * 1e3:.1f} ms (from a common start, queueing "
+            f"included); {ticks} decode ticks; peak device memory {peak / 2**30:.2f} GiB; "
+            f"launches {counts}")
+        for r in requests[:3]:
+            log(f"[serve-xlstm] {r.rid}: prompt {len(r.prompt)} tokens -> "
+                f"{results[r.rid].tokens[:8]}...")
+
+        # the serial engine: one B=8 prefill, then 32 steps
+        B, S, steps = 8, 512, 32
+        prompts = np.random.default_rng(0).integers(1, cfg.vocab_size, (B, S)).astype(np.int32)
+        engine = ServeEngine(model, params, max_len=S + steps, runtime=rt)
+        engine.generate(prompts[:, :64], steps=2)  # warm-up
+        first = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, steps=steps,
+                              on_first_token=lambda: first.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        serial_counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    toks = out.tokens
+    require(toks.shape == (B, steps), f"serial generate returned {toks.shape}")
+    require(bool(np.all((toks >= 0) & (toks < cfg.vocab_size))), "serial token out of range")
+    require(bool(np.isfinite(out.prefill_logits).all()), "serial prefill logits not finite")
+    require(serial_counts["gated_linear_scan"] == per_step * (1 + steps)
+            and sum(serial_counts.values()) == serial_counts["gated_linear_scan"],
+            f"serial launches {serial_counts}, expected {per_step * (1 + steps)} scans only")
+    log(f"[serve-xlstm] serial ServeEngine.generate B={B} prompts of {S} tokens, {steps} steps: "
+        f"{B * steps} tokens in {wall:.3f}s: {B * steps / wall:.1f} tok/s; first token after "
+        f"{(first[0] - t0) * 1e3:.1f} ms; peak device memory {peak / 2**30:.2f} GiB; launches "
+        f"{serial_counts}; row 0 -> {toks[0, :8].tolist()}...")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 12. full-width xlstm-125m forward and loss
+# ---------------------------------------------------------------------------
+
+
+def phase_loss_xlstm(torch) -> dict:
+    """`ModelBundle.loss` of full-width xlstm-125m on B=4 x S=2048 seeded
+    tokens under `torch.no_grad()`: the path the reference's Pallas scan
+    runs on. Returns the launch counts of that call."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models import xlstm_model as xm
+    from repro_torch.models.common import dtype_of
+
+    gc.collect()
+    cfg = get_config("xlstm-125m")
+    model = build(cfg)
+    B, S = 4, 2048
+    rng = np.random.default_rng(3)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+                             device="cuda")
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+                             device="cuda")
+    with torch.no_grad():
+        params = model.init(seed=0, device="cuda", dtype=dtype_of(cfg.compute_dtype))
+        model.loss(params, {"tokens": tokens[:, :128], "labels": labels[:, :128]})  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, metrics = model.loss(params, {"tokens": tokens, "labels": labels})
+        loss = float(loss)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    want = 2 * xm.block_kinds(cfg).count("mlstm")
+    log(f"[loss-xlstm] ModelBundle.loss B={B} S={S} ({B * S} tokens), {cfg.compute_dtype}: loss "
+        f"{loss:.5f} (ln V = {math.log(cfg.vocab_size):.5f} for random weights; ce "
+        f"{float(metrics['ce_loss']):.5f}) in {wall:.3f}s ({B * S / wall:.0f} tok/s); peak "
+        f"device memory {peak / 2**30:.2f} GiB; launches {counts}")
+    require(math.isfinite(loss), f"loss is not finite: {loss}")
+    require(abs(loss - math.log(cfg.vocab_size)) < 2.0,
+            f"loss {loss} is far from ln V = {math.log(cfg.vocab_size)} for random weights")
+    require(counts["gated_linear_scan"] == want
+            and sum(counts.values()) == counts["gated_linear_scan"],
+            f"loss launches {counts}, expected {want} scans only")
+    return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -968,6 +1430,9 @@ def main() -> int:
             f"pick, so reported, not required)")
         run_phase("serial", phase_serial, torch)
         tc2_counts = run_phase("tc2", phase_tc2, torch)
+        run_phase("reduced-xlstm", phase_reduced_xlstm, torch)
+        xlstm_counts = run_phase("serve-xlstm", phase_serve_xlstm, torch)
+        run_phase("loss-xlstm", phase_loss_xlstm, torch)
         log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
@@ -977,9 +1442,11 @@ def main() -> int:
         return 1
     # each kernel's launches on its own path: flash and paged decode on the
     # paged serve (as in earlier runs), dense decode on the dense serve,
-    # fused_linear on Test Case 2's fused_linear row
+    # fused_linear on Test Case 2's fused_linear row, the scan on the xlstm
+    # serve
     path_counts = {"flash_attention": paged_counts, "paged_decode_attention": paged_counts,
-                   "decode_attention": dense_counts, "fused_linear": tc2_counts}
+                   "decode_attention": dense_counts, "fused_linear": tc2_counts,
+                   "gated_linear_scan": xlstm_counts}
     for k in kernels:
         k["launches"] = path_counts[k["name"]][k["name"]]
     forbidden = [m for m in sys.modules if m == "jax" or m.startswith("jax.")

@@ -104,7 +104,7 @@ ARCH_IDS: Sequence[str] = (
 )
 
 #: Architectures whose config (and model family) the port runs today.
-PORTED_ARCH_IDS: Sequence[str] = ("gemma3-1b",)
+PORTED_ARCH_IDS: Sequence[str] = ("gemma3-1b", "xlstm-125m")
 
 
 def get_config(arch_id: str, *, reduced: bool = False) -> ArchConfig:

@@ -12,9 +12,10 @@ queried topology) and offers the execution entry points of the unified
 completion API: ``submit()`` dispatches an execution unit and returns its
 `Future`; ``drive()`` is an event-driven loop multiplexing in-flight
 completion objects (compute futures, transfer events, channel ops);
-``run()`` is the synchronous shim (``submit(...).result()``). A Runtime is
-a context manager — ``with Runtime(...) as rt:`` finalizes the default
-processing unit on exit, so worker threads are never leaked.
+``run()`` is the synchronous shim (dispatch and block; not tracked for
+``drive()``). A Runtime is a context manager — ``with Runtime(...) as rt:``
+finalizes the default processing unit on exit, so worker threads are never
+leaked.
 """
 from __future__ import annotations
 
@@ -193,8 +194,15 @@ class Runtime:
                 pass
 
     def run(self, unit: ExecutionUnit, *args, **kwargs):
-        """Synchronous shim over `submit`: dispatch, block, return/raise."""
-        return self.submit(unit, *args, **kwargs).result()
+        """Synchronous shim: dispatch, block, return/raise. Unlike `submit`,
+        the future is not tracked for `drive()`: it is settled when this
+        returns, and tracking it would keep its arguments and result alive
+        until the next prune (64 calls later) -- a recurrent model's decode
+        returns fresh states every tick, so that held 64 ticks of slot
+        states."""
+        cm = self.compute_manager
+        state = cm.create_execution_state(unit, *args, **kwargs)
+        return cm.execute(self.processing_unit, state).result()
 
     def drive(
         self,

@@ -9,13 +9,14 @@ chose between the oracle and the Pallas kernel; here the device decides.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import fused_linear as _linear
+from . import linear_scan as _scan
 from . import paged_decode_attention as _paged
 from . import ref
 
@@ -74,11 +75,25 @@ def fused_linear(x, w, b, *, act: str = "none") -> torch.Tensor:
     return _linear.fused_linear_ref(x, w, b, act=act)
 
 
+def gated_linear_scan(q, k, v, log_a, *, chunk: int = 128,
+                      initial_state=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q, k: (B, H, S, dk); v: (B, H, S, dv); log_a: (B, H, S) fp32;
+    initial_state: None (zeros) or fp32 (B, H, dk, dv) -> (y (B, H, S, dv),
+    final state (B, H, dk, dv) fp32). The kernel takes a carried state as
+    the reference's ``ops`` call does (its Pallas wrapper sends that case to
+    the oracle) and any S; `chunk` shapes the plain version only, which keeps
+    the reference's ``S % chunk == 0``."""
+    if _on_cuda(q, "gated_linear_scan"):
+        return _scan.gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=initial_state)
+    return ref.gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=initial_state)
+
+
 _KERNELS = {
     "flash_attention": _flash,
     "paged_decode_attention": _paged,
     "decode_attention": _decode,
     "fused_linear": _linear,
+    "gated_linear_scan": _scan,
 }
 
 

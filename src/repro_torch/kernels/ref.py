@@ -141,3 +141,81 @@ def paged_decode_attention(
     k_eff = k_pool[idx].reshape(B, -1, KV, hd)
     v_eff = v_pool[idx].reshape(B, -1, KV, hd)
     return _masked_decode(q, k_eff, v_eff, pos, window=window, scale=scale)
+
+
+def gated_linear_scan(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    log_a: torch.Tensor,
+    *,
+    chunk: int = 128,
+    initial_state: Optional[torch.Tensor] = None,
+):
+    """Chunkwise gated linear recurrence (SSD / mLSTM matrix-memory core).
+
+        S_t = a_t * S_{t-1} + k_t^T v_t          (state: (dk, dv))
+        y_t = q_t @ S_t
+
+    q, k: (B, H, S, dk); v: (B, H, S, dv); log_a: (B, H, S) per-step log
+    decay (a_t = exp(log_a_t), log_a <= 0 for stability); initial_state:
+    None (zeros) or (B, H, dk, dv). Returns (y (B, H, S, dv) in q's dtype,
+    final state (B, H, dk, dv) fp32). As the reference, S must be a multiple
+    of `chunk`; the decay is cumulated in log space in fp32 within a chunk and
+    the state is carried across chunks in fp32.
+    """
+    B, H, S, dk = q.shape
+    dv = v.shape[-1]
+    if S % chunk:
+        raise ValueError(f"seq {S} must be divisible by chunk {chunk}")
+    C = S // chunk
+
+    qf = q.float().reshape(B, H, C, chunk, dk)
+    kf = k.float().reshape(B, H, C, chunk, dk)
+    vf = v.float().reshape(B, H, C, chunk, dv)
+    la = log_a.float().reshape(B, H, C, chunk)
+
+    # within-chunk cumulative decay: A[i] = sum_{t<=i} log_a[t]
+    A = torch.cumsum(la, dim=-1)  # (B,H,C,L)
+    A_total = A[..., -1]  # (B,H,C)
+
+    # intra-chunk: y_intra[i] = sum_{j<=i} exp(A_i - A_j) (q_i.k_j) v_j
+    decay = A[..., :, None] - A[..., None, :]  # (B,H,C,L,L)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
+    gates = torch.where(tri, torch.exp(decay), torch.zeros((), device=q.device))
+    scores = torch.einsum("bhcid,bhcjd->bhcij", qf, kf) * gates
+    y_intra = torch.einsum("bhcij,bhcjv->bhciv", scores, vf)
+
+    # per-chunk outer-product contribution to the carried state:
+    #   S_chunk = sum_j exp(A_total - A_j) k_j^T v_j
+    k_scaled = kf * torch.exp(A_total[..., None] - A)[..., None]
+    chunk_states = torch.einsum("bhcjd,bhcjv->bhcdv", k_scaled, vf)  # (B,H,C,dk,dv)
+
+    if initial_state is None:
+        state = torch.zeros((B, H, dk, dv), dtype=torch.float32, device=q.device)
+    else:
+        state = initial_state.float()
+    prev = []  # the state each chunk starts from
+    for c in range(C):
+        prev.append(state)
+        state = torch.exp(A_total[:, :, c])[..., None, None] * state + chunk_states[:, :, c]
+    prev_states = torch.stack(prev, dim=2)  # (B,H,C,dk,dv)
+
+    # inter-chunk: y_inter[i] = exp(A_i) q_i @ S_prev(chunk)
+    q_scaled = qf * torch.exp(A)[..., None]
+    y_inter = torch.einsum("bhcid,bhcdv->bhciv", q_scaled, prev_states)
+
+    y = (y_intra + y_inter).reshape(B, H, S, dv)
+    return y.to(q.dtype), state
+
+
+def gated_linear_step(q_t, k_t, v_t, log_a_t, state):
+    """Single decode step of the gated linear recurrence.
+
+    q_t, k_t: (B, H, dk); v_t: (B, H, dv); log_a_t: (B, H); state:
+    (B, H, dk, dv). Returns (y_t (B, H, dv) in q_t's dtype, new state fp32).
+    """
+    a = torch.exp(log_a_t.float())[..., None, None]
+    new_state = a * state.float() + torch.einsum("bhd,bhv->bhdv", k_t.float(), v_t.float())
+    y = torch.einsum("bhd,bhdv->bhv", q_t.float(), new_state)
+    return y.to(q_t.dtype), new_state

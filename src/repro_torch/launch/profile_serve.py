@@ -1,10 +1,12 @@
 """Where the serving path's time goes on the card: a traced run of the same
-workload as `chip_smoke.py`'s serve phase (full gemma3-1b, 8 slots, 16
+workload as `chip_smoke.py`'s serve phases (a full-width model, 8 slots, 16
 synthetic requests with 64-1024-token prompts and 16-64 new tokens; paged:
 page 16, sync interval 8), under `torch.profiler`.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--seed 0] \
-        [--kv-mode paged|dense]
+        [--arch gemma3-1b|xlstm-125m] [--kv-mode paged|dense]
+
+(xlstm-125m has no paged path: pass ``--kv-mode dense``.)
 
 Prints the untraced wall time of the run, then for the traced run: the
 device's busy time (union of kernel intervals) and idle share of the traced
@@ -48,8 +50,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--kv-mode", choices=("paged", "dense"), default="paged")
+    ap.add_argument("--arch", default="gemma3-1b")
     args = ap.parse_args(argv)
-    cfg = get_config("gemma3-1b")
+    cfg = get_config(args.arch)
     model = build(cfg)
     with Runtime("torchdev") as rt:
         params = model.init(seed=0, device=rt.processing_unit.context,
@@ -71,7 +74,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n_tok = sum(len(f.tokens) for f in results.values())
-        print(f"untraced ({args.kv_mode}): {n_tok} tokens in {wall:.3f}s "
+        print(f"untraced ({args.arch}, {args.kv_mode}): {n_tok} tokens in {wall:.3f}s "
               f"({n_tok / wall:.1f} tok/s)")
 
         host = defaultdict(float)

@@ -1,13 +1,16 @@
 """Weight bridge: the reference's parameter tree -> the port's parameters.
 
-The reference's `init_lm` returns nested dicts whose leaves carry leading
-stack dims for `jax.lax.scan`: ``units`` leaves are (n_units, unit_len, ...)
-and ``tail`` leaves (n_tail, ...) on sliding-window archs, ``layers``
-leaves (num_layers, ...) otherwise. The port keeps one dict per layer, in
+Transformer trees: the reference's `init_lm` returns nested dicts whose
+leaves carry leading stack dims for `jax.lax.scan`: ``units`` leaves are
+(n_units, unit_len, ...) and ``tail`` leaves (n_tail, ...) on sliding-window
+archs, ``layers`` leaves (num_layers, ...) otherwise. The port keeps one dict per layer, in
 layer order: unit u, layer j becomes layer ``unit_len * u + j``; tail layer
 t becomes layer ``unit_len * n_units + t``. Weight shapes are unchanged
 (e.g. wq (d, H, hd), wo (H, hd, d)). Leaves cross as numpy arrays; nothing
 here imports JAX.
+
+xlstm trees (``{"embed", "blocks": [per-block dict], "final_norm"}``) have
+no layer stacks: the port keeps the same tree.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from .transformer import unit_structure
 
 #: leaves kept in fp32 whatever the matrices' storage dtype (rms_norm reads
 #: them as fp32)
-NORM_KEYS = frozenset({"ln1", "ln2", "final_norm"})
+NORM_KEYS = frozenset({"ln1", "ln2", "final_norm", "norm"})
 
 
 def _map(fn: Callable, tree):
@@ -57,7 +60,7 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any], *, device=None,
     there is none; pass ``device="cpu"`` for the CPU). `dtype` stores the
     matrices in another dtype (norm weights stay fp32)."""
     device = resolve_device(device)
-    flat = unstack_layers(cfg, tree)
+    flat = dict(tree) if "blocks" in tree else unstack_layers(cfg, tree)
 
     def convert(path_key: str):
         def fn(a):

@@ -1,7 +1,8 @@
 """Common model building blocks: seeded parameter init, norms, RoPE,
-embeddings and activations. Port of `repro/models/common.py`; the numerics
-follow it exactly (fp32 RMSNorm scaled by ``1 + w``, tanh GELU, split-half
-RoPE with fp32 angles, embedding rows cast to the compute dtype)."""
+embeddings, activations and the cross-entropy loss. Port of
+`repro/models/common.py`; the numerics follow it exactly (fp32 RMSNorm
+scaled by ``1 + w``, tanh GELU, split-half RoPE with fp32 angles, embedding
+rows cast to the compute dtype, the loss in fp32 with its z-loss term)."""
 from __future__ import annotations
 
 import math
@@ -28,7 +29,7 @@ def resolve_device(device=None) -> torch.device:
 
 class ParamInit:
     """Creates parameters from one seeded `torch.Generator` on `device`, with
-    the reference's distribution: normal with std ``1 / sqrt(fan_in)``,
+    the reference's distribution: normal with std ``scale / sqrt(fan_in)``,
     norm weights zero. The numbers differ from JAX's for the same seed (a
     test bridges the reference's weights instead). On the ``meta`` device
     nothing is drawn or allocated."""
@@ -41,8 +42,8 @@ class ParamInit:
             self.gen = torch.Generator(device=self.device)
             self.gen.manual_seed(seed)
 
-    def normal(self, shape: Sequence[int], *, fan_in: int) -> torch.Tensor:
-        std = 1.0 / math.sqrt(max(1, fan_in))
+    def normal(self, shape: Sequence[int], *, fan_in: int, scale: float = 1.0) -> torch.Tensor:
+        std = scale / math.sqrt(max(1, fan_in))
         if self.gen is None:
             return torch.empty(tuple(shape), dtype=self.dtype, device=self.device)
         x = torch.randn(tuple(shape), generator=self.gen, device=self.device, dtype=torch.float32)
@@ -50,6 +51,9 @@ class ParamInit:
 
     def zeros(self, shape: Sequence[int], *, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         return torch.zeros(tuple(shape), dtype=dtype or self.dtype, device=self.device)
+
+    def constant(self, value: float, shape: Sequence[int]) -> torch.Tensor:
+        return torch.full(tuple(shape), value, dtype=self.dtype, device=self.device)
 
 
 # ---------------------------------------------------------------------------
@@ -115,3 +119,21 @@ def unembed(params, x: torch.Tensor, *, tie: bool) -> torch.Tensor:
     if tie:
         return x @ params["embedding"].to(x.dtype).T
     return x @ params["unembed"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                          z_loss: float = 0.0) -> torch.Tensor:
+    """logits: (..., V); labels: (...) int. Returns the mean loss (fp32), with
+    ``z_loss * logsumexp**2`` added per position when `z_loss` is set."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logits = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = logz - label_logits
+    if z_loss:
+        loss = loss + z_loss * torch.square(logz)
+    return torch.mean(loss)

@@ -1,11 +1,12 @@
 """Batched decode cores. Port of `repro/serve/batching.py`.
 
-`SlotDecoder` owns `max_slots` dense per-slot caches sized for `max_len`
-positions. Admission prefills one request at a time (B=1 prefill with cache
-headroom) and copies its caches into a free slot; every tick then runs ONE
-batched decode step over all slots at each slot's own position, and copies
-the new tokens to the host (one device round trip per tick, as the
-reference's dense mode does).
+`SlotDecoder` owns `max_slots` per-slot decoder states: dense KV caches
+sized for `max_len` positions, or a recurrent family's constant-size states.
+Admission prefills one request at a time (B=1 prefill with cache headroom)
+and copies its state into a free slot; every tick then runs ONE batched
+decode step over all slots at each slot's own position, and copies the new
+tokens to the host (one device round trip per tick, as the reference's
+dense mode does).
 
 `PagedSlotDecoder` is the paged, device-resident variant: the KV caches live
 in a shared block pool (`serve/kv_pool.py`) addressed through the
@@ -35,15 +36,39 @@ from .kv_pool import PagedKVPool
 # control columns of the (slots, 6) device-resident table
 TOK, POS, DONE, STEPS, EOS, CAP = range(6)
 
+#: families whose decoder state is a set of KV caches (their deepest buffer
+#: is the slot's position ceiling); the others' recurrent state is O(1)
+KV_CACHE_FAMILIES = ("dense", "moe", "vlm")
+
+
+def _leaves(tree):
+    """The tensors of a state tree (lists, tuples and dicts), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [t for v in tree for t in _leaves(v)]
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return type(tree)(_map_tree(fn, v) for v in tree)
+
 
 class SlotDecoder:
-    """Dense per-slot decode core (the reference's `SlotDecoder`).
+    """Per-slot decode core (the reference's `SlotDecoder`).
 
-    Caches are one ``(max_slots, S_buf, KV, hd)`` tensor pair per layer,
-    allocated at the first admission from the prefill's cache shapes (ring
-    buffers of the window on local layers, `max_len` deep on global ones)
-    and written in place. The reference vmaps a B=1 decode over the slot
-    axis; here the slot axis is the batch, with per-slot positions. Tokens
+    The slot states are the prefill's state tree with the batch axis widened
+    to `max_slots`, allocated at the first admission from the prefill's
+    shapes: for transformers one ``(max_slots, S_buf, KV, hd)`` tensor pair
+    per layer (ring buffers of the window on local layers, `max_len` deep on
+    global ones), written in place by each tick; for xlstm one dict of fp32
+    recurrent states per block, replaced by each tick. The reference vmaps a
+    B=1 decode over the slot axis; here the slot axis is the batch, with
+    per-slot positions, which is exact because no family mixes rows. Tokens
     and positions live on the host (`last_tokens`, `pos`) and are uploaded
     every tick; values in slots without a live request are garbage that the
     caller ignores.
@@ -79,7 +104,7 @@ class SlotDecoder:
         self._prefill_unit = cm.create_execution_unit(prefill, name="prefill")
 
         def batched_decode(p, states, tokens, pos):
-            # states: per-layer (max_slots, S_buf, KV, hd) caches; tokens and
+            # states: per-layer slot states, batch axis max_slots; tokens and
             # pos (max_slots,): each slot decodes at its own position
             logits, states = model.decode_step(p, states, {"tokens": tokens[:, None], "pos": pos})
             return torch.argmax(logits, dim=-1).to(torch.int32), states
@@ -87,9 +112,8 @@ class SlotDecoder:
         self._decode_unit = cm.create_execution_unit(batched_decode, name="batched_decode")
 
         def pack(bufs, state, slot):
-            for (bk, bv), (k, v) in zip(bufs, state):
-                bk[slot] = k[0]
-                bv[slot] = v[0]
+            for buf, leaf in zip(_leaves(bufs), _leaves(state)):
+                buf[slot] = leaf[0]
             return bufs
 
         self._pack_unit = cm.create_execution_unit(pack, name="pack_slot")
@@ -101,9 +125,11 @@ class SlotDecoder:
 
     @property
     def cache_capacity(self) -> int:
-        """Cache positions a slot can actually hold: the deepest allocated
-        buffer (global layers; ring layers are shorter), the scheduler's
-        eviction ceiling."""
+        """Cache positions a slot can actually hold, the scheduler's eviction
+        ceiling: for KV caches the deepest allocated buffer (global layers;
+        ring layers are shorter), for recurrent states `max_len`."""
+        if self.model.cfg.family not in KV_CACHE_FAMILIES:
+            return self.max_len
         if self._cache_capacity is None:
             if self._states is None:
                 return self.max_len
@@ -119,15 +145,13 @@ class SlotDecoder:
         return int(first.cpu()[0]), state
 
     def load(self, slot: int, state, last_token: int, pos: int) -> None:
-        """Copy a prefilled B=1 state into `slot` of the slot caches."""
+        """Copy a prefilled B=1 state into `slot` of the slot states."""
         if not 0 <= slot < self.max_slots:
             raise IndexError(f"slot {slot} out of range [0, {self.max_slots})")
         if self._states is None:
-            self._states = [
-                tuple(torch.zeros((self.max_slots,) + t.shape[1:], dtype=t.dtype,
-                                  device=self.device) for t in kv)
-                for kv in state
-            ]
+            self._states = _map_tree(
+                lambda t: torch.zeros((self.max_slots,) + t.shape[1:], dtype=t.dtype,
+                                      device=self.device), state)
         self._states = self.rt.run(self._pack_unit, self._states, state, slot)
         self.last_tokens[slot] = last_token
         self.pos[slot] = pos
@@ -178,7 +202,10 @@ class PagedSlotDecoder:
         runtime: Optional[Runtime] = None,
     ):
         if model.paged_ops is None:
-            raise ValueError(f"model family {model.cfg.family!r} has no paged KV-cache path")
+            raise ValueError(
+                f"model family {model.cfg.family!r} has no paged KV-cache path; "
+                "use kv_mode='dense'"
+            )
         if sync_interval < 1:
             raise ValueError("sync_interval must be >= 1")
         self.params = params

@@ -15,6 +15,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.runtime import Runtime  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import xlstm_model  # noqa: E402
 from repro_torch.models.attention import paged_layout  # noqa: E402
 from repro_torch.models.bridge import params_from_jax  # noqa: E402
 
@@ -32,7 +33,7 @@ def test_port_imports_no_jax_and_no_reference():
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
-        print(len(names), bad)
+        print(len(names), bad, " ".join(names))
         sys.exit(1 if bad else 0)
     """)
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
@@ -41,6 +42,10 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 25  # every module of the package was imported
+    names = out.stdout
+    for module in ("repro_torch.kernels.linear_scan", "repro_torch.models.ssm",
+                   "repro_torch.models.xlstm_model", "repro_torch.configs.xlstm_125m"):
+        assert module in names, module
 
 
 def test_torchdev_without_a_device_never_picks_the_cpu(monkeypatch):
@@ -83,3 +88,29 @@ def test_constructors_default_to_the_card_and_never_pick_the_cpu(monkeypatch):
                 stack.extend(node)
         assert leaves and all(t.device.type == "cpu" for t in leaves)
     assert params["embed"]["embedding"].device.type == "cpu"
+
+
+def test_xlstm_constructors_default_to_the_card_and_never_pick_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("xlstm-125m", reduced=True)
+    model = build(cfg)
+    tree = {"embed": {"embedding": np.zeros((cfg.vocab_size, cfg.d_model), np.float32)},
+            "final_norm": np.zeros((cfg.d_model,), np.float32),
+            "blocks": [{"norm": np.zeros((cfg.d_model,), np.float32)}]}
+    for make in (lambda **kw: model.init(seed=0, **kw),
+                 lambda **kw: xlstm_model.init_lm(cfg, **kw),
+                 lambda **kw: params_from_jax(cfg, tree, **kw),
+                 lambda **kw: model.init_state(2, 32, **kw),
+                 lambda **kw: xlstm_model.init_states(cfg, 2, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        leaves = _leaves(make(device="cpu"))  # the CPU only when asked
+        assert leaves and all(t.device.type == "cpu" for t in leaves)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [t for v in tree for t in _leaves(v)]

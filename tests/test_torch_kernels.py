@@ -6,11 +6,14 @@ kernels (interpret mode, through `repro.kernels.ops` with ``impl="pallas"``
 or the kernel module itself) and its jnp oracles, on the same numpy inputs,
 at the reference's own tolerances (`tests/test_kernels.py`: 2e-5 fp32 /
 2e-2 bf16 for attention and dense decode, 2e-5 for fused_linear;
-`tests/test_kernels_paged.py`: 1e-5 fp32 / 5e-2 bf16 for paged decode). Tests marked ``gpu`` hold the CUDA kernels
+`tests/test_kernels_paged.py`: 1e-5 fp32 / 5e-2 bf16 for paged decode; 2e-5
+fp32 / 2e-2 bf16 for the gated linear scan). Tests marked ``gpu`` hold the CUDA kernels
 against the plain versions on the card at the serving path's shapes; they
 skip where there is no card, and they need no JAX (the machine with the card
 may not have it; there the reference comparisons skip instead).
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -27,6 +30,7 @@ except ImportError:
 from repro_torch.kernels import decode_attention as tdecode  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import fused_linear as tlinear  # noqa: E402
+from repro_torch.kernels import linear_scan as tscan  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as tpaged  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -258,6 +262,98 @@ def test_fused_linear_bf16_output_in_x_dtype(reference):
 
 
 # ---------------------------------------------------------------------------
+# gated linear scan: port's plain version vs JAX Pallas (interpret) and oracle
+# ---------------------------------------------------------------------------
+
+SCAN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# `tests/test_kernels.py::SCAN_SHAPES`: (B, H, S, dk, dv, chunk)
+SCAN_SHAPES = [
+    (1, 1, 128, 32, 32, 64),
+    (2, 4, 256, 64, 64, 128),
+    (1, 2, 256, 16, 64, 64),  # dk != dv (Mamba2 shape)
+    (2, 2, 512, 32, 16, 128),
+]
+
+
+def _scan_inputs(seed, B, H, S, dk, dv, *, state=False):
+    """The reference test's scales: q, k, v ~ 0.5 N(0, 1), log_a = -softplus(N(0, 1))."""
+    rng = np.random.default_rng(seed)
+    q = (0.5 * rng.standard_normal((B, H, S, dk))).astype(np.float32)
+    k = (0.5 * rng.standard_normal((B, H, S, dk))).astype(np.float32)
+    v = (0.5 * rng.standard_normal((B, H, S, dv))).astype(np.float32)
+    la = (-np.logaddexp(0.0, rng.standard_normal((B, H, S)))).astype(np.float32)
+    s0 = (0.5 * rng.standard_normal((B, H, dk, dv))).astype(np.float32) if state else None
+    return q, k, v, la, s0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,S,dk,dv,chunk", SCAN_SHAPES)
+def test_scan_plain_matches_jax_pallas_and_oracle(reference, B, H, S, dk, dv, chunk, dtype):
+    q, k, v, la, _ = _scan_inputs(S + dk + dv, B, H, S, dk, dv)
+    (jq, tq), (jk, tk), (jv, tv) = _pair(q, dtype), _pair(k, dtype), _pair(v, dtype)
+    y, st = tops.gated_linear_scan(tq, tk, tv, torch.from_numpy(la), chunk=chunk)
+    assert y.dtype == TDT[dtype] and y.shape == (B, H, S, dv)
+    assert st.dtype == torch.float32 and st.shape == (B, H, dk, dv)
+    tol = SCAN_TOL[dtype]
+    jla = jnp.asarray(la)
+    for want_y, want_s in (jops.gated_linear_scan(jq, jk, jv, jla, chunk=chunk, impl="pallas"),
+                           jref.gated_linear_scan(jq, jk, jv, jla, chunk=chunk)):
+        np.testing.assert_allclose(_np(y), _np(want_y), rtol=tol, atol=tol)
+        np.testing.assert_allclose(_np(st), _np(want_s), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,S,dk,dv,chunk", [
+    (2, 4, 64, 32, 32, 64),    # REDUCED xlstm's mLSTM heads
+    (2, 4, 64, 32, 1, 64),     # its normaliser (v = ones)
+    (3, 2, 1, 32, 32, 1),      # a decode step
+    (1, 2, 96, 16, 24, 32),    # dk != dv
+])
+def test_scan_plain_with_initial_state_matches_jax_ops(reference, B, H, S, dk, dv, chunk, dtype):
+    """A carried state: the reference's `ops` call (its Pallas wrapper routes
+    this case to the oracle), as xlstm prefill and decode make it."""
+    q, k, v, la, s0 = _scan_inputs(7 * S + dv, B, H, S, dk, dv, state=True)
+    (jq, tq), (jk, tk), (jv, tv) = _pair(q, dtype), _pair(k, dtype), _pair(v, dtype)
+    y, st = tops.gated_linear_scan(tq, tk, tv, torch.from_numpy(la), chunk=chunk,
+                                   initial_state=torch.from_numpy(s0))
+    tol = SCAN_TOL[dtype]
+    jla, js0 = jnp.asarray(la), jnp.asarray(s0)
+    for impl in ("pallas", "ref"):
+        want_y, want_s = jops.gated_linear_scan(jq, jk, jv, jla, chunk=chunk,
+                                                initial_state=js0, impl=impl)
+        np.testing.assert_allclose(_np(y), _np(want_y), rtol=tol, atol=tol)
+        np.testing.assert_allclose(_np(st), _np(want_s), rtol=tol, atol=tol)
+
+
+def test_scan_chunk_invariance_and_step_match_reference(reference):
+    """The chunk is a tiling knob (the kernel ignores it); the chunkwise form
+    equals the per-step recurrence, and the port's step equals the
+    reference's."""
+    B, H, S, dk, dv = 1, 2, 64, 16, 16
+    q, k, v, la, s0 = _scan_inputs(22, B, H, S, dk, dv, state=True)
+    tq, tk, tv, tla, ts0 = (torch.from_numpy(a) for a in (q, k, v, la, s0))
+    tol = SCAN_TOL["float32"]
+    y64, s64 = tref.gated_linear_scan(tq, tk, tv, tla, chunk=64, initial_state=ts0)
+    y16, s16 = tref.gated_linear_scan(tq, tk, tv, tla, chunk=16, initial_state=ts0)
+    torch.testing.assert_close(y16, y64, rtol=tol, atol=tol)
+    torch.testing.assert_close(s16, s64, rtol=tol, atol=tol)
+    state, jstate, ys = ts0, jnp.asarray(s0), []
+    for t in range(S):
+        y_t, state = tref.gated_linear_step(tq[:, :, t], tk[:, :, t], tv[:, :, t], tla[:, :, t],
+                                            state)
+        jy_t, jstate = jref.gated_linear_step(*(jnp.asarray(a[:, :, t]) for a in (q, k, v, la)),
+                                              jstate)
+        np.testing.assert_allclose(_np(y_t), _np(jy_t), rtol=tol, atol=tol)
+        ys.append(y_t)
+    torch.testing.assert_close(torch.stack(ys, dim=2), y64, rtol=tol, atol=tol)
+    torch.testing.assert_close(state, s64, rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(state), _np(jstate), rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="divisible"):
+        tref.gated_linear_scan(tq[:, :, :63], tk[:, :, :63], tv[:, :, :63], tla[:, :, :63],
+                               chunk=16)
+
+
+# ---------------------------------------------------------------------------
 # dispatch by device
 # ---------------------------------------------------------------------------
 
@@ -281,8 +377,13 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     x, w, b = torch.randn(5, 7), torch.randn(7, 3), torch.randn(3)
     torch.testing.assert_close(tops.fused_linear(x, w, b, act="gelu"),
                                tlinear.fused_linear_ref(x, w, b, act="gelu"), rtol=0, atol=0)
+    q, k, v, la, s0 = (torch.from_numpy(a) for a in _scan_inputs(9, 2, 2, 32, 8, 4, state=True))
+    for got, want in zip(tops.gated_linear_scan(q, k, v, la, chunk=16, initial_state=s0),
+                         tref.gated_linear_scan(q, k, v, la, chunk=16, initial_state=s0)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert tops.launch_counts() == {"flash_attention": 0, "paged_decode_attention": 0,
-                                    "decode_attention": 0, "fused_linear": 0}
+                                    "decode_attention": 0, "fused_linear": 0,
+                                    "gated_linear_scan": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -301,6 +402,20 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                  torch.zeros((2, 8, 1, 16)), torch.zeros((2,), dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         tlinear.fused_linear(torch.zeros((4, 8)), torch.zeros((8, 2)), torch.zeros((2,)))
+    with pytest.raises(ValueError, match="CUDA"):
+        tscan.gated_linear_scan(torch.zeros((1, 2, 5, 8)), torch.zeros((1, 2, 5, 8)),
+                                torch.zeros((1, 2, 5, 1)), torch.zeros((1, 2, 5)))
+
+
+def test_scan_wrapper_rejects_bad_inputs():
+    q = torch.zeros((1, 2, 5, 8))
+    with pytest.raises(ValueError, match="log_a"):
+        tscan.gated_linear_scan(q, q, q, torch.zeros((1, 2, 4)))
+    with pytest.raises(ValueError, match="dk"):
+        big = torch.zeros((1, 1, 2, tscan.MAX_DK + 1))
+        tscan.gated_linear_scan(big, big, q[:1, :1, :2], torch.zeros((1, 1, 2)))
+    with pytest.raises(ValueError, match="chunk"):
+        tscan.gated_linear_scan(q, q, q, torch.zeros((1, 2, 5)), chunk=0)
 
 
 def test_flash_wrapper_rejects_unsupported_head_dim():
@@ -405,3 +520,47 @@ def test_fused_linear_kernel_matches_plain_on_card(cuda, M, K, N, act, dtype):
     assert tlinear.launches == before + 1 and got.dtype == x.dtype
     tol = LINEAR_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _scan_on_card(cuda, dtype, *, B, H, S, dk, dv, state=False, layout="heads", seed=7):
+    """Inputs as the model paths hand them over: head-split views of
+    (B, S, H, d) projections ("heads"), or q and k broadcast over the heads
+    ("shared", Mamba2's C and B)."""
+    q, k, v, la, s0 = _scan_inputs(seed, B, H, S, dk, dv, state=state)
+    to = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    if layout == "shared":
+        q, k = (to(a[:, :1]).to(TDT[dtype]).expand(B, H, S, dk) for a in (q, k))
+    else:
+        q, k = (to(a.transpose(0, 2, 1, 3).copy()).to(TDT[dtype]).transpose(1, 2) for a in (q, k))
+    v = to(v.transpose(0, 2, 1, 3).copy()).to(TDT[dtype]).transpose(1, 2)
+    return q, k, v, to(la), (to(s0) if s0 is not None else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    dict(B=1, H=4, S=777, dk=384, dv=384),                        # ragged prefill
+    dict(B=1, H=4, S=777, dk=384, dv=384, state=True),
+    dict(B=1, H=4, S=777, dk=384, dv=1, state=True),               # the normaliser
+    dict(B=8, H=4, S=1, dk=384, dv=384, state=True),               # a decode tick
+    dict(B=8, H=4, S=1, dk=384, dv=1, state=True),
+    dict(B=1, H=32, S=300, dk=64, dv=224, layout="shared"),        # Mamba2: dk != dv
+    dict(B=2, H=4, S=45, dk=32, dv=32, state=True),                # REDUCED widths
+    dict(B=2, H=2, S=512, dk=32, dv=16),                           # a reference SCAN_SHAPE
+], ids=["ragged-777", "ragged-777-state", "normaliser", "decode", "decode-normaliser",
+        "mamba2-shared-qk", "reduced", "ref-2x2x512x32x16"])
+def test_scan_kernel_matches_plain_on_card(cuda, case, dtype):
+    """Against the plain version at a chunk of at most 16 positions: its fp32
+    cumulated decay over the path's chunk of 128 alone exceeds the fp32
+    tolerance at dk = 384 (the kernel ignores the chunk)."""
+    q, k, v, la, s0 = _scan_on_card(cuda, dtype, **case)
+    chunk = math.gcd(case["S"], 16)
+    before = tscan.launches
+    y, st = tops.gated_linear_scan(q, k, v, la, chunk=chunk, initial_state=s0)
+    want_y, want_s = tref.gated_linear_scan(q, k, v, la, chunk=chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    assert tscan.launches == before + 1
+    assert y.dtype == TDT[dtype] and st.dtype == torch.float32
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(st, want_s, rtol=tol, atol=tol)
