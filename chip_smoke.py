@@ -18,8 +18,16 @@ nothing of JAX or of the JAX package. Phases:
    card at the paths' shapes and at ragged / edge shapes, and time kernel,
    plain version and the library call where one computes the same function
    (`F.scaled_dot_product_attention`, `torch.addmm`; none for the gated
-   linear scan) with CUDA events, the profiler's device time and, where a
-   path finds its inputs cold, with the inputs cycled past the L2;
+   linear scan) with CUDA events, the profiler's device time (the library
+   call's too) and, where a path finds its inputs cold, with the inputs
+   cycled past the L2; each kernel's TFLOP/s on its device time. The
+   kernels with variants (flash_attention: wgmma / simt; fused_linear:
+   wgmma / simt_tiled / simt) must take the tensor-core variant at every
+   bf16 shape it covers, the timed ones included, and the flash cases
+   compared must cover both block layouts of the wgmma variant (one
+   consumer warpgroup at a single prompt, two at the serial engine's
+   8 x 512 prefill); fused_linear's fp32 products are also timed either
+   side of the card's cut-over from simt to simt_tiled;
 4. reduced: REDUCED gemma3-1b in fp32 (TF32 off): prefill plus 16
    teacher-forced paged decode ticks on the card against the same functions
    on the CPU;
@@ -27,18 +35,19 @@ nothing of JAX or of the JAX package. Phases:
    16 synthetic requests (prompts 64-1024 tokens, 16-64 new tokens) on 8
    slots through `ContinuousBatchingScheduler.serve()` with the paged KV
    pool; the kernels' launch counts are read around that run and must be
-   exactly what the path needs;
+   exactly what the path needs, every flash launch on the wgmma variant;
 6. reduced-dense: REDUCED fp32 on the card against the CPU through the dense
    decode: 16 teacher-forced ticks (logits within 1e-4), a dense continuous
    serve and a serial `generate` (equal tokens);
 7. serve-dense: the same 16 requests through the dense scheduler
    (``kv_mode="dense"``, `max_len` 1088), launch counts exact, tokens
    compared with phase 5's (reported, not required: bf16);
-8. serial: `ServeEngine.generate` on 8 prompts of 512 tokens for 32 steps;
+8. serial: `ServeEngine.generate` on 8 prompts of 512 tokens for 32 steps
+   (its flash launches on the wgmma variant);
 9. tc2: the paper's Test Case 2, all three rows (``numpy`` on the port's
    `hostcpu` backend, ``torch`` and ``fused_linear`` on the card): equal
    accuracy above 0.85, img-0 scores within 1e-4, `fused_linear` launched
-   twice per batch;
+   twice per batch, every launch on the fp32 `simt` variant;
 10. reduced-xlstm: REDUCED xlstm-125m in fp32 on the card against the CPU:
    forward logits and loss, prefill plus 16 teacher-forced ticks carrying
    the recurrent states (within 1e-4), a dense continuous serve and a serial
@@ -157,18 +166,23 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     activities (kernels, copies, fills) a `torch.profiler` trace of `iters`
     warmed-up calls records, over `iters`. Unlike `time_ms` it excludes the
     host's launch gaps, so it tells a host-bound timing from a device-bound
-    one."""
+    one. A trace that recorded no device activity at all is taken again, at
+    most five times in all: now and then a trace of calls that did run on
+    the card comes back without its device records."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    require(bool(spans), "the profiler recorded no device activity")
-    return sum(spans) / 1e3 / iters
+    for _ in range(5):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return sum(spans) / 1e3 / iters
+        log("[kernels] a profiler trace recorded no device activity; tracing again")
+    raise PhaseError("the profiler recorded no device activity in five traces")
 
 
 def cold_device_ms(torch, fn, inputs, nbytes: int) -> float:
@@ -182,6 +196,25 @@ def cold_device_ms(torch, fn, inputs, nbytes: int) -> float:
                      iters=2 * len(copies))
 
 
+def launched_variant(module, fn):
+    """Call `fn` and return the variant of `module`'s kernel it launched
+    (exactly one launch)."""
+    before = dict(module.variant_launches)
+    fn()
+    ran = [k for k, n in module.variant_launches.items() if n != before[k]]
+    require(len(ran) == 1 and module.variant_launches[ran[0]] == before[ran[0]] + 1,
+            f"expected one launch, variants moved: {ran}")
+    return ran[0]
+
+
+def require_variant(variants, kernel: str, want: str, n: int, what: str) -> None:
+    """All `n` launches of `kernel` counted in `variants` (`ops.variant_counts`)
+    took variant `want`."""
+    got = variants[kernel]
+    require(got[want] == n and sum(got.values()) == n,
+            f"{what}: {kernel} launches by variant {got}, expected all {n} on {want}")
+
+
 def _max_err_and_ok(torch, got, want, tol) -> tuple:
     got32, want32 = got.float(), want.float()
     diff = (got32 - want32).abs()
@@ -190,13 +223,13 @@ def _max_err_and_ok(torch, got, want, tol) -> tuple:
     return float(diff.max().item()), ok
 
 
-def _flash_case(torch, gen, *, Sq, Skv, H, KV, hd, dtype, causal=True, window=0,
+def _flash_case(torch, gen, *, Sq, Skv, H, KV, hd, dtype, B=1, causal=True, window=0,
                 prefix_len=0, q_offset=0):
     from repro_torch.kernels import flash_attention, ref
 
-    q = torch.randn((1, Sq, H, hd), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((1, Skv, KV, hd), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((1, Skv, KV, hd), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Skv, KV, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Skv, KV, hd), generator=gen, device="cuda").to(dtype)
     kw = dict(causal=causal, window=window, prefix_len=prefix_len, q_offset=q_offset)
     got = flash_attention.flash_attention(q, k, v, **kw)
     want = ref.attention(q, k, v, **kw)
@@ -223,23 +256,57 @@ def check_flash(torch, gen) -> dict:
         dict(Sq=77, Skv=130, H=4, KV=4, hd=64, dtype=torch.float32, causal=False),
         dict(Sq=50, Skv=20, H=2, KV=1, hd=32, dtype=torch.float32, window=8),  # rows with no key
     ]
+    # the tensor-core variant at the other head dims and group sizes it takes
+    for hd in (64, 128):
+        cases += [dict(Sq=Sq, Skv=Sq, H=4, KV=1, hd=hd, dtype=torch.bfloat16, window=w)
+                  for Sq, w in ((37, 0), (777, 512), (1024, 0))]
+    cases += [
+        dict(Sq=300, Skv=300, H=8, KV=2, hd=256, dtype=torch.bfloat16, window=64),  # GQA 8:2
+        dict(Sq=130, Skv=77, H=4, KV=4, hd=128, dtype=torch.bfloat16, causal=False),
+        dict(Sq=50, Skv=20, H=2, KV=1, hd=64, dtype=torch.bfloat16, window=8),  # rows with no key
+        dict(Sq=64, Skv=300, H=4, KV=1, hd=128, dtype=torch.bfloat16, q_offset=236, prefix_len=250),
+    ]
+    # the serial engine's prefill, 8 prompts of 512 tokens: a grid over a wave,
+    # so two consumer warpgroups a block
+    serial = [dict(B=8, Sq=512, Skv=512, H=4, KV=1, hd=256, dtype=torch.bfloat16, window=w)
+              for w in (0, 512)]
     worst, worst_tol = 0.0, None
-    for case in cases:
-        _, got, want = _flash_case(torch, gen, **case)
+    consumers_seen = set()
+    for case in cases + serial:
+        before = dict(flash_attention.variant_launches)
+        (q, k, _, _), got, want = _flash_case(torch, gen, **case)
+        kind = [n for n, c in flash_attention.variant_launches.items() if c != before[n]]
         name = str(case["dtype"]).split(".")[-1]
         err, ok = _max_err_and_ok(torch, got, want, TOL[name])
         desc = ", ".join(f"{k}={v}" for k, v in case.items() if k != "dtype")
-        log(f"[kernels] flash_attention {name} {desc}: max_abs_err={err:.3e} "
+        tc = name == "bfloat16" and case["hd"] in flash_attention.WGMMA_HEAD_DIMS
+        layout = kind[0]
+        if kind == ["wgmma"]:
+            consumers = flash_attention.consumer_warpgroups(q, k)
+            consumers_seen.add(consumers)
+            layout = f"wgmma, {consumers} consumer warpgroup{'s' if consumers > 1 else ''}"
+        log(f"[kernels] flash_attention {name} {desc} ({layout}): max_abs_err={err:.3e} "
             f"tol={TOL[name]} {'ok' if ok else 'FAIL'}")
         require(ok, f"flash_attention disagrees with its plain version ({desc}, {name})")
+        require(kind == ["wgmma" if tc else "simt"],
+                f"flash_attention ({desc}, {name}) ran {kind}")
+        if case in serial:
+            require(consumers == 2, f"flash_attention ({desc}) ran {consumers} consumer "
+                    f"warpgroups a block, expected 2")
         if err > worst:
             worst, worst_tol = err, TOL[name]
+    require(consumers_seen == {1, 2},
+            f"the compared wgmma cases ran {sorted(consumers_seen)} consumer warpgroups a block")
 
     # timing at the serving path's heaviest prefill: a 1024-token prompt
     # through a global layer (causal, no window), bf16
     Sq, H, KV, hd = 1024, 4, 1, 256
     (q, k, v, kw), got, want = _flash_case(
         torch, gen, Sq=Sq, Skv=Sq, H=H, KV=KV, hd=hd, dtype=torch.bfloat16)
+    kind = launched_variant(flash_attention,
+                            lambda: flash_attention.flash_attention(q, k, v, **kw))
+    require(kind == "wgmma" and flash_attention.consumer_warpgroups(q, k) == 1,
+            f"the timed bf16 flash call ran the {kind} variant")
     t_kernel = time_ms(torch, lambda: flash_attention.flash_attention(q, k, v, **kw))
     t_plain = time_ms(torch, lambda: ref.attention(q, k, v, **kw))
     d_kernel = device_ms(torch, lambda: flash_attention.flash_attention(q, k, v, **kw))
@@ -247,12 +314,24 @@ def check_flash(torch, gen) -> dict:
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t_lib = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    d_lib = device_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
     lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
     lib_err = float((lib_out.float() - want.float()).abs().max().item())
-    # per-window timing of the local layers' shape too (printed, not in the JSON)
+    # the local layers' shape too (window 512; under other_timings)
     (q2, k2, v2, kw2), _, _ = _flash_case(
         torch, gen, Sq=Sq, Skv=Sq, H=H, KV=KV, hd=hd, dtype=torch.bfloat16, window=512)
     t_kernel_w = time_ms(torch, lambda: flash_attention.flash_attention(q2, k2, v2, **kw2))
+    d_kernel_w = device_ms(torch, lambda: flash_attention.flash_attention(q2, k2, v2, **kw2))
+    # the serial engine's prefill, 8 prompts of 512 tokens: 128 blocks of two
+    # consumer warpgroups; half of it, 4 prompts, fits a wave of 128 blocks of
+    # one (the block layouts' trade-off: one B=8 call against two B=4 calls)
+    q8, k8, v8 = (torch.randn((8, 512, n, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                  for n in (H, KV, KV))
+    require(flash_attention.consumer_warpgroups(q8, k8) == 2
+            and flash_attention.consumer_warpgroups(q8[:4], k8[:4]) == 1,
+            "the serial-prefill timings do not take the layouts they name")
+    d_serial = device_ms(torch, lambda: flash_attention.flash_attention(q8, k8, v8))
+    d_half = device_ms(torch, lambda: flash_attention.flash_attention(q8[:4], k8[:4], v8[:4]))
 
     pairs = int(_build_mask(Sq, Sq, causal=True, window=0, prefix_len=0, q_offset=0,
                             device="cuda").sum().item())
@@ -260,11 +339,14 @@ def check_flash(torch, gen) -> dict:
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * elem
     flops = 4 * hd * H * pairs
     b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
-    log(f"[kernels] flash_attention timing B=1 Sq=Skv={Sq} H={H} KV={KV} hd={hd} bf16 causal: "
-        f"kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms "
+    log(f"[kernels] flash_attention timing B=1 Sq=Skv={Sq} H={H} KV={KV} hd={hd} bf16 causal "
+        f"({kind}): kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms "
         f"(sdpa max_abs_err vs plain {lib_err:.3e}); device time per call: kernel "
-        f"{d_kernel:.4f} ms, plain {d_plain:.4f} ms; window=512: kernel {t_kernel_w:.4f} ms; "
-        f"bound {max(b_bytes, b_ops) * 1e3:.2f} us ({n_bytes} B, {flops} FLOP)")
+        f"{d_kernel:.4f} ms, plain {d_plain:.4f} ms, sdpa {d_lib:.4f} ms; window=512: kernel "
+        f"{t_kernel_w:.4f} ms, {d_kernel_w:.4f} ms device; B=8 Sq=512 (serial prefill, two "
+        f"consumer warpgroups a block): {d_serial:.4f} ms device, B=4 (one): {d_half:.4f}; bound "
+        f"{max(b_bytes, b_ops) * 1e3:.2f} us ({n_bytes} B, {flops} FLOP); "
+        f"{flops / (d_kernel * 1e-3) / 1e12:.2f} TFLOP/s on the device time")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -281,7 +363,14 @@ def check_flash(torch, gen) -> dict:
         "bound_us": max(b_bytes, b_ops) * 1e3,
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": t_lib,
+        "library_device_ms": d_lib,
+        "tflops": flops / (d_kernel * 1e-3) / 1e12,
+        "variant": kind,
         "timed_shape": f"B=1 Sq=Skv={Sq} H={H} KV={KV} hd={hd} bf16 causal window=0",
+        "other_timings": [
+            {"shape": "B=1 Sq=Skv=1024 window=512", "ms": t_kernel_w, "device_ms": d_kernel_w},
+            {"shape": "B=8 Sq=Skv=512 causal", "device_ms": d_serial},
+            {"shape": "B=4 Sq=Skv=512 causal", "device_ms": d_half}],
     }
 
 
@@ -356,7 +445,8 @@ def check_paged(torch, gen) -> dict:
         f"n_pages=68 pos={uneven} bf16: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms; "
         f"device time per call: kernel {d_kernel:.4f} ms, plain {d_plain:.4f} ms, kernel "
         f"with the pools cold in L2 {d_cold:.4f} ms; "
-        f"bound {max(b_bytes, b_ops) * 1e3:.2f} us ({n_bytes} B, {flops} FLOP)")
+        f"bound {max(b_bytes, b_ops) * 1e3:.2f} us ({n_bytes} B, {flops} FLOP); "
+        f"{flops / (d_kernel * 1e-3) / 1e12:.3f} TFLOP/s on the device time")
     return {
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -374,6 +464,8 @@ def check_paged(torch, gen) -> dict:
         "bound_us": max(b_bytes, b_ops) * 1e3,
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": None,
+        "library_device_ms": None,
+        "tflops": flops / (d_kernel * 1e-3) / 1e12,
         "timed_shape": f"B={B} H={H} KV={KV} hd={hd} page=16 n_pages=68 bf16 window=0",
     }
 
@@ -440,6 +532,7 @@ def check_decode(torch, gen) -> dict:
     mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None].long())[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t_lib = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=100)
+    d_lib = device_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
     lib_out = sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)[:, :, 0]
     lib_err = float((lib_out.float() - ref.decode_attention(q, k, v, pos).float()).abs().max())
     n_valid = sum(p + 1 for p in uneven)
@@ -450,10 +543,12 @@ def check_decode(torch, gen) -> dict:
     log(f"[kernels] decode_attention timing B={B} S={S} H={H} KV={KV} hd={hd} pos={uneven} "
         f"bf16: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms (sdpa "
         f"max_abs_err vs plain {lib_err:.3e}); device time per call: kernel {d_kernel:.4f} ms "
-        f"(split + combine), plain {d_plain:.4f} ms; with the caches cold in L2: kernel "
+        f"(split + combine), plain {d_plain:.4f} ms, sdpa {d_lib:.4f} ms; with the caches "
+        f"cold in L2: kernel "
         f"{d_cold:.4f} ms, plain {d_plain_cold:.4f} ms; split_len "
         f"{decode_attention.split_len(B, KV, S)}; bound {max(b_bytes, b_ops) * 1e3:.3f} us "
-        f"({n_bytes} B, {flops} FLOP)")
+        f"({n_bytes} B, {flops} FLOP); {flops / (d_kernel * 1e-3) / 1e12:.3f} TFLOP/s on the "
+        f"device time")
     return {
         "name": "decode_attention",
         "route": "cuda",
@@ -472,6 +567,8 @@ def check_decode(torch, gen) -> dict:
         "bound_us": max(b_bytes, b_ops) * 1e3,
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": t_lib,
+        "library_device_ms": d_lib,
+        "tflops": flops / (d_kernel * 1e-3) / 1e12,
         "timed_shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16, {n_valid} valid positions",
     }
 
@@ -484,27 +581,35 @@ def _linear_bound_ms(M, K, N, elem, dtype_name) -> tuple:
 
 
 def check_fused_linear(torch, gen) -> dict:
-    from repro_torch.kernels import fused_linear
+    from repro_torch.kernels import build, fused_linear
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain and library products in full fp32
     shapes = [(256, 64, 32), (256, 32, 10), (128, 128, 128), (256, 384, 128), (77, 50, 10)]
+    # ragged tiles on the tensor cores, and a product over 1024^3
+    bf16_shapes = [(1000, 520, 264), (300, 72, 8), (1536, 1024, 1280)]
     worst, worst_tol = 0.0, None
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for M, K, N in shapes:
+        for M, K, N in shapes + (bf16_shapes if dtype == torch.bfloat16 else []):
             x, w, b = (0.3 * torch.randn(sh, generator=gen, device="cuda")
                        for sh in ((M, K), (K, N), (N,)))
             x, w, b = (t.to(dtype) for t in (x, w, b))
             for act in ("none", "relu", "gelu"):
-                got = fused_linear.fused_linear(x, w, b, act=act)
+                out = []
+                kind = launched_variant(fused_linear, lambda: out.append(
+                    fused_linear.fused_linear(x, w, b, act=act)))
+                got = out[0]
                 want = fused_linear.fused_linear_ref(x, w, b, act=act)
                 torch.cuda.synchronize()
                 err, ok = _max_err_and_ok(torch, got, want, LINEAR_TOL[name])
                 ok = ok and got.dtype == dtype
-                log(f"[kernels] fused_linear {name} M={M} K={K} N={N} act={act}: "
+                log(f"[kernels] fused_linear {name} M={M} K={K} N={N} act={act} ({kind}): "
                     f"max_abs_err={err:.3e} tol={LINEAR_TOL[name]} {'ok' if ok else 'FAIL'}")
                 require(ok, f"fused_linear disagrees with its plain version "
                         f"(M={M} K={K} N={N} act={act}, {name})")
+                if dtype == torch.bfloat16:  # N = 10 and K = 50 are not TMA-aligned
+                    want_kind = "simt" if K % 8 or N % 8 else "wgmma"
+                    require(kind == want_kind, f"fused_linear bf16 M={M} K={K} N={N} ran {kind}")
                 if err > worst:
                     worst, worst_tol = err, LINEAR_TOL[name]
 
@@ -512,6 +617,7 @@ def check_fused_linear(torch, gen) -> dict:
         x, w, b = (0.3 * torch.randn(sh, generator=gen, device="cuda")
                    for sh in ((M, K), (K, N), (N,)))
         x, w, b = (t.to(dtype) for t in (x, w, b))
+        kind = launched_variant(fused_linear, lambda: fused_linear.fused_linear(x, w, b, act=act))
         t_kernel = time_ms(torch, lambda: fused_linear.fused_linear(x, w, b, act=act), iters=iters)
         t_plain = time_ms(torch, lambda: fused_linear.fused_linear_ref(x, w, b, act=act),
                           iters=iters)
@@ -520,24 +626,38 @@ def check_fused_linear(torch, gen) -> dict:
                              iters=iters)
         d_plain = device_ms(torch, lambda: fused_linear.fused_linear_ref(x, w, b, act=act),
                             iters=iters)
+        d_lib = device_ms(torch, lambda: torch.addmm(b, x, w), iters=iters)
         name = str(dtype).split(".")[-1]
         bound, by, n_bytes, flops = _linear_bound_ms(M, K, N, x.element_size(), name)
         err = float((fused_linear.fused_linear(x, w, b, act=act).float()
                      - fused_linear.fused_linear_ref(x, w, b, act=act).float()).abs().max())
-        log(f"[kernels] fused_linear timing M={M} K={K} N={N} {name} act={act}: kernel "
+        log(f"[kernels] fused_linear timing M={M} K={K} N={N} {name} act={act} ({kind}): kernel "
             f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, addmm {t_lib:.4f} ms (bias only; the "
             f"activation would be one more launch); device time per call: kernel "
-            f"{d_kernel:.4f} ms, plain {d_plain:.4f} ms; max_abs_err vs plain {err:.3e}; bound "
+            f"{d_kernel:.4f} ms, plain {d_plain:.4f} ms, addmm {d_lib:.4f} ms; max_abs_err vs "
+            f"plain {err:.3e}; bound "
             f"{bound * 1e3:.3f} us by {by} ({n_bytes} B, {flops} FLOP); "
             f"{flops / (d_kernel * 1e-3) / 1e12:.2f} TFLOP/s on the device time")
-        return dict(shape=f"M={M} K={K} N={N} {name} act={act}", ms=t_kernel, plain_ms=t_plain,
-                    device_ms=d_kernel, plain_device_ms=d_plain, library_ms=t_lib,
-                    bound_ms=bound, bound_by=by, max_abs_err=err)
+        return dict(shape=f"M={M} K={K} N={N} {name} act={act}", variant=kind, ms=t_kernel,
+                    plain_ms=t_plain, device_ms=d_kernel, plain_device_ms=d_plain,
+                    library_ms=t_lib, library_device_ms=d_lib, bound_ms=bound, bound_by=by,
+                    max_abs_err=err, tflops=flops / (d_kernel * 1e-3) / 1e12)
 
     # the Test Case 2 path: layer 1 (256 x 64 @ 64 x 32, relu), fp32
     main = timings(256, 64, 32, torch.float32, "relu", iters=100)
     large = [timings(*LARGE_GEMM, torch.float32, "none", iters=5),
              timings(*LARGE_GEMM, torch.bfloat16, "none", iters=5)]
+    require(main["variant"] == "simt" and large[0]["variant"] == "simt_tiled"
+            and large[1]["variant"] == "wgmma",
+            f"timed fused_linear variants {main['variant']}, {large[0]['variant']}, "
+            f"{large[1]['variant']}; expected simt, simt_tiled, wgmma")
+    # either side of the fp32 cut-over at a wave of 128 x 128 tiles: n x n
+    # tiles just under the card's SM count (simt), (n + 1) x (n + 1) over it
+    n = math.isqrt(build.sm_count(torch.device("cuda")) - 1)
+    cut = [timings(128 * side, 1024, 128 * side, torch.float32, "none", iters=20)
+           for side in (n, n + 1)]
+    require([t["variant"] for t in cut] == ["simt", "simt_tiled"],
+            f"fused_linear around the cut-over ran {[t['variant'] for t in cut]}")
     return {
         "name": "fused_linear",
         "route": "cuda",
@@ -554,8 +674,11 @@ def check_fused_linear(torch, gen) -> dict:
         "bound_us": main["bound_ms"] * 1e3,
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
+        "library_device_ms": main["library_device_ms"],
+        "tflops": main["tflops"],
+        "variant": main["variant"],
         "timed_shape": main["shape"],
-        "other_timings": large,
+        "other_timings": large + cut,
     }
 
 
@@ -675,7 +798,8 @@ def check_scan(torch, gen) -> dict:
             f"{bound * 1e3:.3f} us by {by} ({n_bytes} B, {flops} FLOP); "
             f"{flops / (d_kernel * 1e-3) / 1e12:.2f} TFLOP/s on the device time")
         return dict(shape=shape, ms=t_kernel, plain_ms=t_plain, device_ms=d_kernel,
-                    plain_device_ms=d_plain, cold_device_ms=d_cold, bound_ms=bound, bound_by=by)
+                    plain_device_ms=d_plain, cold_device_ms=d_cold, bound_ms=bound, bound_by=by,
+                    tflops=flops / (d_kernel * 1e-3) / 1e12)
 
     # every xlstm shape of the paths, Mamba2's, and two fp32 shapes
     by_tag = {case["tag"]: case for case in cases}
@@ -701,6 +825,8 @@ def check_scan(torch, gen) -> dict:
         "bound_us": main["bound_ms"] * 1e3,
         "bound_by": main["bound_by"],
         "library_ms": None,  # no single PyTorch call computes a gated linear scan
+        "library_device_ms": None,
+        "tflops": main["tflops"],
         "timed_shape": main["shape"],
         "other_timings": other,
     }
@@ -860,6 +986,7 @@ def phase_serve(torch, kv_mode: str = "paged") -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
+        variants = ops.variant_counts()
         peak = torch.cuda.max_memory_allocated()
         ticks = sched.ticks - ticks0
         if kv_mode == "dense":
@@ -878,6 +1005,8 @@ def phase_serve(torch, kv_mode: str = "paged") -> tuple:
     require(counts["flash_attention"] == n_req * cfg.num_layers,
             f"flash_attention launched {counts['flash_attention']} times, "
             f"expected {n_req * cfg.num_layers}")
+    require_variant(variants, "flash_attention", "wgmma", counts["flash_attention"],
+                    f"{kv_mode} serve")
     decode_kernel = "paged_decode_attention" if kv_mode == "paged" else "decode_attention"
     require(counts[decode_kernel] == ticks * cfg.num_layers,
             f"{decode_kernel} launched {counts[decode_kernel]} times, "
@@ -890,7 +1019,8 @@ def phase_serve(torch, kv_mode: str = "paged") -> tuple:
         f"{sum(plens)} prompt tokens), {n_tok} generated tokens in {wall:.3f}s: "
         f"{n_tok / wall:.1f} tok/s; TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f} ms, "
         f"p90 {np.percentile(ttft, 90) * 1e3:.1f} ms (from a common start, queueing included); "
-        f"{ticks} decode ticks; peak device memory {peak / 2**30:.2f} GiB; launches {counts}")
+        f"{ticks} decode ticks; peak device memory {peak / 2**30:.2f} GiB; launches {counts}; "
+        f"flash by variant {variants['flash_attention']}")
     for r in requests[:3]:
         log(f"{tag} {r.rid}: prompt {len(r.prompt)} tokens -> {results[r.rid].tokens[:8]}...")
     return counts, {rid: fin.tokens for rid, fin in results.items()}
@@ -1027,6 +1157,7 @@ def phase_serial(torch) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
+        variants = ops.variant_counts()
         peak = torch.cuda.max_memory_allocated()
     toks = out.tokens
     require(toks.shape == (B, steps), f"serial generate returned {toks.shape}")
@@ -1035,11 +1166,13 @@ def phase_serial(torch) -> dict:
             and counts["decode_attention"] == steps * cfg.num_layers,
             f"serial launches {counts}, expected flash {cfg.num_layers} and decode "
             f"{steps * cfg.num_layers}")
+    require_variant(variants, "flash_attention", "wgmma", counts["flash_attention"], "serial")
     require(bool(np.isfinite(out.prefill_logits).all()), "serial prefill logits not finite")
     log(f"[serial] ServeEngine.generate B={B} prompts of {S} tokens, {steps} steps: "
         f"{B * steps} tokens in {wall:.3f}s: {B * steps / wall:.1f} tok/s; first token after "
         f"{(first[0] - t0) * 1e3:.1f} ms; peak device memory {peak / 2**30:.2f} GiB; "
-        f"launches {counts}; row 0 -> {toks[0, :8].tolist()}...")
+        f"launches {counts}; flash by variant {variants['flash_attention']}; row 0 -> "
+        f"{toks[0, :8].tolist()}...")
     return counts
 
 
@@ -1058,7 +1191,7 @@ def phase_tc2(torch) -> dict:
     card_res = torchdev.TorchTopologyManager().query_topology().all_compute_resources()[0]
     n_test, batch = 2000, 256
     n_batches = -(-n_test // batch)
-    results, counts, walls = {}, {}, {}
+    results, counts, walls, variants = {}, {}, {}, {}
     for kernel, cm, res in (("numpy", hostcpu.HostComputeManager(), host_res),
                             ("torch", torchdev.TorchComputeManager(), card_res),
                             ("fused_linear", torchdev.TorchComputeManager(), card_res)):
@@ -1070,6 +1203,7 @@ def phase_tc2(torch) -> dict:
                                                       n_test=n_test, batch_size=batch)
         walls[kernel] = time.perf_counter() - t0
         counts[kernel] = ops.launch_counts()
+        variants[kernel] = ops.variant_counts()
     for kernel, r in results.items():
         log(f"[tc2] {kernel:>12}: accuracy {r.accuracy:.4f}, img-0 class {r.img0_class}, "
             f"score {r.img0_score:.7f}; {n_test} images in {walls[kernel] * 1e3:.1f} ms; "
@@ -1085,8 +1219,12 @@ def phase_tc2(torch) -> dict:
             f"expected {2 * n_batches}")
     require(all(c["fused_linear"] == 0 for k, c in counts.items() if k != "fused_linear"),
             "a row other than fused_linear launched the kernel")
+    # fp32 products of 256 rows: the exact-FMA variant with 64 x 64 tiles
+    require_variant(variants["fused_linear"], "fused_linear", "simt", 2 * n_batches,
+                    "Test Case 2")
     log(f"[tc2] Table 2 holds: accuracy {min(accs):.4f} on every row, img-0 score spread "
-        f"{max(scores) - min(scores):.2e}")
+        f"{max(scores) - min(scores):.2e}; fused_linear by variant "
+        f"{variants['fused_linear']['fused_linear']}")
     return counts["fused_linear"]
 
 
@@ -1449,6 +1587,9 @@ def main() -> int:
                    "gated_linear_scan": xlstm_counts}
     for k in kernels:
         k["launches"] = path_counts[k["name"]][k["name"]]
+        log(f"[kernels] {k['name']}: {k['device_ms']:.4f} ms device, {k['tflops']:.3f} TFLOP/s "
+            f"at {k['timed_shape']}; library device ms {k['library_device_ms']}; "
+            f"{k['launches']} launches on its path")
     forbidden = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "repro" or m.startswith("repro.")]
     if forbidden:

@@ -12,6 +12,7 @@ loads the existing library. A failed build raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -121,3 +122,12 @@ def check(err: int, what: str) -> None:
         fn.argtypes = [ctypes.c_int]
         fn.restype = ctypes.c_char_p
         raise RuntimeError(f"{what}: CUDA error {err} ({fn(err).decode()})")
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA `device`: the wave size that the
+    wrappers' launch rules compare grids with."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -102,6 +102,16 @@ def launch_counts() -> Dict[str, int]:
     return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
+def variant_counts() -> Dict[str, Dict[str, int]]:
+    """Launches so far by kernel variant, for the kernels that have more than
+    one (`flash_attention`, `fused_linear`)."""
+    return {name: dict(mod.variant_launches) for name, mod in _KERNELS.items()
+            if hasattr(mod, "variant_launches")}
+
+
 def reset_launch_counts() -> None:
+    """Zero every launch count, the counts by variant included."""
     for mod in _KERNELS.values():
         mod.launches = 0
+        for kind in getattr(mod, "variant_launches", {}):
+            mod.variant_launches[kind] = 0

@@ -27,6 +27,7 @@ try:  # the JAX reference, on the CPU
     from repro.kernels import ref as jref
 except ImportError:
     jnp = jops = jref = jlinear = None
+from repro_torch.kernels import build as tbuild  # noqa: E402
 from repro_torch.kernels import decode_attention as tdecode  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import fused_linear as tlinear  # noqa: E402
@@ -425,6 +426,90 @@ def test_flash_wrapper_rejects_unsupported_head_dim():
 
 
 # ---------------------------------------------------------------------------
+# the wrappers' variant rules (dtype, shape, alignment; no card needed)
+# ---------------------------------------------------------------------------
+
+
+def _unaligned(shape, dtype):
+    """A contiguous tensor whose data starts 2 bytes past a 16-byte boundary."""
+    n = math.prod(shape)
+    return torch.zeros(n + 8, dtype=dtype)[1:n + 1].view(shape)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("dtype,M,K,N,layout,sms,want", [
+    ("bfloat16", 256, 64, 32, "aligned", H100_SMS, "wgmma"),   # Test Case 2's layer 1 in bf16
+    ("bfloat16", 4096, 4096, 4096, "aligned", H100_SMS, "wgmma"),
+    ("bfloat16", 77, 512, 264, "aligned", H100_SMS, "wgmma"),  # ragged M, N tiles: TMA fills
+    ("bfloat16", 256, 32, 10, "aligned", H100_SMS, "simt"),    # N = 10: W's rows not 16-B strided
+    ("bfloat16", 256, 50, 32, "aligned", H100_SMS, "simt"),    # K = 50: x's rows not 16-B strided
+    ("bfloat16", 256, 64, 32, "unaligned-x", H100_SMS, "simt"),
+    ("float32", 256, 64, 32, "aligned", H100_SMS, "simt"),     # Test Case 2: 64 x 64 tiles
+    ("float32", 1024, 1024, 1024, "aligned", H100_SMS, "simt"),  # 64 tiles: under a wave
+    ("float32", 1024, 1024, 1024, "aligned", 64, "simt_tiled"),  # a wave of a 64-SM card
+    ("float32", 1408, 1024, 1408, "aligned", H100_SMS, "simt"),  # 121 tiles
+    ("float32", 1536, 1024, 1536, "aligned", H100_SMS, "simt_tiled"),  # 144 tiles
+    ("float32", 4096, 4096, 4096, "aligned", H100_SMS, "simt_tiled"),
+    ("float32", 4096, 4094, 4096, "aligned", H100_SMS, "simt"),  # K % 4: no 16-byte cp.async
+    ("float32", 4096, 4096, 4096, "unaligned-x", H100_SMS, "simt"),
+])
+def test_fused_linear_variant_rule(monkeypatch, dtype, M, K, N, layout, sms, want):
+    monkeypatch.setattr(tbuild, "sm_count", lambda device: sms)
+    dt = TDT[dtype]
+    x = _unaligned((M, K), dt) if layout == "unaligned-x" else torch.empty((M, K), dtype=dt)
+    w, b = torch.empty((K, N), dtype=dt), torch.empty((N,), dtype=dt)
+    assert tlinear.variant(x, w, b) == want
+
+
+@pytest.mark.parametrize("dtype,H,KV,hd,layout,want", [
+    ("bfloat16", 4, 1, 256, "aligned", "wgmma"),        # gemma3-1b at full width
+    ("bfloat16", 8, 2, 128, "aligned", "wgmma"),
+    ("bfloat16", 4, 4, 64, "aligned", "wgmma"),
+    ("bfloat16", 64, 1, 64, "aligned", "wgmma"),        # 64 heads: one position a warpgroup
+    ("bfloat16", 3, 1, 64, "aligned", "simt"),          # 3 heads a group do not divide 64 rows
+    ("bfloat16", 4, 1, 32, "aligned", "simt"),          # REDUCED head dims
+    ("bfloat16", 4, 1, 16, "aligned", "simt"),
+    ("bfloat16", 4, 1, 256, "unaligned-q", "simt"),
+    ("float32", 4, 1, 256, "aligned", "simt"),          # fp32 stays exact: no TF32
+])
+def test_flash_variant_rule(dtype, H, KV, hd, layout, want):
+    dt = TDT[dtype]
+    shape = (1, 9, H, hd)
+    q = _unaligned(shape, dt) if layout == "unaligned-q" else torch.empty(shape, dtype=dt)
+    k = torch.empty((1, 9, KV, hd), dtype=dt)
+    assert tflash.variant(q, k, k) == want
+
+
+@pytest.mark.parametrize("B,Sq,H,KV,sms,want", [
+    (1, 1024, 4, 1, H100_SMS, 1),   # a gemma3 prompt: 64 blocks of 16 positions x 4 heads
+    (4, 512, 4, 1, H100_SMS, 1),    # 128 blocks: one wave
+    (8, 512, 4, 1, H100_SMS, 2),    # the serial engine's prefill: 256 blocks of one
+    (1, 1024, 8, 2, H100_SMS, 1),   # GQA 8:2: 2 KV heads x 64
+    (8, 1024, 4, 1, H100_SMS, 2),
+    (1, 1024, 4, 1, 32, 2),         # the same prompt on a 32-SM card
+    (3, 9, 64, 1, H100_SMS, 1),     # 64 heads: one position a warpgroup, 27 blocks
+])
+def test_flash_consumer_warpgroups_rule(monkeypatch, B, Sq, H, KV, sms, want):
+    monkeypatch.setattr(tbuild, "sm_count", lambda device: sms)
+    q = torch.empty((B, Sq, H, 64), dtype=torch.bfloat16)
+    k = torch.empty((B, Sq, KV, 64), dtype=torch.bfloat16)
+    assert tflash.consumer_warpgroups(q, k) == want
+
+
+def test_variant_counts_start_at_zero_and_reset():
+    tlinear.variant_launches["wgmma"] += 1
+    tflash.variant_launches["simt"] += 1
+    assert tops.variant_counts()["fused_linear"]["wgmma"] >= 1
+    tops.reset_launch_counts()
+    assert tops.variant_counts() == {
+        "flash_attention": {"simt": 0, "wgmma": 0},
+        "fused_linear": {"simt": 0, "simt_tiled": 0, "wgmma": 0},
+    }
+
+
+# ---------------------------------------------------------------------------
 # on the card: each CUDA kernel vs its plain version (skips without a GPU)
 # ---------------------------------------------------------------------------
 
@@ -520,6 +605,79 @@ def test_fused_linear_kernel_matches_plain_on_card(cuda, M, K, N, act, dtype):
     assert tlinear.launches == before + 1 and got.dtype == x.dtype
     tol = LINEAR_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("Sq,kw", [
+    (37, {}), (300, {}), (777, {}), (1024, {}),
+    (37, {"window": 512}), (300, {"window": 512}), (777, {"window": 512}),
+    (1024, {"window": 512}),
+    (300, {"prefix_len": 100}), (64, {"q_offset": 236}), (64, {"q_offset": 236, "window": 100}),
+    (200, {"H": 8, "KV": 2}), (300, {"H": 8, "KV": 2, "window": 64}),  # GQA 4:1 in 8:2
+    (130, {"Skv": 77, "KV": 4, "causal": False}),
+    (50, {"Skv": 20, "H": 2, "window": 8}),                      # rows with no valid key
+    (1024, {"B": 8}),                                           # a grid over a wave
+    (512, {"B": 8}), (512, {"B": 8, "window": 512}),            # the serial engine's prefill
+])
+def test_flash_wgmma_matches_plain_on_card(cuda, hd, Sq, kw):
+    """The tensor-core variant at every head dim it takes, against the plain
+    version at the reference's bf16 tolerance."""
+    kw = dict(kw)
+    B, H, KV = kw.pop("B", 1), kw.pop("H", 4), kw.pop("KV", 1)
+    Skv = kw.pop("Skv", Sq + kw.get("q_offset", 0))
+    gen = torch.Generator(device=cuda).manual_seed(Sq * hd + H)
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((B, Skv, KV, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((B, Skv, KV, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    assert tflash.variant(q, k, v) == "wgmma"
+    before = tflash.variant_launches["wgmma"]
+    got = tops.attention(q, k, v, **kw)
+    want = tref.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tflash.variant_launches["wgmma"] == before + 1
+    tol = ATTN_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["none", "relu", "gelu"])
+@pytest.mark.parametrize("M,K,N,kind", [
+    (128, 128, 128, "wgmma"), (256, 64, 32, "wgmma"),              # aligned
+    (1000, 520, 264, "wgmma"), (300, 72, 8, "wgmma"),              # ragged tiles
+    (1536, 1024, 1280, "wgmma"),                                    # over 1024^3
+    (256, 32, 10, "simt"), (77, 50, 10, "simt"),                   # not TMA-aligned
+])
+def test_fused_linear_bf16_variants_match_plain_on_card(cuda, M, K, N, kind, act):
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x, w, b = (0.3 * torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((M, K), (K, N), (N,)))
+    x, w, b = (t.to(torch.bfloat16) for t in (x, w, b))
+    assert tlinear.variant(x, w, b) == kind
+    before = tlinear.variant_launches[kind]
+    got = tops.fused_linear(x, w, b, act=act)
+    want = tlinear.fused_linear_ref(x, w, b, act=act)
+    torch.cuda.synchronize()
+    assert tlinear.variant_launches[kind] == before + 1 and got.dtype == torch.bfloat16
+    tol = LINEAR_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["none", "gelu"])
+def test_fused_linear_fp32_tiled_matches_plain_on_card(cuda, act):
+    """The 128 x 128 exact-FMA tiles, at a wave of tiles with ragged M and N."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
+    M, K, N = 1800, 256, 1412
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, w, b = (0.3 * torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((M, K), (K, N), (N,)))
+    assert tlinear.variant(x, w, b) == "simt_tiled"
+    got = tops.fused_linear(x, w, b, act=act)
+    want = tlinear.fused_linear_ref(x, w, b, act=act)
+    torch.cuda.synchronize()
+    tol = LINEAR_TOL["float32"]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
 def _scan_on_card(cuda, dtype, *, B, H, S, dk, dv, state=False, layout="heads", seed=7):
