@@ -23,7 +23,11 @@ nothing of JAX or of the JAX package. Phases:
    cycled past the L2; each kernel's TFLOP/s on its device time. The
    kernels with variants (flash_attention: wgmma / simt; fused_linear:
    wgmma / simt_tiled / simt) must take the tensor-core variant at every
-   bf16 shape it covers, the timed ones included, and the flash cases
+   bf16 shape it covers, the timed ones included; the two decode kernels
+   (mma / simt) must take mma at their timed shape, are timed on one cache
+   through both entry points (bitwise equal outputs), with the exact-FMA
+   walk and with clusters of 16 for the record, and print their `-Xptxas
+   -v` lines and cluster sizes; and the flash cases
    compared must cover both block layouts of the wgmma variant (one
    consumer warpgroup at a single prompt, two at the serial engine's
    8 x 512 prefill); fused_linear's fp32 products are also timed either
@@ -35,7 +39,8 @@ nothing of JAX or of the JAX package. Phases:
    16 synthetic requests (prompts 64-1024 tokens, 16-64 new tokens) on 8
    slots through `ContinuousBatchingScheduler.serve()` with the paged KV
    pool; the kernels' launch counts are read around that run and must be
-   exactly what the path needs, every flash launch on the wgmma variant;
+   exactly what the path needs, every flash launch on the wgmma variant and
+   every decode launch on mma (phases 7 and 8 likewise);
 6. reduced-dense: REDUCED fp32 on the card against the CPU through the dense
    decode: 16 teacher-forced ticks (logits within 1e-4), a dense continuous
    serve and a serial `generate` (equal tokens);
@@ -374,6 +379,47 @@ def check_flash(torch, gen) -> dict:
     }
 
 
+def decode_ptxas(rows: str, dtype, hd: int, groups: int, kind: str) -> str:
+    """`-Xptxas -v` of the decode core's instantiation for these operands
+    (`decode_mma_kernel<HDP, GMAX, rows>` or `decode_kernel<T, HDP, GMAX,
+    rows>`, `csrc/decode_core.cuh`, by variant `kind`), from the verbose
+    build of phase 2, with the dynamic shared memory the launch asks for,
+    and the register range and any spills over every instantiation of that
+    kernel for `rows`."""
+    import re
+
+    from repro_torch.kernels import build, decode_core
+
+    bf16 = str(dtype).endswith("bfloat16")
+    hdp = next(b for b in (16, 32, 64, 128, 256) if hd <= b)
+    gmax = next(b for b in (1, 2, 4, 8) if groups <= b)
+    kernel = "decode_mma_kernel" if kind == "mma" else "decode_kernel"
+    want = (f"{kernel}<{hdp}, {gmax}, {rows}>" if kind == "mma"
+            else f"{kernel}<{str(dtype).split('.')[-1]}, {hdp}, {gmax}, {rows}>")
+    found, regs, spills = None, [], []
+    for entry in build.build_log().split("Compiling entry function '")[1:]:
+        name = entry.split("'", 1)[0]
+        if f"{len(kernel)}{kernel}I" not in name or rows not in name:
+            continue
+        used = re.search(r"Used (\d+) registers", entry)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", entry)
+        require(used is not None and frame is not None, f"no ptxas report for {name}")
+        regs.append(int(used.group(1)))
+        if int(frame.group(2)) or int(frame.group(3)):
+            spills.append(name)
+        if f"Li{hdp}ELi{gmax}E" in name and (kind == "mma" or ("bfloat16" in name) == bf16):
+            smem = re.search(r"(\d+) bytes smem", entry)
+            found = (f"{used.group(1)} registers, {frame.group(1)} bytes stack frame, "
+                     f"{frame.group(2)} bytes spill stores, {frame.group(3)} bytes spill loads, "
+                     f"{smem.group(1) if smem else 0} bytes static smem, "
+                     f"{decode_core.smem_bytes(dtype, groups, hd, kind)} bytes dynamic smem")
+    require(found is not None, f"no ptxas report for {want} in the build log")
+    return (f"{want}: {found}; "
+            f"all {len(regs)} {kernel} {rows} instantiations: {min(regs)}-{max(regs)} registers, "
+            f"spills in {spills or 'none'}")
+
+
 def _paged_case(torch, gen, *, pos, dtype, window=0, B=8, H=4, KV=1, hd=256, page=16,
                 n_pages=68, ring=False):
     """Pool + page tables as the serving path builds them: distinct pages
@@ -394,7 +440,7 @@ def _paged_case(torch, gen, *, pos, dtype, window=0, B=8, H=4, KV=1, hd=256, pag
 
 
 def check_paged(torch, gen) -> dict:
-    from repro_torch.kernels import paged_decode_attention, ref
+    from repro_torch.kernels import decode_core, paged_decode_attention, ref
 
     uneven = [0, 15, 16, 100, 511, 512, 777, 1087]
     cases = []
@@ -406,6 +452,10 @@ def check_paged(torch, gen) -> dict:
                           ring=True))
     cases.append(dict(pos=[3, 9, 30, 31], dtype=torch.float32, B=4, H=8, KV=2, hd=16, page=8,
                       n_pages=4, window=5))
+    # a window shorter than one cluster block's share; 8 query heads a KV head
+    # at hd 128 with fewer positions than the cluster has blocks
+    cases.append(dict(pos=uneven, dtype=torch.bfloat16, window=5))
+    cases.append(dict(pos=[0, 1, 2], dtype=torch.bfloat16, B=3, H=8, hd=128, window=512))
     worst, worst_tol = 0.0, None
     for case in cases:
         q, kp, vp, tbl, pos = _paged_case(torch, gen, **case)
@@ -416,8 +466,8 @@ def check_paged(torch, gen) -> dict:
         name = str(case["dtype"]).split(".")[-1]
         err, ok = _max_err_and_ok(torch, got, want, PAGED_TOL[name])
         desc = ", ".join(f"{k}={v}" for k, v in case.items() if k != "dtype")
-        log(f"[kernels] paged_decode_attention {name} {desc}: max_abs_err={err:.3e} "
-            f"tol={PAGED_TOL[name]} {'ok' if ok else 'FAIL'}")
+        log(f"[kernels] paged_decode_attention {name} {desc} ({decode_core.variant(q, kp)}): "
+            f"max_abs_err={err:.3e} tol={PAGED_TOL[name]} {'ok' if ok else 'FAIL'}")
         require(ok, f"paged_decode_attention disagrees with its plain version ({desc}, {name})")
         if err > worst:
             worst, worst_tol = err, PAGED_TOL[name]
@@ -441,12 +491,17 @@ def check_paged(torch, gen) -> dict:
     n_bytes = 2 * q.numel() * elem + 2 * n_valid * KV * hd * elem + tbl.numel() * 4 + B * 4
     flops = 4 * H * hd * n_valid
     b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+    cluster, kind = decode_core.cluster_size(q, kp), decode_core.variant(q, kp)
+    require(kind == "mma", f"paged_decode_attention timed on {kind}, expected mma")
     log(f"[kernels] paged_decode_attention timing B={B} H={H} KV={KV} hd={hd} page=16 "
         f"n_pages=68 pos={uneven} bf16: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms; "
         f"device time per call: kernel {d_kernel:.4f} ms, plain {d_plain:.4f} ms, kernel "
-        f"with the pools cold in L2 {d_cold:.4f} ms; "
-        f"bound {max(b_bytes, b_ops) * 1e3:.2f} us ({n_bytes} B, {flops} FLOP); "
+        f"with the pools cold in L2 {d_cold:.4f} ms; variant {kind}, cluster of {cluster} blocks "
+        f"per (slot, KV head); bound {max(b_bytes, b_ops) * 1e3:.2f} us ({n_bytes} B, {flops} FLOP); "
         f"{flops / (d_kernel * 1e-3) / 1e12:.3f} TFLOP/s on the device time")
+    for k in ("mma", "simt"):
+        log(f"[kernels] paged_decode_attention ptxas: "
+            f"{decode_ptxas('PagedRows', q.dtype, hd, H // KV, k)}")
     return {
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -466,6 +521,8 @@ def check_paged(torch, gen) -> dict:
         "library_ms": None,
         "library_device_ms": None,
         "tflops": flops / (d_kernel * 1e-3) / 1e12,
+        "cluster": cluster,
+        "variant": kind,
         "timed_shape": f"B={B} H={H} KV={KV} hd={hd} page=16 n_pages=68 bf16 window=0",
     }
 
@@ -485,7 +542,7 @@ def _decode_case(torch, gen, *, pos, dtype, B=8, S=1088, H=4, KV=1, hd=256, pois
 
 
 def check_decode(torch, gen) -> dict:
-    from repro_torch.kernels import decode_attention, ref
+    from repro_torch.kernels import decode_attention, decode_core, paged_decode_attention, ref
 
     uneven = [0, 15, 16, 100, 511, 512, 777, 1087]
     cases = []
@@ -497,6 +554,8 @@ def check_decode(torch, gen) -> dict:
             dict(pos=[299, 0, 64, 150], dtype=dtype, B=4, S=300, H=8, KV=2, hd=128),  # GQA
             dict(pos=uneven, dtype=dtype, poison=True),
             dict(pos=[5, 15], dtype=dtype, B=2, S=16, hd=16),  # REDUCED widths
+            # a long cache: each cluster block walks many batches of rows
+            dict(pos=[8191, 0, 1, 2, 4095, 5000, 7777, 300], dtype=dtype, S=8192),
         ]
     worst, worst_tol = 0.0, None
     for case in cases:
@@ -506,9 +565,9 @@ def check_decode(torch, gen) -> dict:
         torch.cuda.synchronize()
         name = str(case["dtype"]).split(".")[-1]
         err, ok = _max_err_and_ok(torch, got, want, TOL[name])
-        desc = ", ".join(f"{k}={v}" for k, v in case.items() if k != "dtype")
-        log(f"[kernels] decode_attention {name} {desc}: max_abs_err={err:.3e} "
-            f"tol={TOL[name]} {'ok' if ok else 'FAIL'}")
+        desc = ", ".join(f"{k_}={v_}" for k_, v_ in case.items() if k_ != "dtype")
+        log(f"[kernels] decode_attention {name} {desc} ({decode_core.variant(q, k)}): "
+            f"max_abs_err={err:.3e} tol={TOL[name]} {'ok' if ok else 'FAIL'}")
         require(ok, f"decode_attention disagrees with its plain version ({desc}, {name})")
         if err > worst:
             worst, worst_tol = err, TOL[name]
@@ -535,6 +594,38 @@ def check_decode(torch, gen) -> dict:
     d_lib = device_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
     lib_out = sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)[:, :, 0]
     lib_err = float((lib_out.float() - ref.decode_attention(q, k, v, pos).float()).abs().max())
+    # the paged kernel on the same cache and positions: a pool of 16-position
+    # pages (the serving layout) and one page per slot; the one core gives
+    # bitwise the dense kernel's output either way
+    n_pages = S // 16
+    pool_k, pool_v = k.view(B * n_pages, 16, KV, hd), v.view(B * n_pages, 16, KV, hd)
+    tbl16 = torch.arange(B * n_pages, dtype=torch.int32, device="cuda").view(B, n_pages)
+    tbl1 = torch.arange(B, dtype=torch.int32, device="cuda").view(B, 1)
+    dense_out = decode_attention.decode_attention(q, k, v, pos)
+    for name, args in (("page 16", (pool_k, pool_v, tbl16)), ("page S", (k, v, tbl1))):
+        paged_out = paged_decode_attention.paged_decode_attention(q, *args, pos)
+        require(torch.equal(paged_out, dense_out),
+                f"paged kernel ({name}) not bitwise equal to the dense kernel on one cache")
+    d_paged = device_ms(torch, lambda: paged_decode_attention.paged_decode_attention(
+        q, pool_k, pool_v, tbl16, pos))
+    cluster, kind = decode_core.cluster_size(q, k), decode_core.variant(q, k)
+    require(kind == "mma", f"decode_attention timed on {kind}, expected mma")
+
+    def timed_with(attr, value):
+        # the same two calls with a rule of `decode_core` swapped, for the
+        # record: clusters of 16 (the non-portable size) in place of the cap
+        # of 8, or the exact-FMA walk in place of the tensor cores
+        saved = getattr(decode_core, attr)
+        setattr(decode_core, attr, value)
+        try:
+            return (device_ms(torch, lambda: decode_attention.decode_attention(q, k, v, pos)),
+                    device_ms(torch, lambda: paged_decode_attention.paged_decode_attention(
+                        q, pool_k, pool_v, tbl16, pos)))
+        finally:
+            setattr(decode_core, attr, saved)
+
+    d16, d16_paged = timed_with("MAX_CLUSTER", 16)
+    d_simt, d_simt_paged = timed_with("variant", lambda q_, k_: "simt")
     n_valid = sum(p + 1 for p in uneven)
     elem = q.element_size()
     n_bytes = 2 * q.numel() * elem + 2 * n_valid * KV * hd * elem + B * 4
@@ -543,12 +634,20 @@ def check_decode(torch, gen) -> dict:
     log(f"[kernels] decode_attention timing B={B} S={S} H={H} KV={KV} hd={hd} pos={uneven} "
         f"bf16: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms (sdpa "
         f"max_abs_err vs plain {lib_err:.3e}); device time per call: kernel {d_kernel:.4f} ms "
-        f"(split + combine), plain {d_plain:.4f} ms, sdpa {d_lib:.4f} ms; with the caches "
+        f"(one launch), plain {d_plain:.4f} ms, sdpa {d_lib:.4f} ms; with the caches "
         f"cold in L2: kernel "
-        f"{d_cold:.4f} ms, plain {d_plain_cold:.4f} ms; split_len "
-        f"{decode_attention.split_len(B, KV, S)}; bound {max(b_bytes, b_ops) * 1e3:.3f} us "
+        f"{d_cold:.4f} ms, plain {d_plain_cold:.4f} ms; variant {kind}, cluster of {cluster} "
+        f"blocks per (slot, KV head); bound {max(b_bytes, b_ops) * 1e3:.3f} us "
         f"({n_bytes} B, {flops} FLOP); {flops / (d_kernel * 1e-3) / 1e12:.3f} TFLOP/s on the "
         f"device time")
+    log(f"[kernels] decode_attention vs paged_decode_attention at the same {n_valid} valid "
+        f"positions (one cache, 16-position pages, outputs bitwise equal): device {d_kernel:.4f} "
+        f"ms dense, {d_paged:.4f} ms paged ({d_paged / d_kernel:.3f}x); with clusters of "
+        f"16: {d16:.4f} ms dense, {d16_paged:.4f} ms paged; on the simt walk: {d_simt:.4f} ms "
+        f"dense, {d_simt_paged:.4f} ms paged")
+    for k_ in ("mma", "simt"):
+        log(f"[kernels] decode_attention ptxas: "
+            f"{decode_ptxas('DenseRows', q.dtype, hd, H // KV, k_)}")
     return {
         "name": "decode_attention",
         "route": "cuda",
@@ -569,6 +668,9 @@ def check_decode(torch, gen) -> dict:
         "library_ms": t_lib,
         "library_device_ms": d_lib,
         "tflops": flops / (d_kernel * 1e-3) / 1e12,
+        "cluster": cluster,
+        "variant": kind,
+        "paged_same_positions_device_ms": d_paged,
         "timed_shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16, {n_valid} valid positions",
     }
 
@@ -1011,6 +1113,7 @@ def phase_serve(torch, kv_mode: str = "paged") -> tuple:
     require(counts[decode_kernel] == ticks * cfg.num_layers,
             f"{decode_kernel} launched {counts[decode_kernel]} times, "
             f"expected {ticks * cfg.num_layers}")
+    require_variant(variants, decode_kernel, "mma", counts[decode_kernel], f"{kv_mode} serve")
     if kv_mode == "paged":
         require(sched.decoder.kv.pages_used == 0, "pages still allocated after the drain")
     ttft = np.asarray([admitted_at[r.rid] - t0 for r in requests])
@@ -1167,6 +1270,7 @@ def phase_serial(torch) -> dict:
             f"serial launches {counts}, expected flash {cfg.num_layers} and decode "
             f"{steps * cfg.num_layers}")
     require_variant(variants, "flash_attention", "wgmma", counts["flash_attention"], "serial")
+    require_variant(variants, "decode_attention", "mma", counts["decode_attention"], "serial")
     require(bool(np.isfinite(out.prefill_logits).all()), "serial prefill logits not finite")
     log(f"[serial] ServeEngine.generate B={B} prompts of {S} tokens, {steps} steps: "
         f"{B * steps} tokens in {wall:.3f}s: {B * steps / wall:.1f} tok/s; first token after "

@@ -104,7 +104,7 @@ def launch_counts() -> Dict[str, int]:
 
 def variant_counts() -> Dict[str, Dict[str, int]]:
     """Launches so far by kernel variant, for the kernels that have more than
-    one (`flash_attention`, `fused_linear`)."""
+    one (`flash_attention`, `fused_linear` and the two decode kernels)."""
     return {name: dict(mod.variant_launches) for name, mod in _KERNELS.items()
             if hasattr(mod, "variant_launches")}
 

@@ -29,6 +29,7 @@ except ImportError:
     jnp = jops = jref = jlinear = None
 from repro_torch.kernels import build as tbuild  # noqa: E402
 from repro_torch.kernels import decode_attention as tdecode  # noqa: E402
+from repro_torch.kernels import decode_core as tcore  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import fused_linear as tlinear  # noqa: E402
 from repro_torch.kernels import linear_scan as tscan  # noqa: E402
@@ -498,6 +499,84 @@ def test_flash_consumer_warpgroups_rule(monkeypatch, B, Sq, H, KV, sms, want):
     assert tflash.consumer_warpgroups(q, k) == want
 
 
+@pytest.mark.parametrize("units,sms,want", [
+    (1, H100_SMS, 8), (8, H100_SMS, 8),    # gemma3's 8 slots x 1 KV head: the cap of 8
+    (64, H100_SMS, 4), (512, H100_SMS, 1),  # 64 x 2 = 128 blocks would not fill 132 SMs
+    (1, 114, 8), (8, 114, 8), (64, 114, 2), (512, 114, 1),
+    (132, H100_SMS, 1), (33, H100_SMS, 4), (3, 2, 1),
+])
+def test_decode_cluster_size_rule(monkeypatch, units, sms, want):
+    """Blocks a cluster per (slot, KV head): the smallest power of two up to
+    8 whose clusters fill one wave of the card's SMs, 1 when the (slot, KV
+    head) pairs alone fill it; the same for the dense and the paged layout."""
+    monkeypatch.setattr(tbuild, "sm_count", lambda device: sms)
+    for B, KV in ((units, 1), (1, units)):
+        q = torch.empty((B, 2 * KV, 16), dtype=torch.bfloat16)
+        assert tcore.cluster_size(q, torch.empty((B, 32, KV, 16), dtype=torch.bfloat16)) == want
+        assert tcore.cluster_size(q, torch.empty((9, 16, KV, 16), dtype=torch.bfloat16)) == want
+
+
+def test_decode_cluster_size_rule_follows_the_cap(monkeypatch):
+    """With the cap raised to the non-portable 16, gemma3's 8 (slot, KV head)
+    pairs take clusters of 16 on an H100."""
+    monkeypatch.setattr(tbuild, "sm_count", lambda device: H100_SMS)
+    monkeypatch.setattr(tcore, "MAX_CLUSTER", 16)
+    q = torch.empty((8, 4, 256), dtype=torch.bfloat16)
+    assert tcore.cluster_size(q, torch.empty((8, 1088, 1, 256), dtype=torch.bfloat16)) == 16
+
+
+@pytest.mark.parametrize("dtype,H,KV,hd,layout,want", [
+    ("bfloat16", 4, 1, 256, "aligned", None),     # gemma3-1b at full width
+    ("float32", 4, 1, 256, "aligned", None),
+    ("bfloat16", 4, 1, 16, "aligned", None),      # REDUCED: 32-byte rows, two lanes a row
+    ("float32", 4, 1, 16, "aligned", None),
+    ("bfloat16", 8, 1, 128, "aligned", None),     # 8 query heads a KV head
+    ("bfloat16", 8, 2, 112, "aligned", None),     # a head_dim between the powers of two
+    ("bfloat16", 6, 1, 8, "aligned", None),       # one 16-byte load a row
+    ("float32", 4, 4, 36, "aligned", None),
+    ("bfloat16", 16, 1, 64, "aligned", "16 query heads per KV head"),
+    ("bfloat16", 48, 1, 128, "aligned", "48 query heads per KV head"),
+    ("bfloat16", 4, 1, 512, "aligned", "head_dim 512"),
+    ("bfloat16", 4, 1, 100, "aligned", "head_dim 100 of 2-byte elements"),
+    ("float32", 4, 1, 18, "aligned", "head_dim 18 of 4-byte elements"),
+    ("bfloat16", 4, 1, 4, "aligned", "head_dim 4 of 2-byte elements"),
+    ("bfloat16", 4, 1, 256, "unaligned-k", "k is not 16-byte aligned"),
+    ("float32", 4, 1, 64, "unaligned-v", "v is not 16-byte aligned"),
+])
+def test_decode_layout_rule(dtype, H, KV, hd, layout, want):
+    """The shapes and pointers the decode kernels' 16-byte row loads take;
+    the wrappers raise with the reason on any other."""
+    dt = TDT[dtype]
+    shape = (3, 16, KV, hd)
+    k = _unaligned(shape, dt) if layout == "unaligned-k" else torch.empty(shape, dtype=dt)
+    v = _unaligned(shape, dt) if layout == "unaligned-v" else torch.empty(shape, dtype=dt)
+    got = tcore.layout_error(H, k, v)
+    if want is None:
+        assert got is None
+    else:
+        assert got is not None and got.startswith(want)
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    ("bfloat16", 256, "mma"),    # gemma3-1b at full width
+    ("bfloat16", 128, "mma"), ("bfloat16", 64, "mma"), ("bfloat16", 32, "mma"),
+    ("bfloat16", 16, "mma"),     # REDUCED in bf16: one k16 step
+    ("bfloat16", 112, "simt"),   # the tensor-core walk is unrolled for powers of two
+    ("bfloat16", 48, "simt"),
+    ("bfloat16", 8, "simt"),     # not a whole k16 step
+    ("bfloat16", 40, "simt"),
+    ("float32", 256, "simt"),    # fp32 stays exact: no bf16 products
+    ("float32", 16, "simt"),     # REDUCED serving in fp32
+])
+def test_decode_variant_rule(dtype, hd, want):
+    """bf16 rows of 16 to 256 dims, a power of two, are scored on the tensor
+    cores, the rest by exact fp32 FMA; the same rule for the dense and the
+    paged layout."""
+    q = torch.empty((2, 4, hd), dtype=TDT[dtype])
+    assert tcore.variant(q, torch.empty((2, 32, 1, hd), dtype=TDT[dtype])) == want
+    assert tcore.variant(q, torch.empty((9, 16, 1, hd), dtype=TDT[dtype])) == want
+
+
 def test_variant_counts_start_at_zero_and_reset():
     tlinear.variant_launches["wgmma"] += 1
     tflash.variant_launches["simt"] += 1
@@ -505,6 +584,8 @@ def test_variant_counts_start_at_zero_and_reset():
     tops.reset_launch_counts()
     assert tops.variant_counts() == {
         "flash_attention": {"simt": 0, "wgmma": 0},
+        "paged_decode_attention": {"simt": 0, "mma": 0},
+        "decode_attention": {"simt": 0, "mma": 0},
         "fused_linear": {"simt": 0, "simt_tiled": 0, "wgmma": 0},
     }
 
@@ -544,7 +625,7 @@ def test_flash_kernel_matches_plain_on_card(cuda, Sq, window, kw, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("window", [0, 512])
+@pytest.mark.parametrize("window", [0, 512, 5])
 def test_paged_kernel_matches_plain_on_card(cuda, window, dtype):
     pos = [0, 15, 16, 100, 511, 512, 777, 1087]
     q, kp, vp, table, pos = (torch.from_numpy(a).to(cuda) for a in _pool_case(
@@ -565,6 +646,39 @@ def _decode_on_card(cuda, dtype, *, B, S, H, KV, hd, pos, poison=False, seed=6):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case,kind", [
+    (dict(B=8, S=1088, H=4, KV=1, hd=256, pos=[0, 15, 16, 100, 511, 512, 777, 1087]), "mma"),
+    (dict(B=4, S=300, H=8, KV=1, hd=128, pos=[299, 0, 150, 77]), "mma"),
+    (dict(B=3, S=77, H=6, KV=2, hd=64, pos=[76, 3, 40]), "mma"),
+    (dict(B=2, S=16, H=4, KV=1, hd=16, pos=[5, 15]), "mma"),
+    (dict(B=4, S=300, H=8, KV=1, hd=112, pos=[299, 0, 150, 77]), "simt"),
+    (dict(B=3, S=77, H=6, KV=2, hd=48, pos=[76, 3, 40]), "simt"),
+    (dict(B=3, S=100, H=4, KV=1, hd=40, pos=[99, 0, 50]), "simt"),
+    (dict(B=3, S=100, H=4, KV=2, hd=8, pos=[99, 0, 50]), "simt"),
+], ids=["hd256", "hd128-groups8", "hd64-groups3", "hd16", "hd112-groups8", "hd48-groups3",
+        "hd40", "hd8"])
+def test_decode_kernel_variants_match_plain_on_card(cuda, case, kind):
+    """Each walk at the bf16 head dims its rule sends it, both entry points,
+    against the plain versions at the reference's bf16 tolerances."""
+    q, kc, vc, pos = _decode_on_card(cuda, "bfloat16", **case)
+    assert tcore.variant(q, kc) == kind
+    before = (tdecode.variant_launches[kind], tpaged.variant_launches[kind])
+    got = tops.decode_attention(q, kc, vc, pos)
+    B, S = kc.shape[:2]
+    table = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    got_paged = tops.paged_decode_attention(q, kc, vc, table, pos, window=S // 3)
+    want = tref.decode_attention(q, kc, vc, pos)
+    want_paged = tref.paged_decode_attention(q, kc, vc, table, pos, window=S // 3)
+    torch.cuda.synchronize()
+    assert (tdecode.variant_launches[kind], tpaged.variant_launches[kind]) == (
+        before[0] + 1, before[1] + 1)
+    tol = ATTN_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got_paged.float(), want_paged.float(), rtol=0,
+                               atol=PAGED_TOL["bfloat16"])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", [
     dict(B=8, S=1088, H=4, KV=1, hd=256, pos=[0, 15, 16, 100, 511, 512, 777, 1087]),
@@ -572,7 +686,13 @@ def _decode_on_card(cuda, dtype, *, B, S, H, KV, hd, pos, poison=False, seed=6):
     dict(B=4, S=300, H=8, KV=2, hd=128, pos=[299, 0, 64, 150]),
     dict(B=3, S=777, H=4, KV=1, hd=256, pos=[700, 33, 776], poison=True),
     dict(B=2, S=16, H=4, KV=1, hd=16, pos=[5, 15]),
-], ids=["global-1088", "ring-512", "gqa-ragged-300", "poison", "reduced-ring-16"])
+    dict(B=8, S=8192, H=4, KV=1, hd=256, pos=[8191, 0, 1, 2, 4095, 5000, 7777, 300]),
+    # clusters of 8 blocks take shares of 8, then 16, ... positions
+    dict(B=8, S=1088, H=4, KV=1, hd=256, pos=[63, 64, 127, 128, 7, 8, 1023, 1024]),
+    dict(B=3, S=64, H=4, KV=1, hd=256, pos=[0, 1, 2]),
+    dict(B=4, S=300, H=8, KV=1, hd=128, pos=[299, 0, 150, 77]),
+], ids=["global-1088", "ring-512", "gqa-ragged-300", "poison", "reduced-ring-16", "long-8192",
+        "share-boundaries", "fewer-positions-than-blocks", "groups-8-hd128"])
 def test_decode_kernel_matches_plain_on_card(cuda, case, dtype):
     q, kc, vc, pos = _decode_on_card(cuda, dtype, **case)
     before = tdecode.launches
@@ -585,6 +705,62 @@ def test_decode_kernel_matches_plain_on_card(cuda, case, dtype):
     # a Python int is broadcast over the batch
     torch.testing.assert_close(tops.decode_attention(q, kc, vc, 7).float(),
                                tref.decode_attention(q, kc, vc, 7).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case,window", [
+    (dict(B=8, H=4, KV=1, hd=256, page=16, n_pages=512, pool_pages=4097,
+          pos=[8191, 0, 1, 2, 4095, 5000, 7777, 300]), 0),
+    (dict(B=8, H=4, KV=1, hd=256, page=16, n_pages=512, pool_pages=4097,
+          pos=[8191, 0, 1, 2, 4095, 5000, 7777, 300]), 3000),
+    (dict(B=8, H=4, KV=1, hd=256, page=16, n_pages=68, pool_pages=545,
+          pos=[63, 64, 127, 128, 7, 8, 1023, 1024]), 0),
+    (dict(B=3, H=8, KV=1, hd=128, page=16, n_pages=68, pool_pages=545, pos=[0, 1, 2]), 0),
+    (dict(B=4, H=8, KV=1, hd=128, page=16, n_pages=20, pool_pages=81,
+          pos=[299, 0, 150, 77]), 100),
+    (dict(B=4, H=8, KV=2, hd=128, page=16, n_pages=20, pool_pages=81,
+          pos=[299, 0, 150, 77]), 0),
+], ids=["long-8192", "long-8192-window", "share-boundaries", "fewer-positions-than-blocks",
+        "groups-8-hd128-window", "gqa-kv2-hd128"])
+def test_paged_kernel_edge_cases_on_card(cuda, case, window, dtype):
+    q, kp, vp, table, pos = (torch.from_numpy(a).to(cuda) for a in _pool_case(
+        8, poison=True, **case))
+    q, kp, vp = (x.to(TDT[dtype]) for x in (q, kp, vp))
+    before = tpaged.launches
+    got = tops.paged_decode_attention(q, kp, vp, table, pos, window=window)
+    want = tref.paged_decode_attention(q, kp, vp, table, pos, window=window)
+    torch.cuda.synchronize()
+    assert tpaged.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=PAGED_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    dict(B=8, S=1088, H=4, KV=1, hd=256, pos=[0, 15, 16, 100, 511, 512, 777, 1087]),
+    dict(B=4, S=304, H=8, KV=2, hd=128, pos=[299, 0, 64, 303]),
+    dict(B=2, S=16, H=4, KV=1, hd=16, pos=[5, 15]),
+    dict(B=8, S=8192, H=4, KV=1, hd=256, pos=[8191, 0, 1, 2, 4095, 5000, 7777, 300]),
+], ids=["global-1088", "gqa-304", "reduced-16", "long-8192"])
+def test_dense_and_paged_kernels_bitwise_equal_on_card(cuda, case, dtype):
+    """One decode core behind both entry points: the paged kernel over the
+    dense cache seen as a pool (one page per slot, and pages of 16) gives
+    the dense kernel's output bit for bit, one launch each."""
+    q, kc, vc, pos = _decode_on_card(cuda, dtype, **case)
+    B, S, KV, hd = kc.shape
+    before = (tdecode.launches, tpaged.launches)
+    dense = tops.decode_attention(q, kc, vc, pos)
+    one = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    paged = tops.paged_decode_attention(q, kc, vc, one, pos)
+    pools = (kc.view(B * S // 16, 16, KV, hd), vc.view(B * S // 16, 16, KV, hd))
+    table = torch.arange(B * S // 16, dtype=torch.int32, device=cuda).view(B, S // 16)
+    paged16 = tops.paged_decode_attention(q, *pools, table, pos)
+    torch.cuda.synchronize()
+    assert (tdecode.launches, tpaged.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(paged, dense) and torch.equal(paged16, dense)
+    torch.testing.assert_close(dense.float(), tref.decode_attention(q, kc, vc, pos).float(),
+                               rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
 
 
 @pytest.mark.gpu
