@@ -31,7 +31,13 @@ nothing of JAX or of the JAX package. Phases:
    compared must cover both block layouts of the wgmma variant (one
    consumer warpgroup at a single prompt, two at the serial engine's
    8 x 512 prefill); fused_linear's fp32 products are also timed either
-   side of the card's cut-over from simt to simt_tiled;
+   side of the card's cut-over from simt to simt_tiled; the decode kernels
+   are also held at 12 and 48 query heads per KV head (head groups); the
+   scan (mma / step / simt) is held fused (y and the mLSTM normaliser in
+   one launch) and unfused at every case, each case on the variant its rule
+   names and the checked shapes covering the tensor-core variant's three
+   tile widths, timed at every path shape against a bound built from the
+   work itself, and its kernels' `-Xptxas -v` lines printed;
 4. reduced: REDUCED gemma3-1b in fp32 (TF32 off): prefill plus 16
    teacher-forced paged decode ticks on the card against the same functions
    on the CPU;
@@ -60,10 +66,13 @@ nothing of JAX or of the JAX package. Phases:
 11. serve-xlstm: full xlstm-125m (12 blocks, 9 mLSTM + 3 sLSTM, d_model 768,
    vocab 50304, bf16) serves phase 5's 16 requests on 8 slots through the
    dense scheduler, then `ServeEngine.generate` on 8 prompts of 512 tokens
-   for 32 steps; the scan kernel must launch exactly twice per mLSTM block
-   per prefill and per tick, and no other kernel;
+   for 32 steps; the scan kernel must launch exactly once per mLSTM block
+   per prefill and per tick (y and the normaliser in one launch: prefills
+   on its tensor-core variant, ticks on its step variant), and no other
+   kernel;
 12. loss-xlstm: full-width `ModelBundle.loss` on 4 x 2048 seeded tokens:
-   finite, near ln(vocab) for random weights, exactly 18 scan launches.
+   finite, near ln(vocab) for random weights, exactly 9 scan launches (one
+   per mLSTM block), all on the tensor-core variant.
 
 Each path's launch counts are zeroed just before it runs and read just
 after. The line before the last is one JSON object with every kernel's
@@ -392,7 +401,7 @@ def decode_ptxas(rows: str, dtype, hd: int, groups: int, kind: str) -> str:
 
     bf16 = str(dtype).endswith("bfloat16")
     hdp = next(b for b in (16, 32, 64, 128, 256) if hd <= b)
-    gmax = next(b for b in (1, 2, 4, 8) if groups <= b)
+    gmax = next(b for b in (1, 2, 4, 8) if decode_core.block_group(groups) <= b)
     kernel = "decode_mma_kernel" if kind == "mma" else "decode_kernel"
     want = (f"{kernel}<{hdp}, {gmax}, {rows}>" if kind == "mma"
             else f"{kernel}<{str(dtype).split('.')[-1]}, {hdp}, {gmax}, {rows}>")
@@ -456,6 +465,11 @@ def check_paged(torch, gen) -> dict:
     # at hd 128 with fewer positions than the cluster has blocks
     cases.append(dict(pos=uneven, dtype=torch.bfloat16, window=5))
     cases.append(dict(pos=[0, 1, 2], dtype=torch.bfloat16, B=3, H=8, hd=128, window=512))
+    # more query heads a KV head than a block holds (granite-20b: 48 over 1):
+    # groups of at most 8 heads, each group's cluster re-reading the rows
+    for dtype in (torch.float32, torch.bfloat16):
+        for H in (12, 48):
+            cases.append(dict(pos=uneven, dtype=dtype, H=H, hd=128, window=0))
     worst, worst_tol = 0.0, None
     for case in cases:
         q, kp, vp, tbl, pos = _paged_case(torch, gen, **case)
@@ -556,6 +570,9 @@ def check_decode(torch, gen) -> dict:
             dict(pos=[5, 15], dtype=dtype, B=2, S=16, hd=16),  # REDUCED widths
             # a long cache: each cluster block walks many batches of rows
             dict(pos=[8191, 0, 1, 2, 4095, 5000, 7777, 300], dtype=dtype, S=8192),
+            # 12 and 48 query heads a KV head: head groups of 6 and 8
+            dict(pos=uneven, dtype=dtype, H=12, hd=128),
+            dict(pos=uneven, dtype=dtype, H=48, hd=128),
         ]
     worst, worst_tol = 0.0, None
     for case in cases:
@@ -784,24 +801,23 @@ def check_fused_linear(torch, gen) -> dict:
     }
 
 
-SCAN_CHUNK = 64  # positions per chunk of the scan kernel (csrc/linear_scan.cu)
-
-
 def scan_check_chunk(S: int) -> int:
-    """Chunk of the plain version the scan kernel is held against: at most
+    """Chunk of the plain version the scan kernels are held against: at most
     16 positions. The plain version cumulates the log decay in fp32 over a
     chunk, and at xlstm's dk = 384 a chunk of 128 leaves rounding in the gates
     that alone exceeds the fp32 tolerance against a float64 recurrence; at 16
-    positions it does not. The kernel ignores the chunk (fp64 decay)."""
+    positions it does not. The kernels ignore the chunk (fp64 decay)."""
     return math.gcd(S, 16)
 
 
-def _scan_case(torch, gen, *, B, H, S, dk, dv, dtype, init=False, shared_qk=False, **_):
+def _scan_case(torch, gen, *, B, H, S, dk, dv, dtype, init=False, shared_qk=False,
+               norm=False, **_):
     """Scan inputs laid out as the model paths hand them over: q, k, v are
     head-split views of (B, S, H, d) projections and log_a a view of a
     (B, S, H) gate (the mLSTM), or q and k one (B, S, dk) tensor broadcast
     over the heads (`shared_qk`: Mamba2's C and B). Scales follow
-    `tests/test_kernels.py::TestGatedLinearScan`."""
+    `tests/test_kernels.py::TestGatedLinearScan`. Returns (q, k, v, log_a,
+    keyword arguments of the call: initial states, the normaliser)."""
     def heads(d, shared=False):
         if shared:
             x = 0.5 * torch.randn((B, 1, S, d), generator=gen, device="cuda")
@@ -812,75 +828,162 @@ def _scan_case(torch, gen, *, B, H, S, dk, dv, dtype, init=False, shared_qk=Fals
     q, k, v = heads(dk, shared_qk), heads(dk, shared_qk), heads(dv)
     log_a = -torch.nn.functional.softplus(
         torch.randn((B, S, H), generator=gen, device="cuda")).transpose(1, 2)
-    s0 = 0.5 * torch.randn((B, H, dk, dv), generator=gen, device="cuda") if init else None
-    return q, k, v, log_a, s0
+    kw = {}
+    if init:
+        kw["initial_state"] = 0.5 * torch.randn((B, H, dk, dv), generator=gen, device="cuda")
+    if norm:
+        kw["normaliser"] = True
+        if init:
+            kw["initial_normaliser"] = torch.randn((B, H, dk, 1), generator=gen, device="cuda")
+    return q, k, v, log_a, kw
 
 
-def _scan_bound_ms(B, H, S, dk, dv, elem, dtype_name, init) -> tuple:
-    """Bytes: q, k, v, log_a (and the initial state) read once, y and the
-    final state written once. Operations of the chunkwise form at the
-    kernel's chunk, intra-chunk scores counted once per (b, h): scores and
-    their product with v (2 S L (dk + dv)), the inter-chunk read and the
-    state update (4 S dk dv)."""
-    n_bytes = (B * H * S * (2 * dk + 2 * dv) * elem + B * H * S * 4
-               + B * H * dk * dv * 4 * (2 if init else 1))
-    L = min(SCAN_CHUNK, S)
-    flops = B * H * (2 * S * L * (dk + dv) + 4 * S * dk * dv)
+def _scan_plain(ref, q, k, v, log_a, chunk, kw):
+    """The plain version of the call `kw` describes (with the normaliser:
+    the reference's two scans)."""
+    if kw.get("normaliser"):
+        return ref.gated_linear_scan_normalised(
+            q, k, v, log_a, chunk=chunk, initial_state=kw.get("initial_state"),
+            initial_normaliser=kw.get("initial_normaliser"))
+    return ref.gated_linear_scan(q, k, v, log_a, chunk=chunk,
+                                 initial_state=kw.get("initial_state"))
+
+
+def _scan_bound_ms(B, H, S, dk, dv, elem, dtype_name, init, norm) -> tuple:
+    """The least time of the work itself, whatever a kernel's chunk. Bytes:
+    q, k, v, log_a and the initial states read once, y, nrm and the final
+    states written once. Operations: the two state products of the
+    recurrence, 4 S dk dv per (b, h) (the read q_t S_t and the update
+    k_t^T v_t, 2 S dk dv each), and the normaliser's 4 S dk."""
+    cols = dv + (1 if norm else 0)
+    n_bytes = (B * H * S * (2 * dk + 2 * cols) * elem + B * H * S * 4
+               + B * H * dk * cols * 4 * (2 if init else 1))
+    flops = B * H * 4 * S * dk * cols
     b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations"), n_bytes, flops
 
 
+def scan_rounding_errors(torch, q, k, v, log_a, L: int = 32) -> dict:
+    """Max |y - y_exact| that each way of feeding the fp32 operands of the
+    tensor-core scan to bf16 products would leave on these inputs: the plain
+    chunked algorithm (chunks of L, fp64 decay) with P, the state read by
+    q (S_prev) and Vsc = v exp(a_tot - A) rounded as each choice rounds them
+    (q, k and v are exact in bf16), against the same algorithm unrounded.
+    Choices: "bf16" (one bf16 operand), "tf32" (10-bit mantissa, what TF32
+    m16n8k8 reads), "bf16 hi+lo" (the kernel's: two bf16 products)."""
+    B, H, S, dk = q.shape
+    C = S // L
+    qf, kf, vf = (t.float().reshape(B, H, C, L, -1) for t in (q, k, v))
+    A = torch.cumsum(log_a.double().reshape(B, H, C, L), -1)
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
+    gates = torch.where(tri, torch.exp(A[..., :, None] - A[..., None, :]), 0.0).float()
+    P = torch.einsum("bhcid,bhcjd->bhcij", qf, kf) * gates
+    Vsc = vf * torch.exp(A[..., -1:] - A).float()[..., None]
+    eA, e_tot = torch.exp(A).float(), torch.exp(A[..., -1]).float()
+
+    def bf(x):
+        return x.bfloat16().float()
+
+    rounds = {"exact": lambda x: x, "bf16": bf,
+              "tf32": lambda x: (x.view(torch.int32) & ~0x1FFF).view(torch.float32),
+              "bf16 hi+lo": lambda x: bf(x) + bf(x - bf(x))}
+    ys = {}
+    for name, rnd in rounds.items():
+        chunk_states = torch.einsum("bhcjd,bhcjv->bhcdv", kf, rnd(Vsc))
+        state = torch.zeros((B, H, dk, v.shape[-1]), device=q.device)
+        y = torch.empty_like(vf)
+        for c in range(C):
+            y[:, :, c] = (torch.einsum("bhid,bhdv->bhiv", qf[:, :, c], rnd(state))
+                          * eA[:, :, c, :, None]
+                          + torch.einsum("bhij,bhjv->bhiv", rnd(P[:, :, c]), vf[:, :, c]))
+            state = e_tot[:, :, c, None, None] * state + chunk_states[:, :, c]
+        ys[name] = y
+    return {name: float((y - ys["exact"]).abs().max()) for name, y in ys.items() if name != "exact"}
+
+
 def check_scan(torch, gen) -> dict:
-    from repro_torch.kernels import linear_scan, ref
+    from repro_torch.kernels import build, linear_scan, ref
     from repro_torch.models.ssm import _chunk_for
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
     bf16, fp32 = torch.bfloat16, torch.float32
     xl = dict(H=4, dk=384, dv=384)  # xlstm-125m's mLSTM: 4 heads of 384
+    mamba2 = dict(H=32, S=1024, dk=64, dv=224, shared_qk=True)
     cases = [
-        dict(xl, tag="loss", B=4, S=2048, dtype=bf16),
-        dict(xl, tag="loss-normaliser", B=4, S=2048, dtype=bf16, dv=1),
-        dict(xl, tag="prefill-777", B=1, S=777, dtype=bf16),
-        dict(xl, tag="prefill-777-state", B=1, S=777, dtype=bf16, init=True),
-        dict(xl, tag="prefill-777-normaliser", B=1, S=777, dtype=bf16, dv=1, init=True),
-        dict(xl, tag="decode", B=8, S=1, dtype=bf16, init=True),
-        dict(xl, tag="decode-normaliser", B=8, S=1, dtype=bf16, dv=1, init=True),
-        dict(tag="mamba2", B=1, H=32, S=1024, dk=64, dv=224, dtype=bf16, shared_qk=True),
-        dict(xl, tag="fp32-512", B=2, S=512, dtype=fp32),
-        dict(xl, tag="fp32-777-state", B=1, S=777, dtype=fp32, init=True),
-        dict(xl, tag="fp32-decode", B=8, S=1, dtype=fp32, init=True),
-        dict(tag="fp32-mamba2", B=1, H=32, S=1024, dk=64, dv=224, dtype=fp32, shared_qk=True),
-        dict(tag="fp32-reduced", B=2, H=4, S=45, dk=32, dv=32, dtype=fp32, init=True),
+        # the paths' shapes: the mLSTM's one call (y and normaliser) and its
+        # parts alone, Mamba2's single call
+        dict(xl, tag="loss", B=4, S=2048, dtype=bf16, norm=True, want="mma"),
+        dict(xl, tag="loss-y-only", B=4, S=2048, dtype=bf16, want="mma"),
+        dict(xl, tag="loss-normaliser-alone", B=4, S=2048, dtype=bf16, dv=1, want="simt"),
+        dict(xl, tag="prefill-777", B=1, S=777, dtype=bf16, norm=True, want="mma"),
+        dict(xl, tag="prefill-777-state", B=1, S=777, dtype=bf16, init=True, norm=True,
+             want="mma"),
+        dict(xl, tag="prefill-300-b2", B=2, S=300, dtype=bf16, norm=True, want="mma"),
+        dict(xl, tag="serial-prefill", B=8, S=512, dtype=bf16, norm=True, want="mma"),
+        dict(xl, tag="decode", B=8, S=1, dtype=bf16, init=True, norm=True, want="step"),
+        dict(xl, tag="decode-y-only", B=8, S=1, dtype=bf16, init=True, want="step"),
+        dict(xl, tag="decode-normaliser-alone", B=8, S=1, dtype=bf16, dv=1, init=True,
+             want="step"),
+        dict(xl, tag="step-16", B=2, S=16, dtype=bf16, init=True, norm=True, want="step"),
+        dict(xl, tag="mma-17", B=2, S=17, dtype=bf16, init=True, norm=True, want="mma"),
+        dict(mamba2, tag="mamba2", B=1, dtype=bf16, want="mma"),
+        dict(xl, tag="fp32-512", B=2, S=512, dtype=fp32, norm=True, want="simt"),
+        dict(xl, tag="fp32-777-state", B=1, S=777, dtype=fp32, init=True, norm=True,
+             want="simt"),
+        dict(xl, tag="fp32-decode", B=8, S=1, dtype=fp32, init=True, norm=True, want="step"),
+        dict(mamba2, tag="fp32-mamba2", B=1, dtype=fp32, want="simt"),
+        dict(tag="fp32-reduced", B=2, H=4, S=45, dk=32, dv=32, dtype=fp32, init=True, norm=True,
+             want="simt"),
+        dict(tag="fp32-reduced-tick", B=3, H=4, S=1, dk=32, dv=32, dtype=fp32, init=True,
+             norm=True, want="step"),
+        dict(tag="bf16-reduced", B=2, H=4, S=45, dk=32, dv=32, dtype=bf16, init=True, norm=True,
+             want="mma"),
         # the reference's SCAN_SHAPES (tests/test_kernels.py)
-        *[dict(tag=f"ref-{B}x{H}x{S}x{dk}x{dv}", B=B, H=H, S=S, dk=dk, dv=dv, dtype=dt)
+        *[dict(tag=f"ref-{B}x{H}x{S}x{dk}x{dv}", B=B, H=H, S=S, dk=dk, dv=dv, dtype=dt,
+               want="simt" if dt == fp32 else "mma")
           for B, H, S, dk, dv in [(1, 1, 128, 32, 32), (2, 4, 256, 64, 64), (1, 2, 256, 16, 64),
                                   (2, 2, 512, 32, 16)] for dt in (fp32, bf16)],
     ]
-    worst, worst_tol = 0.0, None
+    worst, worst_tol, tiles = 0.0, None, set()
     for case in cases:
-        q, k, v, log_a, s0 = _scan_case(torch, gen, **case)
+        q, k, v, log_a, kw = _scan_case(torch, gen, **case)
         chunk = scan_check_chunk(case["S"])
-        y, st = linear_scan.gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=s0)
-        y_ref, st_ref = ref.gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=s0)
+        kind = linear_scan.variant(q, k, v)
+        before = dict(linear_scan.variant_launches)
+        got = linear_scan.gated_linear_scan(q, k, v, log_a, chunk=chunk, **kw)
+        want = _scan_plain(ref, q, k, v, log_a, chunk, kw)
         torch.cuda.synchronize()
+        moved = {n: c - before[n] for n, c in linear_scan.variant_launches.items()
+                 if c != before[n]}
         name = str(case["dtype"]).split(".")[-1]
-        err_y, ok_y = _max_err_and_ok(torch, y, y_ref, TOL[name])
-        err_s, ok_s = _max_err_and_ok(torch, st, st_ref, TOL[name])
-        ok = ok_y and ok_s and y.dtype == case["dtype"] and st.dtype == fp32
-        desc = ", ".join(f"{k_}={v_}" for k_, v_ in case.items() if k_ != "dtype")
-        log(f"[kernels] gated_linear_scan {name} {desc}: max_abs_err y={err_y:.3e} "
-            f"state={err_s:.3e} tol={TOL[name]} {'ok' if ok else 'FAIL'}")
-        require(ok, f"gated_linear_scan disagrees with its plain version ({desc}, {name})")
-        if max(err_y, err_s) > worst:
-            worst, worst_tol = max(err_y, err_s), TOL[name]
+        errs, ok = [], kind == case["want"] and moved == {kind: 1}
+        for x, ref_x, out_dtype in zip(got, want, (case["dtype"], fp32) * 2):
+            err, ok_x = _max_err_and_ok(torch, x, ref_x, TOL[name])
+            errs.append(err)
+            ok = ok and ok_x and x.dtype == out_dtype and x.shape == ref_x.shape
+        tile = ""
+        if kind == "mma":
+            t = linear_scan.tile_columns(case["B"], case["H"], case["dv"] + int(bool(case.get(
+                "norm"))), build.sm_count(q.device))
+            tiles.add(t)
+            tile = f", tile {t} columns"
+        desc = ", ".join(f"{k_}={v_}" for k_, v_ in case.items() if k_ not in ("dtype", "want"))
+        log(f"[kernels] gated_linear_scan {name} {desc} ({kind}{tile}): max_abs_err "
+            f"{'/'.join(f'{e:.3e}' for e in errs)} (y/state{'/nrm/n' if len(errs) > 2 else ''}) "
+            f"tol={TOL[name]} {'ok' if ok else 'FAIL'}")
+        require(ok, f"gated_linear_scan disagrees with its plain version or took another "
+                    f"variant than {case['want']} ({desc}, {name}: {kind}, launches {moved})")
+        if max(errs) > worst:
+            worst, worst_tol = max(errs), TOL[name]
+    require(tiles == set(linear_scan.MMA_TILES),
+            f"the checked shapes took tiles {sorted(tiles)}, not all of {linear_scan.MMA_TILES}")
 
     def timings(case, iters):
-        q, k, v, log_a, s0 = _scan_case(torch, gen, **case)
+        q, k, v, log_a, kw = _scan_case(torch, gen, **case)
         chunk = _chunk_for(case["S"])
         kern = lambda q_, k_, v_, la_: linear_scan.gated_linear_scan(  # noqa: E731
-            q_, k_, v_, la_, chunk=chunk, initial_state=s0)
-        plain = lambda: ref.gated_linear_scan(  # noqa: E731
-            q, k, v, log_a, chunk=chunk, initial_state=s0)
+            q_, k_, v_, la_, chunk=chunk, **kw)
+        plain = lambda: _scan_plain(ref, q, k, v, log_a, chunk, kw)  # noqa: E731
         t_kernel = time_ms(torch, lambda: kern(q, k, v, log_a), iters=iters)
         t_plain = time_ms(torch, plain, iters=iters)
         d_kernel = device_ms(torch, lambda: kern(q, k, v, log_a), iters=iters)
@@ -890,26 +993,40 @@ def check_scan(torch, gen) -> dict:
         d_cold = cold_device_ms(torch, kern, ins, nbytes)
         name = str(case["dtype"]).split(".")[-1]
         B, H, S, dk, dv = (case[x] for x in ("B", "H", "S", "dk", "dv"))
+        init, norm = "initial_state" in kw, bool(kw.get("normaliser"))
         bound, by, n_bytes, flops = _scan_bound_ms(B, H, S, dk, dv, q.element_size(), name,
-                                                   s0 is not None)
+                                                   init, norm)
+        kind = linear_scan.variant(q, k, v)
         shape = (f"{case['tag']}: B={B} H={H} S={S} dk={dk} dv={dv} {name}"
-                 f"{' with initial_state' if s0 is not None else ''}")
+                 f"{' with initial_state' if init else ''}{' + normaliser' if norm else ''}"
+                 f" ({kind})")
         log(f"[kernels] gated_linear_scan timing {shape}: kernel {t_kernel:.4f} ms, plain "
             f"{t_plain:.4f} ms; device time per call: kernel {d_kernel:.4f} ms, plain "
             f"{d_plain:.4f} ms, kernel with the inputs cold in L2 {d_cold:.4f} ms; bound "
-            f"{bound * 1e3:.3f} us by {by} ({n_bytes} B, {flops} FLOP); "
-            f"{flops / (d_kernel * 1e-3) / 1e12:.2f} TFLOP/s on the device time")
+            f"{bound * 1e3:.3f} us by {by} ({n_bytes} B, {flops} FLOP; kernel at "
+            f"{d_kernel / bound:.1f}x the bound); {flops / (d_kernel * 1e-3) / 1e12:.2f} "
+            f"TFLOP/s on the device time")
         return dict(shape=shape, ms=t_kernel, plain_ms=t_plain, device_ms=d_kernel,
                     plain_device_ms=d_plain, cold_device_ms=d_cold, bound_ms=bound, bound_by=by,
                     tflops=flops / (d_kernel * 1e-3) / 1e12)
 
-    # every xlstm shape of the paths, Mamba2's, and two fp32 shapes
+    # what each way of rounding the fp32 operands to bf16 products would
+    # leave at the loss shape (y only; the kernel's own error is above)
     by_tag = {case["tag"]: case for case in cases}
+    q, k, v, log_a, _ = _scan_case(torch, gen, **by_tag["loss-y-only"])
+    rounding = scan_rounding_errors(torch, q, k, v, log_a)
+    log(f"[kernels] gated_linear_scan at the loss shape: max |y - y exact| of the chunked "
+        f"algorithm with P, S_prev and Vsc rounded as each choice rounds them: "
+        f"{', '.join(f'{n} {e:.3e}' for n, e in rounding.items())}")
+    del q, k, v, log_a
+
+    # every xlstm shape of the paths, Mamba2's, and two fp32 shapes
     main = timings(by_tag["loss"], iters=10)
     other = [timings(by_tag[tag], iters) for tag, iters in (
-        ("loss-normaliser", 10), ("prefill-777", 10), ("prefill-777-state", 10),
-        ("prefill-777-normaliser", 10), ("decode", 50), ("decode-normaliser", 50),
-        ("mamba2", 20), ("fp32-512", 10), ("fp32-decode", 50))]
+        ("loss-y-only", 10), ("prefill-777", 10), ("prefill-777-state", 10),
+        ("serial-prefill", 10), ("decode", 50), ("mamba2", 20), ("fp32-512", 10),
+        ("fp32-decode", 50))]
+    log("[kernels] gated_linear_scan ptxas: " + scan_ptxas())
     return {
         "name": "gated_linear_scan",
         "route": "cuda",
@@ -931,7 +1048,37 @@ def check_scan(torch, gen) -> dict:
         "tflops": main["tflops"],
         "timed_shape": main["shape"],
         "other_timings": other,
+        "rounding_max_abs_err": rounding,
     }
+
+
+def scan_ptxas() -> str:
+    """`-Xptxas -v` of every scan kernel instantiation, from the verbose
+    build of phase 2: registers, stack frame, spills, static shared memory."""
+    import re
+
+    from repro_torch.kernels import build
+
+    out = []
+    for entry in build.build_log().split("Compiling entry function '")[1:]:
+        name = entry.split("'", 1)[0]
+        kernel = re.search(r"scan_(mma|step|simt)_kernel(?:I(\w+?)E)?", name)
+        if kernel is None:
+            continue
+        used = re.search(r"Used (\d+) registers", entry)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", entry)
+        smem = re.search(r"(\d+) bytes smem", entry)
+        require(used is not None and frame is not None, f"no ptxas report for {name}")
+        out.append(f"{name}: {used.group(1)} registers, {frame.group(1)} B stack, "
+                   f"{frame.group(2)}/{frame.group(3)} B spill stores/loads, "
+                   f"{smem.group(1) if smem else 0} B static smem")
+    require(out, "no scan kernel in the ptxas report")
+    from repro_torch.kernels import linear_scan
+
+    dyn = ", ".join(f"tile {t}: {linear_scan.mma_smem_bytes(t, 384)} B"
+                    for t in linear_scan.MMA_TILES)
+    return "; ".join(out) + f"; scan_mma_kernel dynamic smem at dk = 384: {dyn}"
 
 
 def phase_kernels(torch) -> list:
@@ -1397,9 +1544,9 @@ def phase_reduced_xlstm(torch) -> None:
     log(f"[reduced-xlstm] xlstm-125m REDUCED fp32 forward (2 x 96 tokens): max |logits card - "
         f"cpu| = {err_logits:.3e}, loss card {out['cuda'][1]:.6f} cpu {out['cpu'][1]:.6f} "
         f"(atol {REDUCED_ATOL}); card launches {out['cuda'][2]}")
-    require(out["cuda"][2]["gated_linear_scan"] == 2 * 2 * n_mlstm,
+    require(out["cuda"][2]["gated_linear_scan"] == 2 * n_mlstm,
             f"forward + loss launched {out['cuda'][2]['gated_linear_scan']} scans, expected "
-            f"{4 * n_mlstm}")
+            f"one per mLSTM block per call, {2 * n_mlstm}")
     require(err_logits <= REDUCED_ATOL and err_loss <= REDUCED_ATOL,
             f"REDUCED xlstm forward differs: logits {err_logits:.3e}, loss {err_loss:.3e}")
 
@@ -1410,7 +1557,7 @@ def phase_reduced_xlstm(torch) -> None:
     on_card = xlstm_logits(torch, cfg, params_card, prompts, steps, "cuda")
     counts = ops.launch_counts()
     on_cpu = xlstm_logits(torch, cfg, params_cpu, prompts, steps, "cpu")
-    require(counts["gated_linear_scan"] == 2 * n_mlstm * (len(prompts) + len(steps)),
+    require(counts["gated_linear_scan"] == n_mlstm * (len(prompts) + len(steps)),
             f"reduced xlstm run did not go through the scan kernel: {counts}")
     worst = max(float((a - b).abs().max()) for a, b in zip(on_card, on_cpu))
     same_greedy = all(torch.equal(a.argmax(-1), b.argmax(-1)) for a, b in zip(on_card, on_cpu))
@@ -1468,7 +1615,7 @@ def phase_serve_xlstm(torch) -> dict:
     gc.collect()  # earlier phases' weights: peak memory counts this phase's only
     cfg = get_config("xlstm-125m")
     model = build(cfg)
-    per_step = 2 * xm.block_kinds(cfg).count("mlstm")  # scans per prefill and per tick
+    per_step = xm.block_kinds(cfg).count("mlstm")  # scans per prefill and per tick
     n_req = SERVE_REQUESTS["n"]
     prompt_range, steps_range = SERVE_REQUESTS["prompt_range"], SERVE_REQUESTS["steps_range"]
     max_len = (prompt_range[1] - 1) + (steps_range[1] - 1)
@@ -1508,6 +1655,7 @@ def phase_serve_xlstm(torch) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
+        scan_variants = ops.variant_counts()["gated_linear_scan"]
         peak = torch.cuda.max_memory_allocated()
         ticks = sched.ticks - ticks0
 
@@ -1527,6 +1675,11 @@ def phase_serve_xlstm(torch) -> dict:
                 f"{per_step} per prefill and per tick = {want}")
         require(all(n == 0 for name, n in counts.items() if name != "gated_linear_scan"),
                 f"the xlstm serve launched another kernel: {counts}")
+        # prompts of 64 tokens and more prefill on the tensor-core kernel,
+        # ticks (one position) on the step kernel
+        require(scan_variants == {"simt": 0, "mma": per_step * n_req, "step": per_step * ticks},
+                f"xlstm serve scan launches by variant {scan_variants}, expected "
+                f"{per_step * n_req} mma (prefills) and {per_step * ticks} step (ticks)")
         ttft = np.asarray([admitted_at[r.rid] - t0 for r in requests])
         plens = [len(r.prompt) for r in requests]
         log(f"[serve-xlstm] {n_req} requests (prompts {min(plens)}-{max(plens)} tokens, "
@@ -1534,7 +1687,7 @@ def phase_serve_xlstm(torch) -> dict:
             f"{n_tok / wall:.1f} tok/s; TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f} ms, "
             f"p90 {np.percentile(ttft, 90) * 1e3:.1f} ms (from a common start, queueing "
             f"included); {ticks} decode ticks; peak device memory {peak / 2**30:.2f} GiB; "
-            f"launches {counts}")
+            f"launches {counts}, the scan's by variant {scan_variants}")
         for r in requests[:3]:
             log(f"[serve-xlstm] {r.rid}: prompt {len(r.prompt)} tokens -> "
                 f"{results[r.rid].tokens[:8]}...")
@@ -1554,6 +1707,7 @@ def phase_serve_xlstm(torch) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         serial_counts = ops.launch_counts()
+        serial_variants = ops.variant_counts()["gated_linear_scan"]
         peak = torch.cuda.max_memory_allocated()
     toks = out.tokens
     require(toks.shape == (B, steps), f"serial generate returned {toks.shape}")
@@ -1562,6 +1716,8 @@ def phase_serve_xlstm(torch) -> dict:
     require(serial_counts["gated_linear_scan"] == per_step * (1 + steps)
             and sum(serial_counts.values()) == serial_counts["gated_linear_scan"],
             f"serial launches {serial_counts}, expected {per_step * (1 + steps)} scans only")
+    require(serial_variants == {"simt": 0, "mma": per_step, "step": per_step * steps},
+            f"serial scan launches by variant {serial_variants}")
     log(f"[serve-xlstm] serial ServeEngine.generate B={B} prompts of {S} tokens, {steps} steps: "
         f"{B * steps} tokens in {wall:.3f}s: {B * steps / wall:.1f} tok/s; first token after "
         f"{(first[0] - t0) * 1e3:.1f} ms; peak device memory {peak / 2**30:.2f} GiB; launches "
@@ -1608,8 +1764,9 @@ def phase_loss_xlstm(torch) -> dict:
         loss = float(loss)
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
+        scan_variants = ops.variant_counts()["gated_linear_scan"]
         peak = torch.cuda.max_memory_allocated()
-    want = 2 * xm.block_kinds(cfg).count("mlstm")
+    want = xm.block_kinds(cfg).count("mlstm")  # one scan (y and normaliser) per mLSTM block
     log(f"[loss-xlstm] ModelBundle.loss B={B} S={S} ({B * S} tokens), {cfg.compute_dtype}: loss "
         f"{loss:.5f} (ln V = {math.log(cfg.vocab_size):.5f} for random weights; ce "
         f"{float(metrics['ce_loss']):.5f}) in {wall:.3f}s ({B * S / wall:.0f} tok/s); peak "
@@ -1620,6 +1777,7 @@ def phase_loss_xlstm(torch) -> dict:
     require(counts["gated_linear_scan"] == want
             and sum(counts.values()) == counts["gated_linear_scan"],
             f"loss launches {counts}, expected {want} scans only")
+    require(scan_variants["mma"] == want, f"loss scan launches by variant {scan_variants}")
     return counts
 
 

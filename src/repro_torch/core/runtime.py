@@ -59,7 +59,7 @@ class Runtime:
 
     def __init__(
         self,
-        backend: str = "torchdev",
+        backend: str = "hostcpu",
         *,
         overrides: Optional[Mapping[str, str]] = None,
         role_kwargs: Optional[Mapping[str, Mapping]] = None,

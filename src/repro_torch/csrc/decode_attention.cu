@@ -21,8 +21,9 @@
 // C entry point. q, out: (B, H, hd); k_cache, v_cache: (B, S, KV, hd),
 // 16-byte aligned, hd * element size a multiple of 16; pos: (B,) int32,
 // >= 0 (positions past S - 1 see the whole cache). All contiguous, one float
-// dtype (0 fp32, 1 bf16); H / KV <= 8; `cluster` blocks (1, 2, 4, 8 or 16)
-// per (slot, KV head). Returns the cudaError_t of the launch.
+// dtype (0 fp32, 1 bf16); H a multiple of KV; `cluster` blocks (1, 2, 4, 8 or
+// 16) per (slot, KV head, group of at most 8 of its query heads). Returns the
+// cudaError_t of the launch.
 extern "C" int decode_attention_fwd(const void* q, const void* k_cache, const void* v_cache,
                                     const void* pos, void* out, int B, int S, int H, int KV,
                                     int hd, int dtype, float scale, int cluster, int variant,
@@ -44,8 +45,8 @@ extern "C" int decode_attention_fwd(const void* q, const void* k_cache, const vo
 }
 
 // Dynamic shared memory (bytes) a block of either decode kernel asks for at
-// these operands: dtype 0 fp32, 1 bf16; G query heads per KV head; head_dim;
-// the variant as above.
+// these operands: dtype 0 fp32, 1 bf16; G query heads per KV head (a block
+// holds `block_group(G)` of them); head_dim; the variant as above.
 extern "C" int decode_smem_bytes(int dtype, int G, int hd, int variant) {
-  return int(repro::decode::smem_bytes(dtype, G, hd, variant));
+  return int(repro::decode::smem_bytes(dtype, repro::decode::block_group(G), hd, variant));
 }

@@ -18,6 +18,9 @@
 //   granule: the work follows the actual positions without a host sync, and
 //   positions past pos (null-page padding included) are never read. The
 //   wrapper picks C from the card's SM count (`decode_core.cluster_size`).
+//   A block holds at most MAX_GROUP query heads; a KV head with more splits
+//   them into head groups (`block_group`), a grid axis, each group's
+//   cluster re-reading the KV head's rows. With 8 or fewer there is one.
 // * A lane copies 16 bytes of a row, so one warp instruction moves a
 //   512-byte hd = 256 bf16 row; narrower rows are moved several at once.
 //   Each warp walks a strided subset of the block's positions, its K and V
@@ -75,7 +78,10 @@ struct Params {
   const int* pos;    // (B,)
   const int* table;  // paged: (B, n_pages); dense: unused
   void* out;         // (B, H, hd)
-  int H, KV, hd, G;
+  int H, KV, hd;
+  int GT;            // query heads per KV head
+  int ngrp;          // blocks' head groups per KV head: ceil(GT / MAX_GROUP)
+  int G;             // query heads a group holds (the last group may hold fewer)
   int cap;           // positions a slot holds: S, or n_pages * page
   int S;             // dense: cache depth
   int page, n_pages;  // paged
@@ -271,11 +277,11 @@ __host__ __device__ constexpr size_t mma_smem_floats(int G, int hd) {
 // the cluster barrier releases, and after it only local memory is read.
 template <typename T>
 __device__ __forceinline__ void merge_and_store(const Params& p, cg::cluster_group& cluster,
-                                                int rank, int b, int kvh, const float* wacc,
+                                                int rank, int b, int hb, int G, const float* wacc,
                                                 float* recv, float* wm, const float* wl,
                                                 float* recv_ml) {
   const int C = static_cast<int>(cluster.dim_blocks().x);
-  const int tid = threadIdx.x, G = p.G, hd = p.hd;
+  const int tid = threadIdx.x, hd = p.hd;
   cluster_wait();
   const int n4 = G * hd / 4;           // float4s of a (slot, KV head)'s output
   const int slice = (n4 + C - 1) / C;  // float4s each block writes
@@ -323,7 +329,7 @@ __device__ __forceinline__ void merge_and_store(const Params& p, cg::cluster_gro
       wm[r * MAX_GROUP + tid] = weight(recv_ml[(r * MAX_GROUP + tid) * 2], M) * inv;
   }
   __syncthreads();
-  T* op = static_cast<T*>(p.out) + (size_t(b) * p.H + size_t(kvh) * G) * hd;
+  T* op = static_cast<T*>(p.out) + (size_t(b) * p.H + hb) * hd;
   for (int j = tid; j < slice && rank * slice + j < n4; j += NT) {
     const int i4 = rank * slice + j, g = 4 * i4 / hd;
     float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -357,10 +363,12 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(const Params p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.dim_blocks().x);
   const int rank = static_cast<int>(cluster.block_rank());
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y: KV head kvh, head group grp of it (one group when GT <= 8)
+  const int kvh = blockIdx.y / p.ngrp, grp = blockIdx.y - kvh * p.ngrp, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int unit = lane / LPR, ul = lane % LPR;
-  const int G = p.G, hd = p.hd;
+  const int G = min(p.G, p.GT - grp * p.G), hd = p.hd;
+  const int hb = kvh * p.GT + grp * p.G;  // this block's first query head
   const int nch = hd / VEC;  // 16-byte chunks of a row that exist
 
   extern __shared__ __align__(16) float smem[];
@@ -383,8 +391,8 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(const Params p) {
     hi = min(last + 1, lo + per);
   }
 
-  // q: (B, H, hd); this block's heads are kvh * G .. kvh * G + G - 1
-  const T* qp = static_cast<const T*>(p.q) + (size_t(b) * p.H + size_t(kvh) * G) * hd;
+  // q: (B, H, hd); this block's heads are hb .. hb + G - 1
+  const T* qp = static_cast<const T*>(p.q) + (size_t(b) * p.H + hb) * hd;
   const bool qvec = reinterpret_cast<uintptr_t>(p.q) % 16 == 0;
   float qr[GMAX][EPL], m[GMAX], l[GMAX], acc[GMAX][EPL];
 #pragma unroll
@@ -551,7 +559,7 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(const Params p) {
   }
   __syncthreads();
 
-  merge_and_store<T>(p, cluster, rank, b, kvh, wacc, recv, wm, wl, recv_ml);
+  merge_and_store<T>(p, cluster, rank, b, hb, G, wacc, recv, wm, wl, recv_ml);
 }
 
 template <int HDP, int GMAX, class Rows>
@@ -566,9 +574,10 @@ __global__ void __launch_bounds__(NT, 1) decode_mma_kernel(const Params p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.dim_blocks().x);
   const int rank = static_cast<int>(cluster.block_rank());
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.y / p.ngrp, grp = blockIdx.y - kvh * p.ngrp, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int G = p.G, hd = p.hd;
+  const int G = min(p.G, p.GT - grp * p.G), hd = p.hd;
+  const int hb = kvh * p.GT + grp * p.G;
 
   extern __shared__ __align__(16) float smem[];
   char* ring = reinterpret_cast<char*>(smem) + warp * Mg::RING;
@@ -594,7 +603,7 @@ __global__ void __launch_bounds__(NT, 1) decode_mma_kernel(const Params p) {
   uint32_t qa[KS][2];  // Q as A fragments: a0 (dims 16 ks + c2, +1), a2 (+8); a1 = a3 = 0
   {
     const unsigned short* qs = reinterpret_cast<const unsigned short*>(
-        static_cast<const bf16*>(p.q) + (size_t(b) * p.H + size_t(kvh) * G + g) * hd);
+        static_cast<const bf16*>(p.q) + (size_t(b) * p.H + hb + g) * hd);
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
@@ -729,7 +738,16 @@ __global__ void __launch_bounds__(NT, 1) decode_mma_kernel(const Params p) {
       *reinterpret_cast<float2*>(dst + 8 * n + c2) = make_float2(o[n][0], o[n][1]);
   }
   __syncthreads();
-  merge_and_store<bf16>(p, cluster, rank, b, kvh, wacc, recv, wm, wl, recv_ml);
+  merge_and_store<bf16>(p, cluster, rank, b, hb, G, wacc, recv, wm, wl, recv_ml);
+}
+
+// Query heads a block holds for GT heads per KV head: GT itself up to
+// MAX_GROUP; above it, the KV head's heads split into ceil(GT / MAX_GROUP)
+// groups of at most MAX_GROUP, one block (cluster) each, every group
+// re-reading the KV head's rows.
+inline int block_group(int GT) {
+  const int ngrp = (GT + MAX_GROUP - 1) / MAX_GROUP;
+  return (GT + ngrp - 1) / ngrp;
 }
 
 inline int head_dim_bucket(int hd) {
@@ -758,7 +776,7 @@ cudaError_t launch_kernel(const Params& p, int B, int cluster, cudaStream_t stre
   }();
   if (setup != cudaSuccess) return setup;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, p.KV, B);
+  cfg.gridDim = dim3(cluster, p.KV * p.ngrp, B);
   cfg.blockDim = dim3(NT, 1, 1);
   cfg.dynamicSmemBytes = sizeof(float) * smem_floats_of<T, HDP, GMAX, MMA>(p.G, p.hd);
   cfg.stream = stream;
@@ -818,8 +836,10 @@ cudaError_t run(Params p, int B, int dtype, float scale, int cluster, int varian
                 cudaStream_t s) {
   const int elem = dtype == kFloat32 ? 4 : dtype == kBFloat16 ? 2 : 0;
   if (elem == 0 || B < 1 || p.KV < 1 || p.H % p.KV != 0 || p.cap < 1) return cudaErrorInvalidValue;
-  p.G = p.H / p.KV;
-  if (p.G > MAX_GROUP || p.hd < 1 || p.hd > MAX_HD || (p.hd * elem) % 16 != 0)
+  p.GT = p.H / p.KV;
+  p.ngrp = (p.GT + MAX_GROUP - 1) / MAX_GROUP;
+  p.G = block_group(p.GT);
+  if (p.KV * p.ngrp > 65535 || p.hd < 1 || p.hd > MAX_HD || (p.hd * elem) % 16 != 0)
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(p.k) % 16 != 0 || reinterpret_cast<uintptr_t>(p.v) % 16 != 0)
     return cudaErrorMisalignedAddress;

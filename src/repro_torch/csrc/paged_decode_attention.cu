@@ -21,8 +21,8 @@
 // C entry point. q, out: (B, H, hd); k_pool, v_pool: (P, page, KV, hd),
 // 16-byte aligned, hd * element size a multiple of 16; table: (B, n_pages)
 // int32; pos: (B,) int32, >= 0. All contiguous, one float dtype (0 fp32,
-// 1 bf16); H / KV <= 8; `cluster` blocks (1, 2, 4, 8 or 16) per (slot, KV
-// head); `variant` 0 runs the exact fp32 FMA walk, 1 the bf16 tensor-core
+// 1 bf16); H a multiple of KV; `cluster` blocks (1, 2, 4, 8 or 16) per (slot, KV
+// head, group of at most 8 of its query heads); `variant` 0 runs the exact fp32 FMA walk, 1 the bf16 tensor-core
 // walk (bf16, hd a multiple of 16). Returns the cudaError_t of the launch.
 extern "C" int paged_decode_attention_fwd(const void* q, const void* k_pool,
                                           const void* v_pool, const void* table,

@@ -3,10 +3,15 @@ the dense and the paged decode kernels share, as pure functions the CPU
 tests reach, and the operand checks of both wrappers.
 
 * `cluster_size`: the blocks of the thread-block cluster that walks one
-  (slot, KV head): the smallest power of two up to `MAX_CLUSTER` with which
-  the clusters fill one wave of the card's SMs, and 1 when the (slot, KV
-  head) pairs alone fill it. Each block of a cluster takes an even share of
-  its slot's valid positions, read on the device.
+  unit, a (slot, KV head, head group): the smallest power of two up to
+  `MAX_CLUSTER` with which the clusters fill one wave of the card's SMs, and
+  1 when the units alone fill it. Each block of a cluster takes an even
+  share of its slot's valid positions, read on the device.
+* `head_groups` / `block_group`: a block holds at most `MAX_GROUP` query
+  heads in registers; a KV head with more (granite-20b: 48 over 1) splits
+  its heads into `head_groups` groups of `block_group` (the last may hold
+  fewer), a grid axis, each group's cluster re-reading the KV head's rows.
+  At 8 heads or fewer there is one group and the launch is unchanged.
 * `layout_error`: the shapes and pointers the kernel's 16-byte row loads
   take. The wrappers raise on any other; there is no narrower load path.
 * `variant`: how a block walks its positions. ``mma``: bf16 at head_dim 16,
@@ -27,7 +32,7 @@ from . import build
 
 WARPS = 8  # warps a block
 MAX_HEAD_DIM = 256
-MAX_GROUP = 8  # query heads per KV head a block holds in registers
+MAX_GROUP = 8  # query heads a block holds in registers
 #: The largest cluster `cluster_size` picks: 8 is the portable limit.
 MAX_CLUSTER = 8
 LOAD_BYTES = 16  # a lane's load
@@ -42,11 +47,24 @@ def variant(q: torch.Tensor, k: torch.Tensor) -> str:
     return "mma" if q.dtype == torch.bfloat16 and k.shape[-1] in MMA_HEAD_DIMS else "simt"
 
 
+def head_groups(groups: int) -> int:
+    """Head groups a KV head with `groups` query heads splits into."""
+    return -(-groups // MAX_GROUP)
+
+
+def block_group(groups: int) -> int:
+    """Query heads a block holds for `groups` query heads per KV head
+    (`csrc/decode_core.cuh::block_group`)."""
+    return -(-groups // head_groups(groups))
+
+
 def cluster_size(q: torch.Tensor, k: torch.Tensor) -> int:
     """Blocks a cluster for q (B, H, hd) against K rows (..., KV, hd) on q's
-    card (see the module note): B * KV clusters against
+    card (see the module note): B * KV * head groups clusters against
     `build.sm_count(q.device)` multiprocessors."""
-    units, sms = q.shape[0] * k.shape[-2], build.sm_count(q.device)
+    KV = k.shape[-2]
+    units = q.shape[0] * KV * head_groups(q.shape[1] // KV)
+    sms = build.sm_count(q.device)
     c = 1
     while c < MAX_CLUSTER and units * c < sms:
         c *= 2
@@ -56,10 +74,7 @@ def cluster_size(q: torch.Tensor, k: torch.Tensor) -> int:
 def layout_error(num_heads: int, k: torch.Tensor, v: torch.Tensor) -> Optional[str]:
     """Why the kernel cannot take K and V rows of this layout, or None.
     k, v: (..., KV, hd) with hd contiguous; `num_heads` query heads."""
-    KV, hd = k.shape[-2], k.shape[-1]
-    groups, elem = num_heads // KV, k.element_size()
-    if groups > MAX_GROUP:
-        return f"{groups} query heads per KV head; the kernel holds at most {MAX_GROUP}"
+    hd, elem = k.shape[-1], k.element_size()
     if not 1 <= hd <= MAX_HEAD_DIM:
         return f"head_dim {hd} outside 1..{MAX_HEAD_DIM}"
     if hd * elem % LOAD_BYTES:

@@ -75,16 +75,28 @@ def fused_linear(x, w, b, *, act: str = "none") -> torch.Tensor:
     return _linear.fused_linear_ref(x, w, b, act=act)
 
 
-def gated_linear_scan(q, k, v, log_a, *, chunk: int = 128,
-                      initial_state=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def gated_linear_scan(q, k, v, log_a, *, chunk: int = 128, initial_state=None,
+                      normaliser: bool = False,
+                      initial_normaliser=None) -> Tuple[torch.Tensor, ...]:
     """q, k: (B, H, S, dk); v: (B, H, S, dv); log_a: (B, H, S) fp32;
     initial_state: None (zeros) or fp32 (B, H, dk, dv) -> (y (B, H, S, dv),
     final state (B, H, dk, dv) fp32). The kernel takes a carried state as
     the reference's ``ops`` call does (its Pallas wrapper sends that case to
     the oracle) and any S; `chunk` shapes the plain version only, which keeps
-    the reference's ``S % chunk == 0``."""
+    the reference's ``S % chunk == 0``. ``normaliser=True`` adds the scan of
+    v = ones from `initial_normaliser` (None or fp32 (B, H, dk, 1)):
+    (y, state, nrm (B, H, S, 1), n (B, H, dk, 1)), in the kernel's one
+    launch; the plain version makes the reference's two calls."""
     if _on_cuda(q, "gated_linear_scan"):
-        return _scan.gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=initial_state)
+        return _scan.gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=initial_state,
+                                       normaliser=normaliser,
+                                       initial_normaliser=initial_normaliser)
+    if normaliser:
+        return ref.gated_linear_scan_normalised(q, k, v, log_a, chunk=chunk,
+                                                initial_state=initial_state,
+                                                initial_normaliser=initial_normaliser)
+    if initial_normaliser is not None:
+        raise ValueError("gated_linear_scan: initial_normaliser needs normaliser=True")
     return ref.gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=initial_state)
 
 
@@ -103,15 +115,14 @@ def launch_counts() -> Dict[str, int]:
 
 
 def variant_counts() -> Dict[str, Dict[str, int]]:
-    """Launches so far by kernel variant, for the kernels that have more than
-    one (`flash_attention`, `fused_linear` and the two decode kernels)."""
-    return {name: dict(mod.variant_launches) for name, mod in _KERNELS.items()
-            if hasattr(mod, "variant_launches")}
+    """Launches so far by kernel variant (every kernel picks one of its
+    variants by an explicit rule)."""
+    return {name: dict(mod.variant_launches) for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     """Zero every launch count, the counts by variant included."""
     for mod in _KERNELS.values():
         mod.launches = 0
-        for kind in getattr(mod, "variant_launches", {}):
+        for kind in mod.variant_launches:
             mod.variant_launches[kind] = 0

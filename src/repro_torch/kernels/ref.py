@@ -209,6 +209,27 @@ def gated_linear_scan(
     return y.to(q.dtype), state
 
 
+def gated_linear_scan_normalised(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    log_a: torch.Tensor,
+    *,
+    chunk: int = 128,
+    initial_state: Optional[torch.Tensor] = None,
+    initial_normaliser: Optional[torch.Tensor] = None,
+):
+    """The scan of v and, from the same q, k and log_a, of v = ones (the
+    mLSTM's normaliser), as the reference's two calls (`repro/models/ssm.py`
+    `mlstm_forward`). Returns (y, state, nrm (B, H, S, 1) in q's dtype,
+    n (B, H, dk, 1) fp32); `initial_normaliser`: None (zeros) or
+    (B, H, dk, 1)."""
+    y, state = gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=initial_state)
+    ones = torch.ones((*q.shape[:3], 1), dtype=q.dtype, device=q.device)
+    nrm, n = gated_linear_scan(q, k, ones, log_a, chunk=chunk, initial_state=initial_normaliser)
+    return y, state, nrm, n
+
+
 def gated_linear_step(q_t, k_t, v_t, log_a_t, state):
     """Single decode step of the gated linear recurrence.
 

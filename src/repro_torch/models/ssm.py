@@ -7,9 +7,11 @@ The mLSTM core is the scalar-gated linear recurrence
     S_t = a_t * S_{t-1} + k_t^T v_t ;  y_t = q_t @ S_t
 
 served by `repro_torch.kernels.ops.gated_linear_scan` (the hand-written CUDA
-kernel on the card, its plain version on the CPU), called twice per block as
-in the reference: once for y and once for the normaliser with v = ones.
-Prefill and decode carry the block's state through the same call. The sLSTM
+kernel on the card, its plain version on the CPU). The reference calls it
+twice per block, once for y and once for the normaliser with v = ones; here
+one call with ``normaliser=True`` returns both (one kernel launch on the
+card; on the CPU the plain version makes the reference's two calls).
+Prefill and decode carry the block's states through the same call. The sLSTM
 has cross-head recurrent connections and is sequential: the reference runs
 it as a `lax.scan`, the port as a Python loop over positions.
 
@@ -82,16 +84,15 @@ def mlstm_forward(cfg: ArchConfig, p, x: torch.Tensor, state=None):
     starts from zeros (the stateless forward)."""
     B, S, d = x.shape
     di = cfg.ssm_expand * d
-    H = cfg.num_heads
     cd = x.dtype
     h = rms_norm(x, p["norm"], eps=cfg.norm_eps)
     q, k, v, log_a = _mlstm_qkvg(cfg, p, h)
     chunk = _chunk_for(S)
     s0 = state["S"] if state is not None else None
     n0 = state["n"] if state is not None else None
-    y, S_f = ops.gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=s0)
-    ones = torch.ones((B, H, S, 1), dtype=cd, device=x.device)
-    nrm, n_f = ops.gated_linear_scan(q, k, ones, log_a, chunk=chunk, initial_state=n0)
+    # y and the normaliser (the scan of v = ones) from one call
+    y, S_f, nrm, n_f = ops.gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=s0,
+                                             normaliser=True, initial_normaliser=n0)
     y = y.float() / torch.clamp_min(torch.abs(nrm.float()), 1.0)
     y = y.to(cd).transpose(1, 2).reshape(B, S, di)
     ogate = F.silu(h @ p["w_ogate"].to(cd))

@@ -41,6 +41,7 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LINEAR_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+H100_SMS = 132
 
 
 @pytest.fixture
@@ -139,6 +140,9 @@ PAGED_CASES = [
                       pos=[3, 9, 20, 31]), 6, "float32", id="window"),
     pytest.param(dict(_MQA, poison=True), 0, "bfloat16", id="mqa-hd256"),
     pytest.param(_MQA, 24, "bfloat16", id="mqa-hd256-window"),
+    # granite-20b's 48 query heads over 1 KV head (head groups on the card)
+    pytest.param(dict(B=2, H=48, KV=1, hd=128, page=8, n_pages=4, pool_pages=12,
+                      pos=[5, 31]), 0, "float32", id="groups-48"),
 ]
 
 
@@ -189,6 +193,7 @@ DECODE_CASES = [
     pytest.param(dict(B=4, S=16, H=4, KV=1, hd=16, pos=[0, 5, 15, 15]), id="ring-16"),
     pytest.param(dict(B=8, S=64, H=4, KV=1, hd=256, pos=[0, 1, 15, 16, 31, 40, 62, 63]),
                  id="mqa-hd256"),
+    pytest.param(dict(B=2, S=512, H=48, KV=1, hd=128, pos=[40, 511]), id="groups-48"),
 ]
 
 
@@ -327,6 +332,42 @@ def test_scan_plain_with_initial_state_matches_jax_ops(reference, B, H, S, dk, d
         np.testing.assert_allclose(_np(st), _np(want_s), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,S,dk,dv,chunk,state", [
+    (2, 4, 64, 32, 32, 64, False),   # REDUCED xlstm's forward
+    (2, 4, 64, 32, 32, 64, True),    # its prefill carrying states
+    (3, 2, 1, 32, 32, 1, True),      # a decode step
+    (1, 2, 96, 16, 24, 32, True),    # dk != dv
+    (1, 1, 128, 32, 32, 64, False),  # a reference SCAN_SHAPE
+])
+def test_scan_plain_normaliser_matches_jax_two_calls(reference, B, H, S, dk, dv, chunk, state,
+                                                     dtype):
+    """The fused call (``normaliser=True``) on the CPU equals the reference's
+    two calls, with v and with v = ones (its mLSTM block), through its Pallas
+    wrapper and its oracle."""
+    q, k, v, la, s0 = _scan_inputs(5 * S + dk + dv, B, H, S, dk, dv, state=state)
+    n0 = (np.random.default_rng(S).standard_normal((B, H, dk, 1)).astype(np.float32)
+          if state else None)
+    (jq, tq), (jk, tk), (jv, tv) = _pair(q, dtype), _pair(k, dtype), _pair(v, dtype)
+    kw = dict(initial_state=torch.from_numpy(s0), initial_normaliser=torch.from_numpy(n0)) \
+        if state else {}
+    y, st, nrm, n = tops.gated_linear_scan(tq, tk, tv, torch.from_numpy(la), chunk=chunk,
+                                           normaliser=True, **kw)
+    assert nrm.dtype == TDT[dtype] and nrm.shape == (B, H, S, 1)
+    assert n.dtype == torch.float32 and n.shape == (B, H, dk, 1)
+    tol = SCAN_TOL[dtype]
+    jla = jnp.asarray(la)
+    jones = jnp.ones((B, H, S, 1), jq.dtype)
+    for impl in ("pallas", "ref"):
+        js0 = dict(initial_state=jnp.asarray(s0)) if state else {}
+        jn0 = dict(initial_state=jnp.asarray(n0)) if state else {}
+        want_y, want_s = jops.gated_linear_scan(jq, jk, jv, jla, chunk=chunk, impl=impl, **js0)
+        want_nrm, want_n = jops.gated_linear_scan(jq, jk, jones, jla, chunk=chunk, impl=impl,
+                                                  **jn0)
+        for got, want in ((y, want_y), (st, want_s), (nrm, want_nrm), (n, want_n)):
+            np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
 def test_scan_chunk_invariance_and_step_match_reference(reference):
     """The chunk is a tiling knob (the kernel ignores it); the chunkwise form
     equals the per-step recurrence, and the port's step equals the
@@ -383,6 +424,14 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     for got, want in zip(tops.gated_linear_scan(q, k, v, la, chunk=16, initial_state=s0),
                          tref.gated_linear_scan(q, k, v, la, chunk=16, initial_state=s0)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+    n0 = torch.ones((2, 2, 8, 1))
+    fused = tops.gated_linear_scan(q, k, v, la, chunk=16, initial_state=s0, normaliser=True,
+                                   initial_normaliser=n0)
+    ones = torch.ones((2, 2, 32, 1))
+    two_calls = (*tref.gated_linear_scan(q, k, v, la, chunk=16, initial_state=s0),
+                 *tref.gated_linear_scan(q, k, ones, la, chunk=16, initial_state=n0))
+    for got, want in zip(fused, two_calls, strict=True):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert tops.launch_counts() == {"flash_attention": 0, "paged_decode_attention": 0,
                                     "decode_attention": 0, "fused_linear": 0,
                                     "gated_linear_scan": 0}
@@ -418,6 +467,70 @@ def test_scan_wrapper_rejects_bad_inputs():
         tscan.gated_linear_scan(big, big, q[:1, :1, :2], torch.zeros((1, 1, 2)))
     with pytest.raises(ValueError, match="chunk"):
         tscan.gated_linear_scan(q, q, q, torch.zeros((1, 2, 5)), chunk=0)
+    with pytest.raises(ValueError, match="normaliser"):
+        tscan.gated_linear_scan(q, q, q, torch.zeros((1, 2, 5)),
+                                initial_normaliser=torch.zeros((1, 2, 8, 1)))
+    with pytest.raises(ValueError, match="normaliser"):
+        tops.gated_linear_scan(q, q, q, torch.zeros((1, 2, 5)),
+                               initial_normaliser=torch.zeros((1, 2, 8, 1)))
+
+
+def _strided(shape, dtype, layout):
+    """(B, H, S, d) operands as the paths hand them over: "heads", a view of
+    (B, S, H, d); "shared", one (B, 1, S, d) over the heads (Mamba2's C and
+    B); "odd-rows", a view of rows 4 bytes longer than d; "unaligned", one
+    element into a buffer."""
+    B, H, S, d = shape
+    if layout == "heads":
+        return torch.zeros((B, S, H, d), dtype=dtype).transpose(1, 2)
+    if layout == "shared":
+        return torch.zeros((B, 1, S, d), dtype=dtype).expand(B, H, S, d)
+    if layout == "odd-rows":
+        return torch.zeros((B, H, S, d + 2), dtype=dtype)[..., :d]
+    return torch.zeros(B * H * S * d + 8, dtype=dtype)[1:1 + B * H * S * d].view(B, H, S, d)
+
+
+@pytest.mark.parametrize("dtype,S,dk,dv,layout,want", [
+    ("bfloat16", 2048, 384, 384, "heads", "mma"),    # xlstm-125m's loss
+    ("bfloat16", 777, 384, 384, "heads", "mma"),     # a ragged prefill
+    ("bfloat16", 17, 384, 384, "heads", "mma"),
+    ("bfloat16", 16, 384, 384, "heads", "step"),     # 16 positions and fewer: the step kernel
+    ("bfloat16", 1, 384, 384, "heads", "step"),      # a decode tick
+    ("float32", 1, 384, 384, "heads", "step"),
+    ("bfloat16", 1024, 64, 224, "shared", "mma"),    # Mamba2's shared C and B
+    ("bfloat16", 64, 32, 32, "heads", "mma"),        # REDUCED widths in bf16
+    ("float32", 2048, 384, 384, "heads", "simt"),    # fp32 keeps exact FMA
+    ("float32", 45, 32, 32, "heads", "simt"),        # REDUCED xlstm
+    ("bfloat16", 777, 384, 1, "heads", "simt"),      # the normaliser alone: dv = 1
+    ("bfloat16", 256, 512, 64, "heads", "simt"),     # dk past the state the registers hold
+    ("bfloat16", 256, 36, 64, "heads", "simt"),      # dk not a multiple of 8
+    ("bfloat16", 256, 64, 64, "odd-rows", "simt"),   # rows not 16-byte strided
+    ("bfloat16", 256, 64, 64, "unaligned", "simt"),  # not 16-byte aligned
+])
+def test_scan_variant_rule(dtype, S, dk, dv, layout, want):
+    """Which kernel a scan launches: the step kernel for 16 positions or
+    fewer; the tensor-core kernel for bf16 with dk <= 384 and 16-byte rows;
+    exact FMA for the rest."""
+    q = _strided((2, 4, S, dk), TDT[dtype], layout)
+    v = _strided((2, 4, S, dv), TDT[dtype], "heads" if layout == "shared" else layout)
+    assert tscan.variant(q, q, v) == want
+    if dtype == "bfloat16" and S > tscan.STEP_MAX_S:  # the layout alone decides
+        assert (tscan.mma_layout_error(q, q, v) is None) == (want == "mma")
+
+
+@pytest.mark.parametrize("B,H,columns,sms,want", [
+    (4, 4, 385, H100_SMS, 64),   # the loss shape with its normaliser: 112 blocks
+    (4, 4, 384, H100_SMS, 64),
+    (1, 4, 385, H100_SMS, 16),   # a B=1 prefill: 100 blocks of 16 columns
+    (2, 4, 385, H100_SMS, 32),   # 104 blocks of 32 columns
+    (1, 32, 224, H100_SMS, 64),  # Mamba2: 128 blocks
+    (8, 4, 385, H100_SMS, 64),   # no tile fits one wave: the fewest blocks
+    (1, 4, 385, 64, 32),
+])
+def test_scan_tile_rule(B, H, columns, sms, want):
+    """The tensor-core kernel's tile: the narrowest whose grid fits one wave
+    of the card's SMs, else the widest."""
+    assert tscan.tile_columns(B, H, columns, sms) == want
 
 
 def test_flash_wrapper_rejects_unsupported_head_dim():
@@ -436,8 +549,6 @@ def _unaligned(shape, dtype):
     n = math.prod(shape)
     return torch.zeros(n + 8, dtype=dtype)[1:n + 1].view(shape)
 
-
-H100_SMS = 132
 
 
 @pytest.mark.parametrize("dtype,M,K,N,layout,sms,want", [
@@ -525,6 +636,25 @@ def test_decode_cluster_size_rule_follows_the_cap(monkeypatch):
     assert tcore.cluster_size(q, torch.empty((8, 1088, 1, 256), dtype=torch.bfloat16)) == 16
 
 
+@pytest.mark.parametrize("groups,n_groups,per_block", [
+    (1, 1, 1), (4, 1, 4), (8, 1, 8),   # one group: the launch of 8 heads or fewer
+    (9, 2, 5), (12, 2, 6), (16, 2, 8), (48, 6, 8), (50, 7, 8),
+])
+def test_decode_head_groups_rule(monkeypatch, groups, n_groups, per_block):
+    """More query heads a KV head than a block holds split into groups of at
+    most 8 (the last may hold fewer), a grid axis; the cluster size counts
+    the (slot, KV head, group) units."""
+    assert tcore.head_groups(groups) == n_groups
+    assert tcore.block_group(groups) == per_block
+    assert per_block * (n_groups - 1) < groups <= per_block * n_groups
+    monkeypatch.setattr(tbuild, "sm_count", lambda device: H100_SMS)
+    q = torch.empty((8, groups, 128), dtype=torch.bfloat16)
+    k = torch.empty((8, 64, 1, 128), dtype=torch.bfloat16)
+    units = 8 * n_groups
+    want = next(c for c in (1, 2, 4, 8) if c == 8 or units * c >= H100_SMS)
+    assert tcore.cluster_size(q, k) == want
+
+
 @pytest.mark.parametrize("dtype,H,KV,hd,layout,want", [
     ("bfloat16", 4, 1, 256, "aligned", None),     # gemma3-1b at full width
     ("float32", 4, 1, 256, "aligned", None),
@@ -534,8 +664,9 @@ def test_decode_cluster_size_rule_follows_the_cap(monkeypatch):
     ("bfloat16", 8, 2, 112, "aligned", None),     # a head_dim between the powers of two
     ("bfloat16", 6, 1, 8, "aligned", None),       # one 16-byte load a row
     ("float32", 4, 4, 36, "aligned", None),
-    ("bfloat16", 16, 1, 64, "aligned", "16 query heads per KV head"),
-    ("bfloat16", 48, 1, 128, "aligned", "48 query heads per KV head"),
+    ("bfloat16", 16, 1, 64, "aligned", None),     # head groups: two of 8
+    ("bfloat16", 48, 1, 128, "aligned", None),    # granite-20b: six groups of 8
+    ("float32", 12, 1, 128, "aligned", None),     # two groups of 6
     ("bfloat16", 4, 1, 512, "aligned", "head_dim 512"),
     ("bfloat16", 4, 1, 100, "aligned", "head_dim 100 of 2-byte elements"),
     ("float32", 4, 1, 18, "aligned", "head_dim 18 of 4-byte elements"),
@@ -587,6 +718,7 @@ def test_variant_counts_start_at_zero_and_reset():
         "paged_decode_attention": {"simt": 0, "mma": 0},
         "decode_attention": {"simt": 0, "mma": 0},
         "fused_linear": {"simt": 0, "simt_tiled": 0, "wgmma": 0},
+        "gated_linear_scan": {"simt": 0, "mma": 0, "step": 0},
     }
 
 
@@ -691,8 +823,13 @@ def test_decode_kernel_variants_match_plain_on_card(cuda, case, kind):
     dict(B=8, S=1088, H=4, KV=1, hd=256, pos=[63, 64, 127, 128, 7, 8, 1023, 1024]),
     dict(B=3, S=64, H=4, KV=1, hd=256, pos=[0, 1, 2]),
     dict(B=4, S=300, H=8, KV=1, hd=128, pos=[299, 0, 150, 77]),
+    # more query heads a KV head than a block holds: head groups of 6 and 8
+    dict(B=8, S=1088, H=12, KV=1, hd=128, pos=[0, 15, 16, 100, 511, 512, 777, 1087]),
+    dict(B=8, S=1088, H=48, KV=1, hd=128, pos=[0, 15, 16, 100, 511, 512, 777, 1087]),
+    dict(B=3, S=300, H=24, KV=2, hd=128, pos=[299, 0, 150]),
 ], ids=["global-1088", "ring-512", "gqa-ragged-300", "poison", "reduced-ring-16", "long-8192",
-        "share-boundaries", "fewer-positions-than-blocks", "groups-8-hd128"])
+        "share-boundaries", "fewer-positions-than-blocks", "groups-8-hd128", "groups-12-hd128",
+        "groups-48-hd128", "groups-12-kv2-hd128"])
 def test_decode_kernel_matches_plain_on_card(cuda, case, dtype):
     q, kc, vc, pos = _decode_on_card(cuda, dtype, **case)
     before = tdecode.launches
@@ -721,8 +858,12 @@ def test_decode_kernel_matches_plain_on_card(cuda, case, dtype):
           pos=[299, 0, 150, 77]), 100),
     (dict(B=4, H=8, KV=2, hd=128, page=16, n_pages=20, pool_pages=81,
           pos=[299, 0, 150, 77]), 0),
+    (dict(B=4, H=12, KV=1, hd=128, page=16, n_pages=20, pool_pages=81,
+          pos=[299, 0, 150, 77]), 0),
+    (dict(B=4, H=48, KV=1, hd=128, page=16, n_pages=20, pool_pages=81,
+          pos=[299, 0, 150, 77]), 100),
 ], ids=["long-8192", "long-8192-window", "share-boundaries", "fewer-positions-than-blocks",
-        "groups-8-hd128-window", "gqa-kv2-hd128"])
+        "groups-8-hd128-window", "gqa-kv2-hd128", "groups-12-hd128", "groups-48-hd128-window"])
 def test_paged_kernel_edge_cases_on_card(cuda, case, window, dtype):
     q, kp, vp, table, pos = (torch.from_numpy(a).to(cuda) for a in _pool_case(
         8, poison=True, **case))
@@ -881,20 +1022,39 @@ def _scan_on_card(cuda, dtype, *, B, H, S, dk, dv, state=False, layout="heads", 
     dict(B=1, H=32, S=300, dk=64, dv=224, layout="shared"),        # Mamba2: dk != dv
     dict(B=2, H=4, S=45, dk=32, dv=32, state=True),                # REDUCED widths
     dict(B=2, H=2, S=512, dk=32, dv=16),                           # a reference SCAN_SHAPE
+    # y and the normaliser in one launch (the mLSTM's call)
+    dict(B=1, H=4, S=777, dk=384, dv=384, norm=True),
+    dict(B=1, H=4, S=777, dk=384, dv=384, state=True, norm=True),
+    dict(B=8, H=4, S=1, dk=384, dv=384, state=True, norm=True),
+    dict(B=2, H=4, S=45, dk=32, dv=32, state=True, norm=True),
+    dict(B=2, H=4, S=300, dk=384, dv=384, norm=True),              # 32-column tiles
+    dict(B=4, H=4, S=2048, dk=384, dv=384, norm=True),             # the loss shape
 ], ids=["ragged-777", "ragged-777-state", "normaliser", "decode", "decode-normaliser",
-        "mamba2-shared-qk", "reduced", "ref-2x2x512x32x16"])
+        "mamba2-shared-qk", "reduced", "ref-2x2x512x32x16", "fused-ragged-777",
+        "fused-ragged-777-state", "fused-decode", "fused-reduced", "fused-300-b2", "fused-loss"])
 def test_scan_kernel_matches_plain_on_card(cuda, case, dtype):
     """Against the plain version at a chunk of at most 16 positions: its fp32
     cumulated decay over the path's chunk of 128 alone exceeds the fp32
-    tolerance at dk = 384 (the kernel ignores the chunk)."""
+    tolerance at dk = 384 (the kernels ignore the chunk). With ``norm``, the
+    one launch against the plain version's two calls."""
+    case = dict(case)
+    norm = case.pop("norm", False)
     q, k, v, la, s0 = _scan_on_card(cuda, dtype, **case)
     chunk = math.gcd(case["S"], 16)
     before = tscan.launches
-    y, st = tops.gated_linear_scan(q, k, v, la, chunk=chunk, initial_state=s0)
-    want_y, want_s = tref.gated_linear_scan(q, k, v, la, chunk=chunk, initial_state=s0)
+    if norm:
+        n0 = None if s0 is None else torch.ones(s0.shape[:3] + (1,), device=cuda)
+        got = tops.gated_linear_scan(q, k, v, la, chunk=chunk, initial_state=s0,
+                                     normaliser=True, initial_normaliser=n0)
+        want = tref.gated_linear_scan_normalised(q, k, v, la, chunk=chunk, initial_state=s0,
+                                                 initial_normaliser=n0)
+    else:
+        got = tops.gated_linear_scan(q, k, v, la, chunk=chunk, initial_state=s0)
+        want = tref.gated_linear_scan(q, k, v, la, chunk=chunk, initial_state=s0)
     torch.cuda.synchronize()
     assert tscan.launches == before + 1
-    assert y.dtype == TDT[dtype] and st.dtype == torch.float32
     tol = SCAN_TOL[dtype]
-    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(st, want_s, rtol=tol, atol=tol)
+    out_dtypes = (TDT[dtype], torch.float32) * (len(want) // 2)  # y, state[, nrm, n]
+    for x, want_x, out_dtype in zip(got, want, out_dtypes, strict=True):
+        assert x.dtype == out_dtype and x.shape == want_x.shape
+        torch.testing.assert_close(x.float(), want_x.float(), rtol=tol, atol=tol)

@@ -27,7 +27,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.core.runtime import Runtime as JaxRuntime  # noqa: E402
 from repro.models import build as jax_build  # noqa: E402
+from repro.models import ssm as jssm  # noqa: E402
 from repro.models import xlstm_model as jxm  # noqa: E402
 from repro.serve.engine import ServeEngine as JaxServeEngine  # noqa: E402
 from repro.serve.scheduler import ContinuousBatchingScheduler as JaxScheduler  # noqa: E402
@@ -35,7 +37,9 @@ from repro.serve.scheduler import Request as JaxRequest  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.runtime import Runtime  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.backends import hostcpu  # noqa: E402
 from repro_torch.models import build  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models import xlstm_model as txm  # noqa: E402
 from repro_torch.models.bridge import params_from_jax  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -151,6 +155,54 @@ def test_forward_and_loss_match_reference(bundle, use_pallas):
     np.testing.assert_allclose(float(metrics["ce_loss"]), float(want_metrics["ce_loss"]),
                                rtol=LOSS_TOL, atol=LOSS_TOL)
     assert float(aux) == 0.0 and float(metrics["moe_aux"]) == 0.0
+
+
+@pytest.mark.parametrize("S,state", [(64, False), (45, True), (1, True)],
+                         ids=["forward", "prefill-carried-state", "decode-step"])
+def test_mlstm_block_one_scan_call_matches_reference(bundle, monkeypatch, S, state):
+    """The port's mLSTM block makes one scan call (y and the normaliser
+    together) where the reference makes two; block output and both states
+    equal the reference block's."""
+    cfg, (jcfg, _, jparams), (_, tparams) = bundle
+    i = txm.block_kinds(cfg).index("mlstm")
+    rng = np.random.default_rng(S)
+    x = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    hd = cfg.ssm_expand * cfg.d_model // cfg.num_heads
+    st = None
+    if state:
+        st = {"S": 0.1 * rng.standard_normal((2, cfg.num_heads, hd, hd)).astype(np.float32),
+              "n": rng.standard_normal((2, cfg.num_heads, hd, 1)).astype(np.float32)}
+    calls = []
+    real = ops.gated_linear_scan
+    monkeypatch.setattr(ops, "gated_linear_scan",
+                        lambda *a, **kw: calls.append(kw.get("normaliser")) or real(*a, **kw))
+    got, got_st = tssm.mlstm_forward(cfg, tparams["blocks"][i], torch.from_numpy(x),
+                                     state=None if st is None else
+                                     {k: torch.from_numpy(v) for k, v in st.items()})
+    assert calls == [True]
+    want, want_st = jssm.mlstm_forward(jcfg, jparams["blocks"][i], jnp.asarray(x),
+                                       state=None if st is None else
+                                       {k: jnp.asarray(v) for k, v in st.items()})
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=LOSS_TOL,
+                               atol=LOSS_TOL * np.abs(want).max())
+    for key in ("S", "n"):
+        w = np.asarray(want_st[key])
+        np.testing.assert_allclose(got_st[key].numpy(), w, rtol=LOSS_TOL,
+                                   atol=LOSS_TOL * max(np.abs(w).max(), 1.0))
+
+
+def test_bare_runtime_builds_the_hostcpu_managers_as_the_reference():
+    """`Runtime()` names the reference's default backend, `hostcpu`; the
+    port's serving entry points name `torchdev` themselves."""
+    with Runtime() as rt, JaxRuntime() as jrt:
+        assert rt.backend == jrt.backend == "hostcpu"
+        assert isinstance(rt.compute_manager, hostcpu.HostComputeManager)
+        assert isinstance(rt.memory_manager, hostcpu.HostMemoryManager)
+        assert isinstance(rt.communication_manager, hostcpu.HostCommunicationManager)
+        assert isinstance(rt.instance_manager, hostcpu.HostInstanceManager)
+        assert isinstance(rt.managers.topology_managers[0], hostcpu.HostTopologyManager)
+        assert type(rt.compute_manager).__name__ == type(jrt.compute_manager).__name__
 
 
 def test_transformer_loss_is_not_ported_yet():
