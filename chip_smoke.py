@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Drives the port's paths -- full-width gemma3-1b served by the paged and by
-the dense continuous-batching scheduler and by the serial engine, the
-paper's Test Case 2 (heterogeneous inference), and full-width xlstm-125m
-served by the dense scheduler and the serial engine and through its
-forward/loss -- and fails (non-zero exit) if any phase fails. It imports
+the dense continuous-batching scheduler, by the serial engine and by the
+paged scheduler with the prefix cache, the paper's Test Case 2
+(heterogeneous inference), full-width xlstm-125m served by the dense
+scheduler and the serial engine and through its forward/loss, and
+full-width zamba2-7b served by the dense scheduler and the serial engine --
+and fails (non-zero exit) if any phase fails. It imports
 nothing of JAX or of the JAX package. Phases:
 
 1. device: the card from `nvidia-smi` (name, power limit);
@@ -37,7 +39,12 @@ nothing of JAX or of the JAX package. Phases:
    one launch) and unfused at every case, each case on the variant its rule
    names and the checked shapes covering the tensor-core variant's three
    tile widths, timed at every path shape against a bound built from the
-   work itself, and its kernels' `-Xptxas -v` lines printed;
+   work itself, and its kernels' `-Xptxas -v` lines printed; zamba2-7b's
+   shapes: flash's simt kernel at head_dim 112 (and 160, G=4) and the decode
+   core's simt walk at 32 heads of 112, both beside SDPA, the scan at
+   Mamba2's tick and ragged prefill with the operands laid out as
+   `mamba_forward` makes them; the paged kernel with window 512 through the
+   full table (the prefix cache's local layers);
 4. reduced: REDUCED gemma3-1b in fp32 (TF32 off): prefill plus 16
    teacher-forced paged decode ticks on the card against the same functions
    on the CPU;
@@ -72,12 +79,34 @@ nothing of JAX or of the JAX package. Phases:
    kernel;
 12. loss-xlstm: full-width `ModelBundle.loss` on 4 x 2048 seeded tokens:
    finite, near ln(vocab) for random weights, exactly 9 scan launches (one
-   per mLSTM block), all on the tensor-core variant.
+   per mLSTM block), all on the tensor-core variant;
+13. reduced-prefix: REDUCED gemma3-1b in fp32 with the prefix cache
+   (shared system prompts served one by one, a resumed conversation): the
+   same tokens with the cache on and off and on the card and the CPU, equal
+   cache stats, hits, every page back (used = cached after the drain, 0
+   after `reset`);
+14. serve-prefix: full gemma3-1b paged with the prefix cache (the shared
+   layout: local layers through the full table, the window a mask):
+   16 requests of `shared_prefix_requests` (a 512-token system prompt
+   shared by 75 %) after a warm request pinning it, with the cache and
+   without, then 4 conversations x 3 turns resumed with `resume_prompt`;
+   tok/s, TTFT split by shared (-s) and unique (-u), token hit rate (> 0),
+   pages back, agreement with the cache-off tokens (reported: bf16);
+15. reduced-zamba2: REDUCED zamba2-7b in fp32 on the card against the CPU:
+   prefill plus 16 teacher-forced ticks (within 1e-4), a dense serve and a
+   serial `generate` (equal tokens);
+16. serve-zamba2: full zamba2-7b (81 Mamba2 layers, the shared attention
+   block after every 6, d_model 3584, 32 heads of 112, bf16, seeded) serves
+   phase 5's 16 requests through the dense scheduler (max_len 1088), then
+   the serial engine (8 x 512, 32 steps): flash and the decode kernel on
+   their simt variants (hd 112) once per group, the scan once per layer
+   (prefills `mma`, ticks `step`), peak memory.
 
 Each path's launch counts are zeroed just before it runs and read just
 after. The line before the last is one JSON object with every kernel's
-numbers; the last line is the device JSON. Needs one card; the first run on
-a fresh checkout builds the kernels (seconds).
+numbers (its launches summed over the paths, and by path); the last line is
+the device JSON. Needs one card; the first run on a fresh checkout builds the
+kernels.
 """
 from __future__ import annotations
 
@@ -280,6 +309,16 @@ def check_flash(torch, gen) -> dict:
         dict(Sq=50, Skv=20, H=2, KV=1, hd=64, dtype=torch.bfloat16, window=8),  # rows with no key
         dict(Sq=64, Skv=300, H=4, KV=1, hd=128, dtype=torch.bfloat16, q_offset=236, prefix_len=250),
     ]
+    # head dims between the tensor-core ones, on the simt kernel: zamba2-7b's
+    # shared block (32 heads over 32, head_dim 112) at its prefill shape and
+    # ragged; stablelm-12b's head_dim 160 with 4 query heads a KV head
+    cases += [
+        dict(Sq=1024, Skv=1024, H=32, KV=32, hd=112, dtype=torch.bfloat16),
+        dict(Sq=777, Skv=777, H=32, KV=32, hd=112, dtype=torch.float32),
+        dict(B=2, Sq=77, Skv=77, H=32, KV=32, hd=112, dtype=torch.bfloat16),
+        dict(Sq=1024, Skv=1024, H=32, KV=8, hd=160, dtype=torch.bfloat16),
+        dict(Sq=300, Skv=300, H=8, KV=2, hd=160, dtype=torch.float32, window=64),
+    ]
     # the serial engine's prefill, 8 prompts of 512 tokens: a grid over a wave,
     # so two consumer warpgroups a block
     serial = [dict(B=8, Sq=512, Skv=512, H=4, KV=1, hd=256, dtype=torch.bfloat16, window=w)
@@ -353,6 +392,12 @@ def check_flash(torch, gen) -> dict:
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * elem
     flops = 4 * hd * H * pairs
     b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+    # the simt kernel at the head dims the tensor-core variant does not take:
+    # zamba2-7b's prefill (B=1, 1024 tokens, 32 heads over 32, hd 112) and
+    # stablelm-12b's hd 160 (32 over 8), each beside SDPA
+    simt_timings = [_flash_timing(torch, gen, label, **shape) for label, shape in (
+        ("zamba2-7b prefill", dict(Sq=1024, H=32, KV=32, hd=112)),
+        ("hd 160, G=4", dict(Sq=1024, H=32, KV=8, hd=160)))]
     log(f"[kernels] flash_attention timing B=1 Sq=Skv={Sq} H={H} KV={KV} hd={hd} bf16 causal "
         f"({kind}): kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms "
         f"(sdpa max_abs_err vs plain {lib_err:.3e}); device time per call: kernel "
@@ -384,8 +429,39 @@ def check_flash(torch, gen) -> dict:
         "other_timings": [
             {"shape": "B=1 Sq=Skv=1024 window=512", "ms": t_kernel_w, "device_ms": d_kernel_w},
             {"shape": "B=8 Sq=Skv=512 causal", "device_ms": d_serial},
-            {"shape": "B=4 Sq=Skv=512 causal", "device_ms": d_half}],
+            {"shape": "B=4 Sq=Skv=512 causal", "device_ms": d_half}] + simt_timings,
     }
+
+
+def _flash_timing(torch, gen, label, *, Sq, H, KV, hd) -> dict:
+    """Device times of flash (bf16, B=1, causal, Sq = Skv), its plain version
+    and SDPA at one shape, with the bound."""
+    from repro_torch.kernels import flash_attention, ref
+
+    (q, k, v, kw), _, want = _flash_case(torch, gen, Sq=Sq, Skv=Sq, H=H, KV=KV, hd=hd,
+                                         dtype=torch.bfloat16)
+    kind = launched_variant(flash_attention,
+                            lambda: flash_attention.flash_attention(q, k, v, **kw))
+    d_kernel = device_ms(torch, lambda: flash_attention.flash_attention(q, k, v, **kw))
+    d_plain = device_ms(torch, lambda: ref.attention(q, k, v, **kw), iters=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    d_lib = device_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    lib_err = float((sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2).float()
+                     - want.float()).abs().max())
+    pairs = Sq * (Sq + 1) // 2
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * hd * H * pairs
+    b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+    shape = f"{label}: B=1 Sq=Skv={Sq} H={H} KV={KV} hd={hd} bf16 causal ({kind})"
+    log(f"[kernels] flash_attention timing {shape}: device time per call: kernel "
+        f"{d_kernel:.4f} ms, plain {d_plain:.4f} ms, sdpa {d_lib:.4f} ms (sdpa max_abs_err vs "
+        f"plain {lib_err:.3e}); bound {max(b_bytes, b_ops) * 1e3:.2f} us ({n_bytes} B, "
+        f"{flops} FLOP); {flops / (d_kernel * 1e-3) / 1e12:.2f} TFLOP/s on the device time")
+    return dict(shape=shape, variant=kind, device_ms=d_kernel, plain_device_ms=d_plain,
+                library_device_ms=d_lib, bound_ms=max(b_bytes, b_ops),
+                bound_by="bytes" if b_bytes >= b_ops else "operations",
+                tflops=flops / (d_kernel * 1e-3) / 1e12)
 
 
 def decode_ptxas(rows: str, dtype, hd: int, groups: int, kind: str) -> str:
@@ -513,6 +589,16 @@ def check_paged(torch, gen) -> dict:
         f"with the pools cold in L2 {d_cold:.4f} ms; variant {kind}, cluster of {cluster} blocks "
         f"per (slot, KV head); bound {max(b_bytes, b_ops) * 1e3:.2f} us ({n_bytes} B, {flops} FLOP); "
         f"{flops / (d_kernel * 1e-3) / 1e12:.3f} TFLOP/s on the device time")
+    # the prefix cache's shared layout: local layers page through the full
+    # table with the window as a mask (22 of gemma3's 26 layers)
+    d_window = device_ms(torch, lambda: paged_decode_attention.paged_decode_attention(
+        q, kp, vp, tbl, pos, window=512))
+    n_window = sum(min(p + 1, 512) for p in uneven)
+    w_bytes = 2 * q.numel() * elem + 2 * n_window * KV * hd * elem + tbl.numel() * 4 + B * 4
+    w_bound = max(w_bytes / PEAK_BYTES_PER_S, 4 * H * hd * n_window / PEAK_FLOPS["bfloat16"]) * 1e3
+    log(f"[kernels] paged_decode_attention timing, window 512 through the full table (the "
+        f"prefix cache's local layers; {n_window} positions in the windows): device "
+        f"{d_window:.4f} ms; bound {w_bound * 1e3:.3f} us")
     for k in ("mma", "simt"):
         log(f"[kernels] paged_decode_attention ptxas: "
             f"{decode_ptxas('PagedRows', q.dtype, hd, H // KV, k)}")
@@ -538,6 +624,8 @@ def check_paged(torch, gen) -> dict:
         "cluster": cluster,
         "variant": kind,
         "timed_shape": f"B={B} H={H} KV={KV} hd={hd} page=16 n_pages=68 bf16 window=0",
+        "other_timings": [{"shape": "the same, window=512 through the full table",
+                           "device_ms": d_window, "bound_ms": w_bound}],
     }
 
 
@@ -573,6 +661,9 @@ def check_decode(torch, gen) -> dict:
             # 12 and 48 query heads a KV head: head groups of 6 and 8
             dict(pos=uneven, dtype=dtype, H=12, hd=128),
             dict(pos=uneven, dtype=dtype, H=48, hd=128),
+            # zamba2-7b's shared block: 32 heads over 32, head_dim 112 (224-byte
+            # bf16 rows, 14 loads of 16 B), on the simt walk
+            dict(pos=uneven, dtype=dtype, H=32, KV=32, hd=112),
         ]
     worst, worst_tol = 0.0, None
     for case in cases:
@@ -643,6 +734,7 @@ def check_decode(torch, gen) -> dict:
 
     d16, d16_paged = timed_with("MAX_CLUSTER", 16)
     d_simt, d_simt_paged = timed_with("variant", lambda q_, k_: "simt")
+    zamba2 = _decode_timing(torch, gen, uneven)
     n_valid = sum(p + 1 for p in uneven)
     elem = q.element_size()
     n_bytes = 2 * q.numel() * elem + 2 * n_valid * KV * hd * elem + B * 4
@@ -689,7 +781,44 @@ def check_decode(torch, gen) -> dict:
         "variant": kind,
         "paged_same_positions_device_ms": d_paged,
         "timed_shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16, {n_valid} valid positions",
+        "other_timings": [zamba2],
     }
+
+
+def _decode_timing(torch, gen, pos) -> dict:
+    """The dense kernel at zamba2-7b's decode shape (8 slots, 1088-deep
+    caches, 32 heads over 32, head_dim 112, bf16: the simt walk) beside its
+    plain version and SDPA, with the bound."""
+    from repro_torch.kernels import decode_attention, decode_core, ref
+
+    q, k, v, pos_t = _decode_case(torch, gen, pos=pos, dtype=torch.bfloat16, H=32, KV=32, hd=112)
+    kind = decode_core.variant(q, k)
+    require(kind == "simt", f"decode_attention at hd 112 ran {kind}, expected simt")
+    d_kernel = device_ms(torch, lambda: decode_attention.decode_attention(q, k, v, pos_t))
+    d_plain = device_ms(torch, lambda: ref.decode_attention(q, k, v, pos_t))
+    d_cold = cold_device_ms(
+        torch, lambda k_, v_: decode_attention.decode_attention(q, k_, v_, pos_t), (k, v),
+        k.nbytes + v.nbytes)
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qt, kt, vt = q[:, :, None, :], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device="cuda")[None, :] <= pos_t[:, None].long())[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    d_lib = device_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    n_valid = sum(p + 1 for p in pos)
+    elem = q.element_size()
+    n_bytes = 2 * q.numel() * elem + 2 * n_valid * KV * hd * elem + B * 4
+    flops = 4 * H * hd * n_valid
+    b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+    shape = (f"zamba2-7b decode: B={B} S={S} H={H} KV={KV} hd={hd} bf16, {n_valid} valid "
+             f"positions ({kind}, cluster of {decode_core.cluster_size(q, k)})")
+    log(f"[kernels] decode_attention timing {shape}: device time per call: kernel "
+        f"{d_kernel:.4f} ms, plain {d_plain:.4f} ms, sdpa {d_lib:.4f} ms; kernel with the "
+        f"caches cold in L2 {d_cold:.4f} ms; bound {max(b_bytes, b_ops) * 1e3:.3f} us "
+        f"({n_bytes} B, {flops} FLOP)")
+    return dict(shape=shape, variant=kind, device_ms=d_kernel, plain_device_ms=d_plain,
+                cold_device_ms=d_cold, library_device_ms=d_lib, bound_ms=max(b_bytes, b_ops),
+                bound_by="bytes" if b_bytes >= b_ops else "operations")
 
 
 def _linear_bound_ms(M, K, N, elem, dtype_name) -> tuple:
@@ -811,13 +940,35 @@ def scan_check_chunk(S: int) -> int:
 
 
 def _scan_case(torch, gen, *, B, H, S, dk, dv, dtype, init=False, shared_qk=False,
-               norm=False, **_):
+               norm=False, mamba=False, **_):
     """Scan inputs laid out as the model paths hand them over: q, k, v are
     head-split views of (B, S, H, d) projections and log_a a view of a
     (B, S, H) gate (the mLSTM), or q and k one (B, S, dk) tensor broadcast
-    over the heads (`shared_qk`: Mamba2's C and B). Scales follow
-    `tests/test_kernels.py::TestGatedLinearScan`. Returns (q, k, v, log_a,
-    keyword arguments of the call: initial states, the normaliser)."""
+    over the heads (`shared_qk`), or, with `mamba`, exactly as
+    `models/ssm.py::mamba_forward` makes them: q the C slice of an xBC
+    projection broadcast over the heads (stride 0), k = B * dt per head, v
+    the x slice split into heads, log_a = dt * A transposed. Scales follow
+    `tests/test_kernels.py::TestGatedLinearScan`. `init`: False, True (a
+    random carried state) or "zeros" (the zero state a prefill carries).
+    Returns (q, k, v, log_a, keyword arguments of the call: initial states,
+    the normaliser)."""
+    if mamba:
+        xbc = 0.5 * torch.randn((B, S, H * dv + 2 * dk), generator=gen, device="cuda")
+        x_ssm, b_mat, c_mat = torch.split(xbc.to(dtype), [H * dv, dk, dk], dim=-1)
+        dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device="cuda"))
+        a = -torch.rand((H,), generator=gen, device="cuda") - 0.5
+        q = c_mat[:, None].expand(B, H, S, dk)
+        k = (b_mat[:, None] * dt.transpose(1, 2)[..., None]).to(dtype)
+        v = x_ssm.reshape(B, S, H, dv).transpose(1, 2)
+        log_a = (dt * a).transpose(1, 2)
+    kw = {}
+    if init:
+        kw["initial_state"] = (torch.zeros((B, H, dk, dv), device="cuda") if init == "zeros"
+                               else 0.5 * torch.randn((B, H, dk, dv), generator=gen,
+                                                      device="cuda"))
+    if mamba:
+        return q, k, v, log_a, kw
+
     def heads(d, shared=False):
         if shared:
             x = 0.5 * torch.randn((B, 1, S, d), generator=gen, device="cuda")
@@ -828,9 +979,6 @@ def _scan_case(torch, gen, *, B, H, S, dk, dv, dtype, init=False, shared_qk=Fals
     q, k, v = heads(dk, shared_qk), heads(dk, shared_qk), heads(dv)
     log_a = -torch.nn.functional.softplus(
         torch.randn((B, S, H), generator=gen, device="cuda")).transpose(1, 2)
-    kw = {}
-    if init:
-        kw["initial_state"] = 0.5 * torch.randn((B, H, dk, dv), generator=gen, device="cuda")
     if norm:
         kw["normaliser"] = True
         if init:
@@ -927,6 +1075,17 @@ def check_scan(torch, gen) -> dict:
         dict(xl, tag="step-16", B=2, S=16, dtype=bf16, init=True, norm=True, want="step"),
         dict(xl, tag="mma-17", B=2, S=17, dtype=bf16, init=True, norm=True, want="mma"),
         dict(mamba2, tag="mamba2", B=1, dtype=bf16, want="mma"),
+        # zamba2-7b's Mamba2 layers, operands laid out as `mamba_forward`
+        # makes them: a decode tick of 8 slots carrying the state, and a
+        # ragged prefill from the zero state
+        dict(mamba2, tag="mamba2-tick", B=8, S=1, dtype=bf16, init=True, mamba=True,
+             want="step"),
+        dict(mamba2, tag="mamba2-prefill-777", B=1, S=777, dtype=bf16, init="zeros",
+             mamba=True, want="mma"),
+        dict(mamba2, tag="mamba2-prefill-45-state", B=2, S=45, dtype=bf16, init=True,
+             mamba=True, want="mma"),
+        dict(mamba2, tag="fp32-mamba2-tick", B=8, S=1, dtype=fp32, init=True, mamba=True,
+             want="step"),
         dict(xl, tag="fp32-512", B=2, S=512, dtype=fp32, norm=True, want="simt"),
         dict(xl, tag="fp32-777-state", B=1, S=777, dtype=fp32, init=True, norm=True,
              want="simt"),
@@ -990,6 +1149,8 @@ def check_scan(torch, gen) -> dict:
         d_plain = device_ms(torch, plain, iters=iters)
         ins = (q, k, v, log_a)
         nbytes = sum(t.untyped_storage().nbytes() for t in ins)
+        # (a clone of a broadcast or strided view is contiguous: Mamba2's
+        # cold copies hold q per head, a few more bytes than the path reads)
         d_cold = cold_device_ms(torch, kern, ins, nbytes)
         name = str(case["dtype"]).split(".")[-1]
         B, H, S, dk, dv = (case[x] for x in ("B", "H", "S", "dk", "dv"))
@@ -1024,8 +1185,8 @@ def check_scan(torch, gen) -> dict:
     main = timings(by_tag["loss"], iters=10)
     other = [timings(by_tag[tag], iters) for tag, iters in (
         ("loss-y-only", 10), ("prefill-777", 10), ("prefill-777-state", 10),
-        ("serial-prefill", 10), ("decode", 50), ("mamba2", 20), ("fp32-512", 10),
-        ("fp32-decode", 50))]
+        ("serial-prefill", 10), ("decode", 50), ("mamba2", 20), ("mamba2-tick", 50),
+        ("mamba2-prefill-777", 20), ("fp32-512", 10), ("fp32-decode", 50))]
     log("[kernels] gated_linear_scan ptxas: " + scan_ptxas())
     return {
         "name": "gated_linear_scan",
@@ -1781,6 +1942,506 @@ def phase_loss_xlstm(torch) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 13. REDUCED gemma3 with the prefix cache, on the card and on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _serve_one_by_one(sched, requests):
+    """Serve `requests` one after another (later shared prompts then hit
+    what earlier ones donated). Returns {rid: tokens}."""
+    out = {}
+    for r in requests:
+        out.update({rid: fin.tokens for rid, fin in sched.serve([r]).items()})
+    return out
+
+
+def phase_reduced_prefix(torch) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
+    from repro_torch.serve.workload import (multi_turn_requests, resume_prompt,
+                                            shared_prefix_requests)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("gemma3-1b", reduced=True)
+    model = build(cfg)
+    params_cpu = model.init(seed=0, device="cpu")
+    params_card = _to_device(params_cpu, "cuda")
+    requests = shared_prefix_requests(cfg.vocab_size, 8, prefix_len=20, prefix_share=0.75,
+                                      tail_range=(1, 6), steps_range=(4, 12), seed=7)
+    [[turn1, turn2]] = multi_turn_requests(cfg.vocab_size, 1, 2, first_prompt_range=(8, 9),
+                                           followup_range=(3, 4), steps_range=(9, 10), seed=4)
+    kw = dict(kv_mode="paged", max_batch=2, max_len=64, page_size=8, sync_interval=3)
+    tokens, stats, launches = {}, {}, {}
+    for device, params in (("cuda", params_card), ("cpu", params_cpu)):
+        with Runtime("torchdev", device=device) as rt:
+            for cache in (True, False):
+                sched = ContinuousBatchingScheduler(model, params, runtime=rt,
+                                                    prefix_cache=cache, **kw)
+                ops.reset_launch_counts()
+                got = _serve_one_by_one(sched, requests)
+                r1 = sched.serve([turn1])[turn1.rid]
+                prompt2 = resume_prompt(turn1.prompt, r1.tokens, turn2.prompt)
+                got[turn1.rid] = r1.tokens
+                got[turn2.rid] = sched.serve(
+                    [Request(turn2.rid, prompt2, turn2.max_new_tokens)])[turn2.rid].tokens
+                tokens[device, cache] = got
+                launches[device, cache] = ops.launch_counts()
+                if cache:
+                    kv = sched.decoder.kv
+                    stats[device] = sched.prefix.stats()
+                    require(kv.pages_used == sched.prefix.cached_pages,
+                            f"{device}: {kv.pages_used} pages used after the drain, the cache "
+                            f"holds {sched.prefix.cached_pages}")
+                    sched.prefix.reset()
+                    require(kv.pages_used == 0 and kv.pages_available == kv.capacity,
+                            f"{device}: pages left after the cache's reset")
+                else:
+                    require(sched.decoder.kv.pages_used == 0, f"{device}: pages left, no cache")
+    on = launches["cuda", True]
+    log(f"[reduced-prefix] gemma3-1b REDUCED fp32, {len(requests)} shared-prompt requests one "
+        f"by one + a 2-turn conversation: tokens equal with the cache on and off: card "
+        f"{tokens['cuda', True] == tokens['cuda', False]}, cpu "
+        f"{tokens['cpu', True] == tokens['cpu', False]}; card equal cpu "
+        f"{tokens['cuda', True] == tokens['cpu', True]}; cache stats card {stats['cuda']}; "
+        f"card launches cache on {on}, off {launches['cuda', False]}")
+    require(tokens["cuda", True] == tokens["cuda", False],
+            "REDUCED tokens differ with the prefix cache on and off (card)")
+    require(tokens["cuda", True] == tokens["cpu", True], "REDUCED prefix tokens differ card vs CPU")
+    require(stats["cuda"] == stats["cpu"], f"cache stats differ: {stats}")
+    require(stats["cuda"]["hits"] > 0 and stats["cuda"]["hit_tokens"] >= 16,
+            f"no prefix hit: {stats['cuda']}")
+    # the tail prefill is plain torch (as the reference's oracle); the
+    # decode ticks run the paged kernel
+    require(on["paged_decode_attention"] > 0 and on["flash_attention"] == 0,
+            f"prefix-cache serve launches {on}")
+
+
+# ---------------------------------------------------------------------------
+# 14. full-width gemma3-1b with the prefix cache (paged)
+# ---------------------------------------------------------------------------
+
+
+PREFIX_LEN, PREFIX_TAIL, PREFIX_STEPS = 512, (2, 8), (8, 24)  # benchmarks/bench_serve.py
+
+
+def _timed_serve(torch, sched, requests):
+    """Serve `requests` from a common start, timing each admission (the
+    prefill a prefix hit shortens) and each first token. Returns (wall,
+    {rid: ttft}, {rid: admission seconds}, {rid: tokens})."""
+    from collections import deque
+
+    backlog = deque(requests)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ttft, admit_s, tokens = {}, {}, {}
+    while len(tokens) < len(requests):
+        while backlog:
+            t_adm = time.perf_counter()
+            if not sched.try_admit(backlog[0]):
+                break
+            now = time.perf_counter()  # the first token is on the host
+            admit_s[backlog[0].rid], ttft[backlog[0].rid] = now - t_adm, now - t0
+            backlog.popleft()
+        for fin in sched.step():
+            tokens[fin.rid] = fin.tokens
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, ttft, admit_s, tokens
+
+
+def _agreement(a: dict, b: dict) -> tuple:
+    same = sum(sum(x == y for x, y in zip(a[rid], b[rid])) for rid in a)
+    return same, sum(len(t) for t in a.values())
+
+
+def phase_serve_prefix(torch) -> dict:
+    """Full-width gemma3-1b, paged, 8 slots: 16 shared-system-prompt
+    requests with the prefix cache (after one warm request that pins the
+    system prompt) and without, then a 3-turn multi-turn pass both ways.
+    Returns the launch counts of the cached shared-prompt pass."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models.common import dtype_of
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
+    from repro_torch.serve.workload import (multi_turn_requests, resume_prompt,
+                                            shared_prefix_requests)
+
+    gc.collect()
+    cfg = get_config("gemma3-1b")
+    model = build(cfg)
+    n_req, page = 16, 16
+    requests = shared_prefix_requests(cfg.vocab_size, n_req, prefix_len=PREFIX_LEN,
+                                      prefix_share=0.75, tail_range=PREFIX_TAIL,
+                                      steps_range=PREFIX_STEPS, seed=1)
+    max_len = PREFIX_LEN + PREFIX_TAIL[1] + PREFIX_STEPS[1] + 1
+    n_ps = -(-max_len // page)
+    system = next(r.prompt[:PREFIX_LEN] for r in requests if "-s" in r.rid)
+    warm = Request("warm-0", list(system) + [1], 2)
+    with Runtime("torchdev") as rt:
+        params = model.init(seed=0, device=rt.processing_unit.context,
+                            dtype=dtype_of(cfg.compute_dtype))
+        kw = dict(max_batch=8, max_len=max_len, runtime=rt, kv_mode="paged", page_size=page,
+                  sync_interval=8)
+        off = ContinuousBatchingScheduler(model, params, **kw)
+        # headroom over the slots' worst case, so resident cache pages do
+        # not force eviction mid-burst (as the reference's bench)
+        on = ContinuousBatchingScheduler(model, params, prefix_cache=True,
+                                         pool_pages=8 * n_ps + 1 + 2 * n_ps, **kw)
+        require(on.decoder.layout.shared and not on.decoder.layout.ring,
+                "the prefix cache's layout is not shared")
+        # warm-up passes (CUDA context, cuBLAS handles, every code path)
+        off.serve(requests[:4])
+        on.serve([warm] + requests[:4])
+        on.prefix.reset()
+        on.serve([warm])  # deploy-time state: the system prompt resident
+        s0 = dict(on.prefix.stats())
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        ticks0 = on.ticks
+        wall_on, ttft_on, adm_on, tok_on = _timed_serve(torch, on, requests)
+        counts = ops.launch_counts()
+        variants = ops.variant_counts()
+        ticks = on.ticks - ticks0
+        peak = torch.cuda.max_memory_allocated()
+        s1 = on.prefix.stats()
+        ops.reset_launch_counts()
+        wall_off, ttft_off, adm_off, tok_off = _timed_serve(torch, off, requests)
+        counts_off = ops.launch_counts()
+        kv = on.decoder.kv
+        pages_after = (kv.pages_used, on.prefix.cached_pages)
+        on.prefix.reset()
+        pages_reset = (kv.pages_used, kv.pages_available, kv.capacity)
+
+        # multi-turn: each turn's prompt is the whole exchange so far (the
+        # cache-on run's replies), served with the cache and without
+        convs = multi_turn_requests(cfg.vocab_size, 4, 3, first_prompt_range=(256, 512),
+                                    followup_range=(16, 64), steps_range=(16, 32), seed=2)
+        mt_len = max(sum(len(t.prompt) + t.max_new_tokens for t in conv) for conv in convs)
+        mt_kw = dict(kw, max_len=-(-mt_len // page) * page)
+        mt_on = ContinuousBatchingScheduler(model, params, prefix_cache=True, **mt_kw)
+        mt_off = ContinuousBatchingScheduler(model, params, **mt_kw)
+        history = [None] * len(convs)
+        mt = {"on": {}, "off": {}, "ttft_on": [], "ttft_off": []}
+        for t in range(3):
+            turn = []
+            for c, conv in enumerate(convs):
+                r = conv[t]
+                prompt = r.prompt if t == 0 else resume_prompt(*history[c], r.prompt)
+                turn.append(Request(r.rid, prompt, r.max_new_tokens))
+            _, tt_on, _, got_on = _timed_serve(torch, mt_on, turn)
+            _, tt_off, _, got_off = _timed_serve(torch, mt_off, turn)
+            mt["on"].update(got_on)
+            mt["off"].update(got_off)
+            if t:  # turns that resume a cached history
+                mt["ttft_on"] += list(tt_on.values())
+                mt["ttft_off"] += list(tt_off.values())
+            history = [(req.prompt, got_on[req.rid]) for req in turn]
+        mt_stats = mt_on.prefix.stats()
+        mt_pages = (mt_on.decoder.kv.pages_used, mt_on.prefix.cached_pages,
+                    mt_off.decoder.kv.pages_used)
+
+    n_tok = 0
+    for r in requests:
+        for got in (tok_on, tok_off):
+            toks = np.asarray(got[r.rid])
+            require(len(toks) == r.max_new_tokens and bool(np.all((toks >= 0)
+                                                                   & (toks < cfg.vocab_size))),
+                    f"{r.rid}: {len(toks)} tokens for a budget of {r.max_new_tokens}")
+        n_tok += r.max_new_tokens
+    hit_tokens = s1["hit_tokens"] - s0["hit_tokens"]
+    queried = s1["queried_tokens"] - s0["queried_tokens"]
+    hit_rate = hit_tokens / queried if queried else 0.0
+    same, total = _agreement(tok_on, tok_off)
+    mt_same, mt_total = _agreement(mt["on"], mt["off"])
+    split = {}
+    for name, ttft in (("on", ttft_on), ("off", ttft_off)):
+        for kind in ("s", "u"):
+            vals = [v for rid, v in ttft.items() if f"-{kind}" in rid]
+            split[name, kind] = (np.percentile(vals, 50) * 1e3, np.percentile(vals, 90) * 1e3)
+    adm = {name: np.mean([v for rid, v in a.items() if "-s" in rid]) * 1e3
+           for name, a in (("on", adm_on), ("off", adm_off))}
+    log(f"[serve-prefix] {cfg.name} paged, 8 slots, page {page}, {n_req} requests "
+        f"(prefix {PREFIX_LEN} tokens shared by 75 %, tails {PREFIX_TAIL}, {PREFIX_STEPS} new "
+        f"tokens; {n_tok} generated) after a warm request pinning the system prompt")
+    log(f"[serve-prefix] cache on: {wall_on:.3f}s, {n_tok / wall_on:.1f} tok/s; cache off: "
+        f"{wall_off:.3f}s, {n_tok / wall_off:.1f} tok/s; token hit rate {hit_rate:.4f} "
+        f"({hit_tokens}/{queried}); TTFT p50/p90 ms, shared (-s) on {split['on', 's'][0]:.1f}/"
+        f"{split['on', 's'][1]:.1f}, off {split['off', 's'][0]:.1f}/{split['off', 's'][1]:.1f}; "
+        f"unique (-u) on {split['on', 'u'][0]:.1f}/{split['on', 'u'][1]:.1f}, off "
+        f"{split['off', 'u'][0]:.1f}/{split['off', 'u'][1]:.1f}; mean admission of a shared "
+        f"request {adm['on']:.1f} ms on, {adm['off']:.1f} ms off; {ticks} decode ticks; peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    log(f"[serve-prefix] pages after the drain: {pages_after[0]} used = {pages_after[1]} cached; "
+        f"after reset {pages_reset[0]} used, {pages_reset[1]} of {pages_reset[2]} available; "
+        f"tokens equal to the cache-off run at the same position: {same} of {total} "
+        f"({same / total:.3f}; the tail's plain attention and flash sum in other orders in "
+        f"bf16, so reported, not required); launches on {counts}, paged by variant "
+        f"{variants['paged_decode_attention']}; off {counts_off}")
+    log(f"[serve-prefix] multi-turn, 4 conversations x 3 turns (first prompts 256-511, "
+        f"follow-ups 16-63, 16-31 new tokens; max_len {mt_kw['max_len']}): cache stats "
+        f"{mt_stats}; TTFT of resumed turns p50 on {np.percentile(mt['ttft_on'], 50) * 1e3:.1f} "
+        f"ms, off {np.percentile(mt['ttft_off'], 50) * 1e3:.1f} ms; tokens equal to the "
+        f"cache-off run {mt_same} of {mt_total}; pages after the drain {mt_pages[0]} used = "
+        f"{mt_pages[1]} cached, {mt_pages[2]} without the cache")
+    require(hit_rate > 0, f"no prefix hit in the shared-prompt pass: {s1}")
+    require(pages_after[0] == pages_after[1], f"pages after the drain {pages_after}")
+    require(pages_reset[0] == 0 and pages_reset[1] == pages_reset[2],
+            f"pages after reset {pages_reset}")
+    require(mt_stats["hit_tokens"] > 0, f"no hit in the multi-turn pass: {mt_stats}")
+    require(mt_pages[0] == mt_pages[1] and mt_pages[2] == 0, f"multi-turn pages {mt_pages}")
+    require(counts["flash_attention"] == 0,
+            f"the cached pass launched flash {counts['flash_attention']} times (tails are plain)")
+    require(counts["paged_decode_attention"] == ticks * cfg.num_layers,
+            f"paged_decode_attention launched {counts['paged_decode_attention']} times, expected "
+            f"{ticks * cfg.num_layers}")
+    require_variant(variants, "paged_decode_attention", "mma",
+                    counts["paged_decode_attention"], "prefix serve")
+    require(counts_off["flash_attention"] == n_req * cfg.num_layers,
+            f"the uncached pass launched flash {counts_off['flash_attention']} times")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 15. REDUCED zamba2 on the card vs the CPU
+# ---------------------------------------------------------------------------
+
+
+def hybrid_logits(torch, cfg, params, prompts, steps_tokens, device):
+    """Prefill each prompt (B=1) into `max_len`-deep states, stack the
+    states as the slots of one batch, then run teacher-forced decode ticks
+    at per-slot positions; returns every logits tensor on the CPU."""
+    import numpy as np
+
+    from repro_torch.models import hybrid
+
+    max_len = max(len(p) for p in prompts) + len(steps_tokens)
+    outs, states = [], []
+    for prompt in prompts:
+        tokens = torch.as_tensor(np.asarray([prompt], np.int32), device=device)
+        logits, st = hybrid.lm_prefill(cfg, params, tokens,
+                                       hybrid.init_states(cfg, 1, max_len, device=device))
+        outs.append(logits.cpu())
+        states.append(st)
+
+    def stack(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack(*(x[k] for x in leaves)) for k in leaves[0]}
+        if isinstance(leaves[0], (list, tuple)):
+            return type(leaves[0])(stack(*xs) for xs in zip(*leaves))
+        return torch.cat(leaves)
+
+    batch = stack(*states)
+    pos = torch.as_tensor([len(p) for p in prompts], dtype=torch.int32, device=device)
+    for step_tokens in steps_tokens:
+        tokens = torch.as_tensor(np.asarray(step_tokens, np.int32)[:, None], device=device)
+        logits, batch = hybrid.lm_decode_step(cfg, params, batch, tokens, pos)
+        outs.append(logits.cpu())
+        pos = pos + 1
+    return outs
+
+
+def phase_reduced_zamba2(torch) -> None:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import build, hybrid
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    from repro_torch.serve.workload import synthetic_requests
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("zamba2-7b", reduced=True)
+    require(cfg.compute_dtype == "float32", "REDUCED zamba2-7b computes in fp32")
+    _, n_groups, _ = hybrid.group_structure(cfg)
+    model = build(cfg)
+    params_cpu = model.init(seed=0, device="cpu")
+    params_card = _to_device(params_cpu, "cuda")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (45, 12, 7)]
+    steps = rng.integers(1, cfg.vocab_size, (16, len(prompts))).tolist()
+    ops.reset_launch_counts()
+    on_card = hybrid_logits(torch, cfg, params_card, prompts, steps, "cuda")
+    counts = ops.launch_counts()
+    on_cpu = hybrid_logits(torch, cfg, params_cpu, prompts, steps, "cpu")
+    calls = len(prompts) + len(steps)
+    require(counts["flash_attention"] == n_groups * len(prompts)
+            and counts["decode_attention"] == n_groups * len(steps)
+            and counts["gated_linear_scan"] == cfg.num_layers * calls,
+            f"reduced zamba2 run did not go through the kernels: {counts}")
+    worst = max(float((a - b).abs().max()) for a, b in zip(on_card, on_cpu))
+    same_greedy = all(torch.equal(a.argmax(-1), b.argmax(-1)) for a, b in zip(on_card, on_cpu))
+    log(f"[reduced-zamba2] zamba2-7b REDUCED fp32 ({cfg.num_layers} Mamba2 layers, the shared "
+        f"block after every {cfg.shared_attn_interval}): prefill of {len(prompts)} prompts + "
+        f"{len(steps)} teacher-forced ticks at per-slot positions: max |logits card - cpu| = "
+        f"{worst:.3e} (atol {REDUCED_ATOL}), greedy tokens equal: {same_greedy}, launches "
+        f"{counts}")
+    require(worst <= REDUCED_ATOL, f"REDUCED zamba2 logits differ by {worst:.3e} > {REDUCED_ATOL}")
+    require(same_greedy, "REDUCED zamba2 greedy tokens differ between the card and the CPU")
+
+    requests = synthetic_requests(cfg.vocab_size, 6, prompt_range=(3, 40), steps_range=(2, 14),
+                                  seed=0)
+    engine_prompts = rng.integers(1, cfg.vocab_size, (3, 9)).astype(np.int32)
+    served, generated, launches = {}, {}, {}
+    for device, params in (("cuda", params_card), ("cpu", params_cpu)):
+        with Runtime("torchdev", device=device) as rt:
+            ops.reset_launch_counts()
+            sched = ContinuousBatchingScheduler(model, params, max_batch=4, max_len=64,
+                                                runtime=rt, kv_mode="dense")
+            served[device] = {rid: f.tokens for rid, f in sched.serve(requests).items()}
+            launches[device] = ops.launch_counts()
+            engine = ServeEngine(model, params, max_len=40, runtime=rt)
+            generated[device] = engine.generate(engine_prompts, steps=12).tokens
+    log(f"[reduced-zamba2] dense serve of {len(requests)} requests and serial generate "
+        f"(3 x 9 prompts, 12 steps): card tokens equal CPU tokens: serve "
+        f"{served['cuda'] == served['cpu']}, generate "
+        f"{bool(np.array_equal(generated['cuda'], generated['cpu']))}; card serve launches "
+        f"{launches['cuda']}")
+    require(launches["cuda"]["gated_linear_scan"] > 0 and launches["cuda"]["decode_attention"] > 0,
+            "the zamba2 serve launched no scan or decode kernel")
+    require(served["cuda"] == served["cpu"], "REDUCED zamba2 serve tokens differ card vs CPU")
+    require(bool(np.array_equal(generated["cuda"], generated["cpu"])),
+            "REDUCED zamba2 serial generate tokens differ card vs CPU")
+
+
+# ---------------------------------------------------------------------------
+# 16. serve full-width zamba2-7b (dense scheduler, then the serial engine)
+# ---------------------------------------------------------------------------
+
+
+def phase_serve_zamba2(torch) -> tuple:
+    """Full-width zamba2-7b (bf16, seeded weights) serves the 16 synthetic
+    requests through the dense scheduler on 8 slots, then the serial engine
+    runs 8 x 512 prompts for 32 steps. Returns the launch counts of (the
+    served run, the serial run)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import build, hybrid
+    from repro_torch.models.common import dtype_of
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    from repro_torch.serve.workload import synthetic_requests
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("zamba2-7b")
+    model = build(cfg)
+    g, n_groups, n_tail = hybrid.group_structure(cfg)
+    n_req = SERVE_REQUESTS["n"]
+    prompt_range, steps_range = SERVE_REQUESTS["prompt_range"], SERVE_REQUESTS["steps_range"]
+    max_len = (prompt_range[1] - 1) + (steps_range[1] - 1)
+    with Runtime("torchdev") as rt:
+        t0 = time.perf_counter()
+        params = model.init(seed=0, device=rt.processing_unit.context,
+                            dtype=dtype_of(cfg.compute_dtype))
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        weights = torch.cuda.memory_allocated()
+        log(f"[serve-zamba2] {cfg.name}: {cfg.num_layers} Mamba2 layers ({n_groups} groups of "
+            f"{g}, the shared block after each, {n_tail} tail), d_model {cfg.d_model}, Mamba2 "
+            f"{cfg.num_heads} heads x {cfg.ssm_expand * cfg.d_model // cfg.num_heads} state "
+            f"{cfg.ssm_state}, attention {cfg.num_heads}q/{cfg.num_kv_heads}kv x "
+            f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+            f"{cfg.compute_dtype}; {n_params} parameters ({weights / 2**30:.2f} GiB) "
+            f"initialised on the card in {time.perf_counter() - t0:.1f}s")
+        sched = ContinuousBatchingScheduler(model, params, max_batch=8, max_len=max_len,
+                                            runtime=rt, kv_mode="dense")
+        warm = synthetic_requests(cfg.vocab_size, 2, prompt_range=(64, 65), steps_range=(9, 10),
+                                  seed=1, rid_prefix="warm")
+        sched.serve(warm)
+        requests = synthetic_requests(cfg.vocab_size, n_req, prompt_range=prompt_range,
+                                      steps_range=steps_range, seed=SERVE_REQUESTS["seed"])
+        ticks0 = sched.ticks
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        wall, ttft, _, tokens = _timed_serve(torch, sched, requests)
+        counts = ops.launch_counts()
+        variants = ops.variant_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ticks = sched.ticks - ticks0
+
+        n_tok = 0
+        for r in requests:
+            toks = np.asarray(tokens[r.rid])
+            require(len(toks) == r.max_new_tokens, f"{r.rid}: {len(toks)} tokens, budget "
+                    f"{r.max_new_tokens}")
+            require(bool(np.all((toks >= 0) & (toks < cfg.vocab_size))),
+                    f"{r.rid}: token out of range")
+            n_tok += len(toks)
+        want = {"flash_attention": n_groups * n_req, "decode_attention": n_groups * ticks,
+                "gated_linear_scan": cfg.num_layers * (n_req + ticks),
+                "paged_decode_attention": 0, "fused_linear": 0}
+        require(counts == want, f"zamba2 serve launches {counts}, expected {want}")
+        require_variant(variants, "flash_attention", "simt", want["flash_attention"],
+                        "zamba2 serve")
+        require_variant(variants, "decode_attention", "simt", want["decode_attention"],
+                        "zamba2 serve")
+        scan = variants["gated_linear_scan"]
+        require(scan == {"simt": 0, "mma": cfg.num_layers * n_req,
+                         "step": cfg.num_layers * ticks},
+                f"zamba2 serve scan launches by variant {scan}")
+        tt = np.asarray(list(ttft.values()))
+        plens = [len(r.prompt) for r in requests]
+        log(f"[serve-zamba2] {n_req} requests (prompts {min(plens)}-{max(plens)} tokens, "
+            f"{sum(plens)} prompt tokens), {n_tok} generated tokens in {wall:.3f}s: "
+            f"{n_tok / wall:.1f} tok/s; TTFT p50 {np.percentile(tt, 50) * 1e3:.1f} ms, p90 "
+            f"{np.percentile(tt, 90) * 1e3:.1f} ms (from a common start, queueing included); "
+            f"{ticks} decode ticks; peak device memory {peak / 2**30:.2f} GiB (weights "
+            f"{weights / 2**30:.2f}); launches {counts}, by variant "
+            f"{ {k: variants[k] for k in ('flash_attention', 'decode_attention', 'gated_linear_scan')} }")
+        for r in requests[:3]:
+            log(f"[serve-zamba2] {r.rid}: prompt {len(r.prompt)} tokens -> "
+                f"{tokens[r.rid][:8]}...")
+        del sched
+        gc.collect()
+
+        B, S, steps = 8, 512, 32
+        prompts = np.random.default_rng(0).integers(1, cfg.vocab_size, (B, S)).astype(np.int32)
+        engine = ServeEngine(model, params, max_len=S + steps, runtime=rt)
+        engine.generate(prompts[:, :64], steps=2)  # warm-up
+        first = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, steps=steps,
+                              on_first_token=lambda: first.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        serial_counts = ops.launch_counts()
+        serial_variants = ops.variant_counts()
+        peak = torch.cuda.max_memory_allocated()
+    toks = out.tokens
+    require(toks.shape == (B, steps), f"serial generate returned {toks.shape}")
+    require(bool(np.all((toks >= 0) & (toks < cfg.vocab_size))), "serial token out of range")
+    require(bool(np.isfinite(out.prefill_logits).all()), "serial prefill logits not finite")
+    want = {"flash_attention": n_groups, "decode_attention": n_groups * steps,
+            "gated_linear_scan": cfg.num_layers * (1 + steps), "paged_decode_attention": 0,
+            "fused_linear": 0}
+    require(serial_counts == want, f"zamba2 serial launches {serial_counts}, expected {want}")
+    require(serial_variants["gated_linear_scan"] == {
+        "simt": 0, "mma": cfg.num_layers, "step": cfg.num_layers * steps},
+        f"zamba2 serial scan launches by variant {serial_variants['gated_linear_scan']}")
+    log(f"[serve-zamba2] serial ServeEngine.generate B={B} prompts of {S} tokens, {steps} steps: "
+        f"{B * steps} tokens in {wall:.3f}s: {B * steps / wall:.1f} tok/s; first token after "
+        f"{(first[0] - t0) * 1e3:.1f} ms; peak device memory {peak / 2**30:.2f} GiB; launches "
+        f"{serial_counts}; row 0 -> {toks[0, :8].tolist()}...")
+    return counts, serial_counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -1828,11 +2489,15 @@ def main() -> int:
         log(f"[serve-dense] tokens equal to the paged run's at the same position: {agree} of "
             f"{total} ({agree / total:.3f}; bf16 sums in another order may flip a greedy "
             f"pick, so reported, not required)")
-        run_phase("serial", phase_serial, torch)
+        serial_counts = run_phase("serial", phase_serial, torch)
         tc2_counts = run_phase("tc2", phase_tc2, torch)
         run_phase("reduced-xlstm", phase_reduced_xlstm, torch)
         xlstm_counts = run_phase("serve-xlstm", phase_serve_xlstm, torch)
-        run_phase("loss-xlstm", phase_loss_xlstm, torch)
+        loss_counts = run_phase("loss-xlstm", phase_loss_xlstm, torch)
+        run_phase("reduced-prefix", phase_reduced_prefix, torch)
+        prefix_counts = run_phase("serve-prefix", phase_serve_prefix, torch)
+        run_phase("reduced-zamba2", phase_reduced_zamba2, torch)
+        zamba2_counts, zamba2_serial_counts = run_phase("serve-zamba2", phase_serve_zamba2, torch)
         log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
@@ -1840,18 +2505,19 @@ def main() -> int:
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    # each kernel's launches on its own path: flash and paged decode on the
-    # paged serve (as in earlier runs), dense decode on the dense serve,
-    # fused_linear on Test Case 2's fused_linear row, the scan on the xlstm
-    # serve
-    path_counts = {"flash_attention": paged_counts, "paged_decode_attention": paged_counts,
-                   "decode_attention": dense_counts, "fused_linear": tc2_counts,
-                   "gated_linear_scan": xlstm_counts}
+    # each kernel's launches on every full-width path, each path's counts
+    # zeroed just before it and read just after; `launches` is their sum
+    path_counts = {"serve": paged_counts, "serve-dense": dense_counts, "serial": serial_counts,
+                   "tc2": tc2_counts, "serve-xlstm": xlstm_counts, "loss-xlstm": loss_counts,
+                   "serve-prefix": prefix_counts, "serve-zamba2": zamba2_counts,
+                   "serve-zamba2 serial": zamba2_serial_counts}
     for k in kernels:
-        k["launches"] = path_counts[k["name"]][k["name"]]
+        k["launches_by_path"] = {path: c[k["name"]] for path, c in path_counts.items()
+                                 if c[k["name"]]}
+        k["launches"] = sum(k["launches_by_path"].values())
         log(f"[kernels] {k['name']}: {k['device_ms']:.4f} ms device, {k['tflops']:.3f} TFLOP/s "
             f"at {k['timed_shape']}; library device ms {k['library_device_ms']}; "
-            f"{k['launches']} launches on its path")
+            f"{k['launches']} launches on the paths, by path {k['launches_by_path']}")
     forbidden = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "repro" or m.startswith("repro.")]
     if forbidden:

@@ -104,7 +104,7 @@ ARCH_IDS: Sequence[str] = (
 )
 
 #: Architectures whose config (and model family) the port runs today.
-PORTED_ARCH_IDS: Sequence[str] = ("gemma3-1b", "xlstm-125m")
+PORTED_ARCH_IDS: Sequence[str] = ("gemma3-1b", "xlstm-125m", "zamba2-7b")
 
 
 def get_config(arch_id: str, *, reduced: bool = False) -> ArchConfig:

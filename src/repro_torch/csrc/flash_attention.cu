@@ -36,10 +36,12 @@
 //   time, and a warpgroup with the tensor cores to itself walks it faster --
 //   two otherwise (`setmaxnreg` then gives them 240 registers each); the
 //   wrapper picks (`kernels/flash_attention.py::consumer_warpgroups`).
-// * simt (fp32, head_dim 16 / 32, other group sizes): one block per (32
-//   query rows, head, batch), K/V tiles of 32 keys staged in fp32 shared
-//   memory, scalar FMA on the CUDA cores. fp32 stays off TF32, whose
-//   rounding would break the 2e-5 fp32 parity.
+// * simt (fp32, head_dim 16 / 32 / 112 / 160, other group sizes): one block
+//   per (32 query rows, head, batch), K/V tiles of 32 keys staged in fp32
+//   shared memory, scalar FMA on the CUDA cores. fp32 stays off TF32, whose
+//   rounding would break the 2e-5 fp32 parity. Any head_dim that is a
+//   multiple of 8 instantiates; those of the repo's configs do (16, 32, 64,
+//   112, 128, 160, 256), hd 160 asking for 65,920 bytes of shared memory.
 //
 // Both walk only the key tiles a block's rows can attend to (causal upper
 // bound, window lower bound), which is exact whenever every row has at least
@@ -249,8 +251,12 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
       return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
+    case 112:  // zamba2-7b, kimi-k2
+      return launch<T, 112>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
+    case 160:  // stablelm-12b
+      return launch<T, 160>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
     case 256:
       return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
     default:

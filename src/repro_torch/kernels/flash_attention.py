@@ -12,8 +12,8 @@ retried):
   tile. Every gemma3 prefill at full width takes it. `consumer_warpgroups`
   picks one or two consumer warpgroups a block by the grid's size.
 * ``simt``: everything else (fp32, whose 2e-5 parity TF32 would break; head
-  dims 16 and 32 of the REDUCED configs): scalar fp32 FMA, 32 query rows a
-  block.
+  dims 16 and 32 of the REDUCED configs, 112 of zamba2-7b, 160 of
+  stablelm-12b): scalar fp32 FMA, 32 query rows a block.
 
 Both mask ragged Sq / Skv themselves, so any prompt length runs without
 padding (the Pallas wrapper needs block multiples), and visit only the key
@@ -34,7 +34,9 @@ import torch
 
 from . import build
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims of the repo's configs: 16 and 32 (REDUCED), 112 (zamba2-7b, kimi-k2),
+#: 160 (stablelm-12b), 64, 128, 256
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 112, 128, 160, 256)
 WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODES = {"simt": 0, "wgmma": 1}

@@ -1,18 +1,22 @@
-"""Serving entry point of the port: init seeded weights on the device and
-serve a synthetic workload through the serial engine or the
-continuous-batching scheduler (dense per-slot caches, or the paged KV pool
-with its device-resident decode loop), on a registry-built `torchdev`
-Runtime.
+"""Serving entry point of the port: init seeded weights on the device (or
+read them from a checkpoint in the reference's layout) and serve a
+synthetic workload through the serial engine or the continuous-batching
+scheduler (dense per-slot caches, or the paged KV pool with its
+device-resident decode loop and, optionally, the prefix cache), on a
+registry-built `torchdev` Runtime.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
         --mode continuous --kv-mode dense --max-batch 8 --requests 16 \
         --prompt-len 512 --steps 64
     # paged KV pool: --kv-mode paged [--page-size 16 --sync-interval 8]
+    # prefix cache over the pool: --kv-mode paged --prefix-cache --prefix-share 0.5
     # serial engine, one request at a time: --mode serial
+    # weights from `repro/train/checkpoint.py`'s layout: --ckpt-dir DIR
+    # the hybrid family: --arch zamba2-7b (dense or serial)
 
 Runs on the CUDA device; ``--device cpu`` runs on the CPU instead (the
 kernels' plain PyTorch versions then stand in for the CUDA kernels). The
-reference's fleet mode and its prefix cache are not ported yet.
+reference's fleet mode is not ported yet.
 """
 from __future__ import annotations
 
@@ -26,10 +30,12 @@ from repro_torch.configs import get_config
 from repro_torch.core.runtime import Runtime
 from repro_torch.kernels import ops
 from repro_torch.models import build
+from repro_torch.models.bridge import params_from_jax
 from repro_torch.models.common import dtype_of
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler
-from repro_torch.serve.workload import synthetic_requests
+from repro_torch.serve.workload import shared_prefix_requests, synthetic_requests
+from repro_torch.train import checkpoint as ckpt
 
 
 def main(argv=None):
@@ -49,10 +55,21 @@ def main(argv=None):
     ap.add_argument("--pool-pages", type=int, default=None,
                     help="physical KV pool pages (default: every slot can "
                     "hold a full-length sequence)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="paged mode: refcounted radix prefix cache; shared prompt "
+                    "prefixes are forked by page reference and only the uncached "
+                    "tail is prefilled")
+    ap.add_argument("--prefix-share", type=float, default=0.0,
+                    help="fraction of requests opening with a shared system prompt "
+                    "(the workload prefix caching exists for); 0 keeps the fully "
+                    "unique synthetic workload")
     ap.add_argument("--max-batch", type=int, default=8, help="scheduler slots (continuous mode)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="read the weights from the latest committed step under this "
+                    "directory (the reference's checkpoint layout)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -60,15 +77,32 @@ def main(argv=None):
     with Runtime("torchdev", device=args.device) as runtime:
         device = runtime.processing_unit.context
         # matrices stored once in the compute dtype: every use casts to it
-        params = model.init(seed=args.seed, device=device, dtype=dtype_of(cfg.compute_dtype))
+        cd = dtype_of(cfg.compute_dtype)
+        if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
+            restored, _ = ckpt.restore(args.ckpt_dir)
+            params = params_from_jax(cfg, restored["params"], device=device, dtype=cd)
+            print(f"restored weights from {args.ckpt_dir}")
+        else:
+            params = model.init(seed=args.seed, device=device, dtype=cd)
         max_len = args.prompt_len + args.steps
-        requests = synthetic_requests(
-            cfg.vocab_size,
-            args.requests,
-            prompt_range=(max(1, args.prompt_len // 2), args.prompt_len + 1),
-            steps_range=(max(1, args.steps // 2), args.steps + 1),
-            seed=args.seed,
-        )
+        if args.prefix_share > 0:
+            requests = shared_prefix_requests(
+                cfg.vocab_size,
+                args.requests,
+                prefix_len=max(1, args.prompt_len // 2),
+                prefix_share=args.prefix_share,
+                tail_range=(1, max(2, args.prompt_len // 2 + 1)),
+                steps_range=(max(1, args.steps // 2), args.steps + 1),
+                seed=args.seed,
+            )
+        else:
+            requests = synthetic_requests(
+                cfg.vocab_size,
+                args.requests,
+                prompt_range=(max(1, args.prompt_len // 2), args.prompt_len + 1),
+                steps_range=(max(1, args.steps // 2), args.steps + 1),
+                seed=args.seed,
+            )
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         if args.mode == "serial":
@@ -82,6 +116,7 @@ def main(argv=None):
                 model, params, max_batch=args.max_batch, max_len=max_len, runtime=runtime,
                 kv_mode=args.kv_mode, page_size=args.page_size,
                 pool_pages=args.pool_pages, sync_interval=args.sync_interval,
+                prefix_cache=args.prefix_cache,
             )
             results = sched.serve(requests)
             for r in requests:
@@ -93,6 +128,12 @@ def main(argv=None):
                 prog = sched.active_progress()
                 print(f"kv pool: {prog.pages_used} pages used / {prog.pages_free} free "
                       f"after drain")
+                if prog.prefix is not None:
+                    print(f"prefix cache: hit_rate={prog.prefix['hit_rate']:.2f} "
+                          f"({prog.prefix['hits']}/{prog.prefix['lookups']} requests, "
+                          f"{prog.prefix['hit_tokens']}/{prog.prefix['queried_tokens']}"
+                          f" tokens), {prog.prefix['cached_pages']} cached pages, "
+                          f"{prog.prefix['evictions']} evictions")
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0

@@ -1,6 +1,7 @@
 """Attention layers: GQA/MQA self-attention prefill that fills a dense KV
-cache, one-token decode over that dense cache, and the paged KV-cache decode
-path. Port of the serving half of `repro/models/attention.py`.
+cache, the prefill of a prompt's tail against a cached prefix, one-token
+decode over that dense cache, and the paged KV-cache decode path. Port of
+the serving half of `repro/models/attention.py`.
 
 Weights keep the reference's einsum shapes, heads as their own dimension:
 
@@ -18,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs import ArchConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from .common import ParamInit, apply_rope, resolve_device
 
 
@@ -77,6 +78,34 @@ def prefill_attention(
     else:
         k_cache[:, :S] = k.to(k_cache.dtype)
         v_cache[:, :S] = v.to(v_cache.dtype)
+    return _out_proj(p, out), (k_cache, v_cache)
+
+
+def tail_prefill_attention(
+    cfg: ArchConfig, p, x: torch.Tensor, cache: Tuple[torch.Tensor, torch.Tensor], offset: int,
+    *, window: int = 0,
+):
+    """Prefill of a sequence *tail* against a cache whose first `offset`
+    positions are already filled (a shared prefix gathered from pool pages).
+
+    x: (B, S_tail, d), the uncached tail tokens at absolute positions
+    [offset, offset + S_tail); cache: (k, v) each (B, S_buf, KV, hd),
+    full-depth buffers (no ring: prefix sharing pages every layer densely).
+    The tail's K/V is written at its absolute positions, in place,
+    overwriting from the divergence point on (the copy-on-write of a copied
+    boundary page), and the tail attends over the whole cache with causal
+    masking at absolute positions, so prefix keys are read, not recomputed.
+    As in the reference, which runs its oracle here, the attention is the
+    plain version (`kernels/ref.py`) on every device: the tail runs once per
+    admission, and no Pallas kernel covers it. Returns (out (B, S_tail, d),
+    cache)."""
+    B, S, d = x.shape
+    positions = offset + torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    k_cache, v_cache = cache
+    k_cache[:, offset : offset + S] = k.to(k_cache.dtype)
+    v_cache[:, offset : offset + S] = v.to(v_cache.dtype)
+    out = ref.attention(q, k_cache, v_cache, causal=True, window=window, q_offset=offset)
     return _out_proj(p, out), (k_cache, v_cache)
 
 
@@ -143,8 +172,13 @@ class PagedLayout:
     unallocated table entries. Sliding-window layers keep ring buffers,
     paged: slot s owns ring pages ``[s * w_pages, (s + 1) * w_pages)`` for
     its lifetime. When ``max_len`` fits under the window the ring never
-    wraps and those layers page like full layers (``ring`` False). The
-    reference's ``shared`` (prefix-cache) layout is not ported yet.
+    wraps and those layers page like full layers (``ring`` False).
+
+    ``shared`` is the prefix-sharing layout (radix cache): rings are off and
+    sliding-window layers page exactly like full layers, so one page-table
+    row describes a whole prefix and matched prefixes can be forked by
+    reference. The window is then a mask in the decode attention, not the
+    ring's storage shape (local-layer K/V is kept for every position).
     """
 
     max_slots: int
@@ -155,6 +189,7 @@ class PagedLayout:
     window: int
     ring: bool
     w_pages: int  # ring pages per slot (0 when not ring)
+    shared: bool = False  # prefix-sharing layout: all layers full-paged
 
     @property
     def ring_pages_total(self) -> int:
@@ -177,11 +212,12 @@ def paged_layout(
     max_len: int,
     page_size: int,
     num_pages: Optional[int] = None,
+    shared: bool = False,
 ) -> PagedLayout:
     cache_len = -(-max_len // page_size) * page_size
     n_pages_seq = cache_len // page_size
     w = cfg.sliding_window or 0
-    ring = bool(w) and w <= cache_len
+    ring = bool(w) and w <= cache_len and not shared
     if ring and w % page_size != 0:
         raise ValueError(
             f"page_size {page_size} must divide sliding_window {w} "
@@ -199,6 +235,7 @@ def paged_layout(
         window=w,
         ring=ring,
         w_pages=(w // page_size) if ring else 0,
+        shared=shared,
     )
 
 
@@ -234,8 +271,10 @@ def paged_decode_self_attention(
     active: (B,) bool. Inactive slots write the null page (dynamic-table
     layers) or position 0 of their own ring (ring layers), so they never
     touch a live slot's cache. `window` > 0 with ``ring`` is ring semantics:
-    writes wrap at ``pos % window`` and every ring entry is valid once warm.
-    Returns (out (B,1,d), (pool_k, pool_v)).
+    writes wrap at ``pos % window`` and every ring entry is valid once warm;
+    `window` > 0 without ``ring`` is the prefix-sharing layout: writes go
+    through the dynamic table and the kernel masks logical slots older than
+    ``pos - window``. Returns (out (B,1,d), (pool_k, pool_v)).
     """
     positions = pos[:, None]  # RoPE at each slot's own position
     q, k, v = _project_qkv(cfg, p, x, positions)  # (B,1,H,hd) / (B,1,KV,hd)

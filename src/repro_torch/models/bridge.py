@@ -11,6 +11,13 @@ here imports JAX.
 
 xlstm trees (``{"embed", "blocks": [per-block dict], "final_norm"}``) have
 no layer stacks: the port keeps the same tree.
+
+Hybrid (zamba2) trees stack their Mamba2 layers: ``mamba`` leaves are
+(n_groups * interval, ...) and ``mamba_tail`` leaves (n_tail, ...); the
+port keeps one dict per layer in each list, and the shared block as is.
+
+Leaves may also be CPU tensors (the checkpoint reader's); bf16 crosses bit
+for bit (`as_tensor`).
 """
 from __future__ import annotations
 
@@ -21,17 +28,33 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from .common import resolve_device
+from .hybrid import group_structure
 from .transformer import unit_structure
 
 #: leaves kept in fp32 whatever the matrices' storage dtype (rms_norm reads
-#: them as fp32)
-NORM_KEYS = frozenset({"ln1", "ln2", "final_norm", "norm"})
+#: the norm weights as fp32, Mamba2 its decay parameters)
+NORM_KEYS = frozenset({"ln1", "ln2", "final_norm", "norm", "out_norm", "A_log", "dt_bias"})
 
 
 def _map(fn: Callable, tree):
     if isinstance(tree, Mapping):
         return {k: _map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def as_tensor(a) -> torch.Tensor:
+    """A CPU tensor copy of a leaf: a tensor (the checkpoint reader's) or a
+    numpy array. Numpy has no bf16 of its own: JAX's arrays come out as
+    `ml_dtypes.bfloat16` and `np.load` gives such leaves back as 2-byte
+    void; both are viewed bit for bit as int16 and then as bf16."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().clone()
+    a = np.asarray(a)
+    if a.dtype.kind == "V":
+        if a.dtype.itemsize != 2:
+            raise ValueError(f"leaf of dtype {a.dtype}: only 2-byte (bfloat16) void is read")
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a writable copy
 
 
 def unstack_layers(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
@@ -53,6 +76,17 @@ def unstack_layers(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
     return {"embed": dict(tree["embed"]), "final_norm": tree["final_norm"], "layers": layers}
 
 
+def unstack_hybrid(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
+    """Reference hybrid tree -> the port's: the ``mamba`` and ``mamba_tail``
+    stacks as per-layer lists (views, no copy), the rest as is."""
+    g, n_groups, n_tail = group_structure(cfg)
+    out = {k: v for k, v in tree.items() if k not in ("mamba", "mamba_tail")}
+    out["mamba"] = [_map(lambda a, i=i: a[i], tree["mamba"]) for i in range(n_groups * g)]
+    if n_tail:
+        out["mamba_tail"] = [_map(lambda a, i=i: a[i], tree["mamba_tail"]) for i in range(n_tail)]
+    return out
+
+
 def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any], *, device=None,
                     dtype: Optional[torch.dtype] = None) -> dict:
     """The reference's `init_lm` params (nested dicts of numpy arrays) as the
@@ -60,12 +94,19 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any], *, device=None,
     there is none; pass ``device="cpu"`` for the CPU). `dtype` stores the
     matrices in another dtype (norm weights stay fp32)."""
     device = resolve_device(device)
-    flat = dict(tree) if "blocks" in tree else unstack_layers(cfg, tree)
+    if "blocks" in tree:
+        flat = dict(tree)
+    elif cfg.family == "hybrid":
+        flat = unstack_hybrid(cfg, tree)
+    else:
+        flat = unstack_layers(cfg, tree)
 
     def convert(path_key: str):
         def fn(a):
-            t = torch.from_numpy(np.array(a))  # a writable copy
-            if dtype is not None and path_key not in NORM_KEYS:
+            t = as_tensor(a)
+            if path_key in NORM_KEYS:
+                t = t.float()
+            elif dtype is not None:
                 t = t.to(dtype)
             return t.to(device)
         return fn

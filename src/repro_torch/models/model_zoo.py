@@ -1,7 +1,7 @@
 """Model zoo: one bundle of functions per architecture family, with the
 serving protocol of the reference's `repro/models/model_zoo.py`. Ported: the
-transformer family (dense, no MoE) and the recurrent ``ssm`` family
-(xlstm)."""
+transformer family (dense, no MoE), the recurrent ``ssm`` family (xlstm)
+and the ``hybrid`` family (zamba2: Mamba2 + a shared attention block)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +9,7 @@ import functools
 from typing import Callable
 
 from repro_torch.configs import ArchConfig
-from . import transformer, xlstm_model
+from . import hybrid, transformer, xlstm_model
 from .attention import paged_layout
 
 
@@ -24,12 +24,17 @@ class PagedOps:
         scatter one slot's B=1 dense prefill cache into its pages
     decode_step(layout, params, pools, full_table, tokens, pos, active)
         -> (logits (B,V), pools): one batched decode tick over the pool
+    prefix_prefill(layout, params, pools, row, tokens, off)
+        -> (logits (1,V), dense caches): prefill only a prompt's uncached
+        tail against a shared prefix gathered from pool pages (a `shared`
+        layout; the prefix-cache admission path)
     """
 
     layout: Callable
     init_pools: Callable
     commit_prefill: Callable
     decode_step: Callable
+    prefix_prefill: Callable = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +62,8 @@ def build(cfg: ArchConfig) -> ModelBundle:
         return _build_transformer(cfg)
     if cfg.family == "ssm":
         return _build_xlstm(cfg)
+    if cfg.family == "hybrid":
+        return _build_hybrid(cfg)
     raise NotImplementedError(f"model family {cfg.family!r} is not ported yet")
 
 
@@ -88,6 +95,7 @@ def _build_transformer(cfg: ArchConfig) -> ModelBundle:
             init_pools=functools.partial(transformer.init_paged_caches, cfg),
             commit_prefill=functools.partial(transformer.commit_prefill_paged, cfg),
             decode_step=functools.partial(transformer.lm_paged_decode_step, cfg),
+            prefix_prefill=functools.partial(transformer.lm_prefix_prefill, cfg),
         ),
     )
 
@@ -113,6 +121,32 @@ def _build_xlstm(cfg: ArchConfig) -> ModelBundle:
         loss=loss,
         init_state=lambda batch, max_len, device=None: xlstm_model.init_states(
             cfg, batch, device=device),
+        make_prefill=make_prefill,
+        decode_step=decode_step,
+    )
+
+
+def _build_hybrid(cfg: ArchConfig) -> ModelBundle:
+    def loss(params, batch):
+        raise NotImplementedError("the hybrid loss is not ported yet (training slice)")
+
+    def make_prefill(max_len=None):
+        def prefill(params, batch):
+            tokens = batch["tokens"]
+            B, S = tokens.shape
+            states = hybrid.init_states(cfg, B, max_len or S, device=tokens.device)
+            return hybrid.lm_prefill(cfg, params, tokens, states)
+
+        return prefill
+
+    def decode_step(params, state, batch):
+        return hybrid.lm_decode_step(cfg, params, state, batch["tokens"], batch["pos"])
+
+    return ModelBundle(
+        cfg=cfg,
+        init=functools.partial(hybrid.init_lm, cfg),
+        loss=loss,
+        init_state=functools.partial(hybrid.init_states, cfg),
         make_prefill=make_prefill,
         decode_step=decode_step,
     )

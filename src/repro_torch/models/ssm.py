@@ -1,8 +1,7 @@
-"""Recurrent sequence-mixing blocks of xLSTM: the mLSTM (matrix memory) and
-the sLSTM (scalar memory). Port of the mLSTM and sLSTM halves of
-`repro/models/ssm.py`; the Mamba2 half comes with the hybrid family.
+"""Recurrent sequence-mixing blocks: xLSTM's mLSTM (matrix memory) and
+sLSTM (scalar memory), and Mamba2 (SSD). Port of `repro/models/ssm.py`.
 
-The mLSTM core is the scalar-gated linear recurrence
+The mLSTM and Mamba2 cores are the scalar-gated linear recurrence
 
     S_t = a_t * S_{t-1} + k_t^T v_t ;  y_t = q_t @ S_t
 
@@ -15,9 +14,13 @@ Prefill and decode carry the block's states through the same call. The sLSTM
 has cross-head recurrent connections and is sequential: the reference runs
 it as a `lax.scan`, the port as a Python loop over positions.
 
+Mamba2 maps onto one scan call a block: q = C broadcast over the heads (a
+stride-0 view, no copy), k = B * dt, v = x and log_a = dt * A.
+
 The reference's simplifications are kept (mLSTM: a sigmoid input gate folded
 into k in place of the exponential gate and its stabiliser; sLSTM: a capped
-exponential input gate).
+exponential input gate; Mamba2: one group, B and C shared by the heads, no
+extra normalisation branches).
 """
 from __future__ import annotations
 
@@ -173,3 +176,107 @@ def slstm_init_state(cfg: ArchConfig, batch: int, *, device) -> dict:
 
 def slstm_decode_step(cfg: ArchConfig, p, x: torch.Tensor, state):
     return slstm_forward(cfg, p, x, state=state)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD)
+# ---------------------------------------------------------------------------
+
+
+def init_mamba_block(pi: ParamInit, cfg: ArchConfig) -> dict:
+    """One Mamba2 layer: three separate input projections (z, xBC, dt), the
+    depthwise causal conv, the per-head decay (A_log, dt_bias) and skip (D),
+    the gated output norm and the output projection. Norm weights, A_log and
+    dt_bias are fp32 (read as fp32); the rest in `pi`'s dtype."""
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    H = cfg.num_heads
+    conv_dim = di + 2 * cfg.ssm_state
+    W = cfg.ssm_conv_width
+    return {
+        "norm": pi.zeros((d,), dtype=torch.float32),
+        "w_z": pi.normal((d, di), fan_in=d),
+        "w_xbc": pi.normal((d, conv_dim), fan_in=d),
+        "w_dt": pi.normal((d, H), fan_in=d),
+        "conv_w": pi.normal((W, conv_dim), fan_in=W),
+        "conv_b": pi.zeros((conv_dim,)),
+        "A_log": pi.zeros((H,), dtype=torch.float32),
+        "dt_bias": pi.zeros((H,), dtype=torch.float32),
+        "D": pi.constant(1.0, (H,)),
+        "out_norm": pi.zeros((di,), dtype=torch.float32),
+        "w_out": pi.normal((di, d), fan_in=di),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, state=None):
+    """Depthwise causal conv. x: (B, S, Cd); w: (W, Cd); state: None (zeros)
+    or (B, W-1, Cd), the trailing W-1 inputs of the positions before. Returns
+    (y (B, S, Cd), new state (B, W-1, Cd), its own storage)."""
+    B, S, Cd = x.shape
+    W = w.shape[0]
+    if state is None:
+        state = torch.zeros((B, W - 1, Cd), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)  # (B, S+W-1, Cd)
+    y = torch.zeros((B, S, Cd), dtype=x.dtype, device=x.device)
+    for i in range(W):  # W is tiny (4): unrolled taps, in the reference's order
+        y = y + xp[:, i : i + S, :] * w[i][None, None, :]
+    # a copy: a view would keep the whole padded input alive with the state
+    new_state = xp[:, S:, :].clone()
+    return y + b[None, None, :], new_state
+
+
+def mamba_forward(cfg: ArchConfig, p, x: torch.Tensor, state=None):
+    """x: (B, S, d). Returns (x + out, new state {"S", "conv"}); `state` None
+    starts from zeros. One `gated_linear_scan` call (prefill: S positions,
+    decode: one), carrying the state S (B, H, ssm_state, head_dim) fp32."""
+    B, S, d = x.shape
+    di = cfg.ssm_expand * d
+    H = cfg.num_heads
+    hd = di // H
+    st = cfg.ssm_state
+    cd = x.dtype
+    h = rms_norm(x, p["norm"], eps=cfg.norm_eps)
+    z = h @ p["w_z"].to(cd)
+    xBC = h @ p["w_xbc"].to(cd)
+    dt = h @ p["w_dt"].to(cd)
+    conv_state = state["conv"] if state is not None else None
+    xBC, conv_state = _causal_conv(xBC, p["conv_w"].to(cd), p["conv_b"].to(cd), state=conv_state)
+    xBC = F.silu(xBC)
+    x_ssm, Bmat, Cmat = torch.split(xBC, [di, st, st], dim=-1)  # (B,S,di), (B,S,st) x 2
+
+    dt = F.softplus(dt.float() + p["dt_bias"].float())  # (B,S,H)
+    A = -torch.exp(p["A_log"].float())  # (H,), negative
+    log_a = (dt * A[None, None, :]).transpose(1, 2)  # (B,H,S)
+
+    # the gated linear scan: q = C, k = B * dt, v = x, per head
+    q = Cmat[:, None, :, :].expand(B, H, S, st)
+    k = (Bmat[:, None, :, :] * dt.transpose(1, 2)[..., None]).to(cd)
+    v = x_ssm.reshape(B, S, H, hd).transpose(1, 2)
+    s0 = state["S"] if state is not None else None
+    y, S_f = ops.gated_linear_scan(q, k, v, log_a, chunk=_chunk_for(S), initial_state=s0)
+    y = y + p["D"].to(cd)[None, :, None, None] * v  # skip connection
+    y = y.transpose(1, 2).reshape(B, S, di)
+    y = rms_norm(y * F.silu(z), p["out_norm"], eps=cfg.norm_eps)
+    out = y @ p["w_out"].to(cd)
+    return x + out, {"S": S_f, "conv": conv_state}
+
+
+def mamba_init_state(cfg: ArchConfig, batch: int, *, device, dtype=torch.float32,
+                     conv_dtype=None) -> dict:
+    """Zero state of one Mamba2 layer: S (batch, H, ssm_state, head_dim) in
+    `dtype` (fp32) and the conv window (batch, W-1, conv_dim) in
+    `conv_dtype` (the compute dtype on the serving path)."""
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    H = cfg.num_heads
+    conv_dim = di + 2 * cfg.ssm_state
+    return {
+        "S": torch.zeros((batch, H, cfg.ssm_state, di // H), dtype=dtype, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, conv_dim),
+                            dtype=conv_dtype or dtype, device=device),
+    }
+
+
+def mamba_decode_step(cfg: ArchConfig, p, x: torch.Tensor, state):
+    """x: (B, 1, d) -> (y (B, 1, d), new state)."""
+    return mamba_forward(cfg, p, x, state=state)

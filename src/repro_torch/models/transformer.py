@@ -25,6 +25,7 @@ from .attention import (
     paged_decode_self_attention,
     prefill_attention,
     slot_positions,
+    tail_prefill_attention,
 )
 from .common import (
     ParamInit,
@@ -202,6 +203,50 @@ def commit_prefill_paged(cfg: ArchConfig, layout: PagedLayout, pools, dense_cach
     return pools
 
 
+def gather_paged_caches(cfg: ArchConfig, layout: PagedLayout, pools, row: torch.Tensor):
+    """Densify one slot's pool pages into full-depth B=1 caches, the read
+    half of copy-on-write (a `shared` layout: every layer's pages are
+    addressed by the same dynamic row). row: (n_pages_seq,) physical pages
+    in logical order, null-padded (padding gathers garbage that sits past
+    every valid position). Returns per-layer (k, v) (1, cache_len, KV, hd)
+    copies."""
+    idx = row.long()
+
+    def gather(pool):
+        return pool[idx].reshape(1, layout.cache_len, *pool.shape[2:])
+
+    return [(gather(pk), gather(pv)) for pk, pv in pools]
+
+
+def _tail_prefill_layer(cfg, p_l, h, cache_kv, off, *, window):
+    attn_in = rms_norm(h, p_l["ln1"], eps=cfg.norm_eps)
+    attn_out, new_cache = tail_prefill_attention(cfg, p_l["attn"], attn_in, cache_kv, off,
+                                                 window=window)
+    h = h + attn_out
+    ffn_in = rms_norm(h, p_l["ln2"], eps=cfg.norm_eps)
+    return h + ffn(cfg, p_l["ffn"], ffn_in), new_cache
+
+
+def lm_prefix_prefill(cfg: ArchConfig, layout: PagedLayout, params, pools, row: torch.Tensor,
+                      tokens: torch.Tensor, off: int):
+    """Prefill only a prompt's uncached *tail* against a shared prefix.
+
+    row: (n_pages_seq,) gather row, the matched prefix's physical pages (the
+    copy-on-write boundary page included), null-padded; tokens: (1, S_tail)
+    the uncached tail at absolute positions [off, off + S_tail). Gathers the
+    prefix K/V out of the pool pages into full-depth dense caches (local
+    layers too), runs the layers over the tail only (the FLOP saving of a
+    prefix hit) and returns (last-position logits (1, V), dense caches)
+    ready for `commit_prefill_paged`."""
+    caches = gather_paged_caches(cfg, layout, pools, row)
+    cd = dtype_of(cfg.compute_dtype)
+    h = embed(params["embed"], tokens, compute_dtype=cd)
+    for i, (p_l, w) in enumerate(zip(params["layers"], serving_windows(cfg))):
+        h, caches[i] = _tail_prefill_layer(cfg, p_l, h, caches[i], off, window=w)
+    h = rms_norm(h[:, -1:], params["final_norm"], eps=cfg.norm_eps)
+    return unembed(params["embed"], h[:, 0], tie=cfg.tie_embeddings), caches
+
+
 def _paged_decode_layer(cfg, layout, p_l, h, pool_kv, table, pos, active, *, window, ring=True):
     attn_in = rms_norm(h, p_l["ln1"], eps=cfg.norm_eps)
     attn_out, new_kv = paged_decode_self_attention(
@@ -226,8 +271,9 @@ def lm_paged_decode_step(cfg: ArchConfig, layout: PagedLayout, params, pools,
     cd = dtype_of(cfg.compute_dtype)
     h = embed(params["embed"], tokens[:, None], compute_dtype=cd)  # (B,1,d)
     local_table = layout.ring_table(device=full_table.device) if layout.ring else full_table
-    # off the ring, local layers page through the full table with no window
-    local_window = layout.window if layout.ring else 0
+    # off the ring, local layers page through the full table: with no window,
+    # or, in the shared (prefix-cache) layout, with the window as a mask
+    local_window = layout.window if (layout.ring or layout.shared) else 0
     for i, (p_l, w) in enumerate(zip(params["layers"], serving_windows(cfg))):
         if w:
             h, pools[i] = _paged_decode_layer(

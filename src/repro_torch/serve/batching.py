@@ -14,7 +14,9 @@ scheduler's page table, and the decode loop is fused: `sync_interval`
 decode+sample ticks run as ONE execution unit with tokens, positions and
 done flags staying on the device throughout; the host sees a small
 (slots, sync_interval + 2) summary once per interval instead of a device
-round trip per token.
+round trip per token. With ``shared_prefix=True`` (the prefix cache) every
+admission prefills only the prompt's uncached tail against prefix pages
+gathered from the pool (`prefill_prefix`).
 
 All computation is dispatched through the compute manager of a HiCR
 `Runtime` (registry-built): prefill, the batched decode step, the slot pack,
@@ -37,7 +39,9 @@ from .kv_pool import PagedKVPool
 TOK, POS, DONE, STEPS, EOS, CAP = range(6)
 
 #: families whose decoder state is a set of KV caches (their deepest buffer
-#: is the slot's position ceiling); the others' recurrent state is O(1)
+#: is the slot's position ceiling); the others' state is recurrent or mixed
+#: (hybrid: `max_len`-deep caches beside O(1) recurrent states), and their
+#: ceiling is `max_len`, as in the reference
 KV_CACHE_FAMILIES = ("dense", "moe", "vlm")
 
 
@@ -200,6 +204,7 @@ class PagedSlotDecoder:
         pool_pages: Optional[int] = None,
         sync_interval: int = 8,
         runtime: Optional[Runtime] = None,
+        shared_prefix: bool = False,
     ):
         if model.paged_ops is None:
             raise ValueError(
@@ -208,9 +213,15 @@ class PagedSlotDecoder:
             )
         if sync_interval < 1:
             raise ValueError("sync_interval must be >= 1")
+        if shared_prefix and model.paged_ops.prefix_prefill is None:
+            raise ValueError(
+                f"model family {model.cfg.family!r} has no prefix-prefill path; "
+                "disable the prefix cache"
+            )
         self.params = params
         self.max_slots = max_slots
         self.sync_interval = sync_interval
+        self.shared_prefix = shared_prefix
         self.rt = runtime or Runtime("torchdev")
         #: device of the runtime's processing unit: pools, control table
         #: and every execution unit's tensors live here
@@ -221,20 +232,33 @@ class PagedSlotDecoder:
         po = model.paged_ops
         self.layout = po.layout(
             max_slots=max_slots, max_len=max_len, page_size=page_size, num_pages=pool_pages,
+            shared=shared_prefix,
         )
         self.kv = PagedKVPool(self.rt, model, self.layout, device=self.device)
 
         cm = self.rt.compute_manager
         layout = self.layout
-        prefill_fn = model.make_prefill(layout.cache_len)
 
-        def paged_prefill(p, b):
-            # greedy pick fused into the unit: admission copies one int32 to
-            # the host, not a logits row
-            logits, state = prefill_fn(p, b)
-            return torch.argmax(logits, dim=-1).to(torch.int32), state
+        self._prefill_unit = None
+        if not shared_prefix:  # shared admissions go through _prefix_unit
+            prefill_fn = model.make_prefill(layout.cache_len)
 
-        self._prefill_unit = cm.create_execution_unit(paged_prefill, name="paged_prefill")
+            def paged_prefill(p, b):
+                # greedy pick fused into the unit: admission copies one int32
+                # to the host, not a logits row
+                logits, state = prefill_fn(p, b)
+                return torch.argmax(logits, dim=-1).to(torch.int32), state
+
+            self._prefill_unit = cm.create_execution_unit(paged_prefill, name="paged_prefill")
+
+        self._prefix_unit = None
+        if shared_prefix:
+            def prefix_prefill(p, pools, row, tokens, off):
+                # greedy pick fused, as in paged_prefill
+                logits, state = po.prefix_prefill(layout, p, pools, row, tokens, off)
+                return torch.argmax(logits, dim=-1).to(torch.int32), state
+
+            self._prefix_unit = cm.create_execution_unit(prefix_prefill, name="prefix_prefill")
 
         # per-slot ring rows are static: keep them on the device so an
         # admission never uploads them
@@ -296,8 +320,26 @@ class PagedSlotDecoder:
     def prefill(self, prompt: Sequence[int]):
         """B=1 dense prefill with page-aligned cache headroom. Returns
         (first greedy token, dense decoder state to commit into pages)."""
+        if self.shared_prefix:
+            # the dense prefill shapes ring-local caches; a shared layout
+            # commits full-depth caches: admissions must gather-prefill
+            raise RuntimeError("shared-prefix decoder: use prefill_prefix()")
         tokens = torch.as_tensor(np.asarray(prompt, dtype=np.int32)[None, :], device=self.device)
         first, state = self.rt.run(self._prefill_unit, self.params, {"tokens": tokens})
+        return int(first.cpu()[0]), state
+
+    def prefill_prefix(self, tail: Sequence[int], gather_row: np.ndarray, offset: int):
+        """Prefill only the uncached `tail` of a prompt against the shared
+        prefix whose pages `gather_row` names (null-padded); `offset` is the
+        matched prefix length in tokens (0 on a miss: the whole prompt is
+        the tail). Returns (first greedy token, full-depth dense state ready
+        to commit into pages)."""
+        if self._prefix_unit is None:
+            raise RuntimeError("decoder was built without shared_prefix=True")
+        tokens = torch.as_tensor(np.asarray(tail, dtype=np.int32)[None, :], device=self.device)
+        row = torch.as_tensor(np.asarray(gather_row, dtype=np.int32), device=self.device)
+        first, state = self.rt.run(self._prefix_unit, self.params, self.kv.pools, row, tokens,
+                                   int(offset))
         return int(first.cpu()[0]), state
 
     def load(

@@ -62,6 +62,9 @@ class PagedKVPool:
         )
 
     # -- page operations (hot path: indices only) ----------------------------
+    def can_admit(self, n_pages: int) -> bool:
+        return self.accounting.can_reserve(n_pages)
+
     def reserve(self, n_pages: int) -> bool:
         return self.accounting.reserve(n_pages)
 
@@ -75,10 +78,30 @@ class PagedKVPool:
         if unreserve:
             self.accounting.unreserve(unreserve)
 
+    # -- shared pages (prefix cache: fork-by-reference) -----------------------
+    def acquire(self, pages: Sequence[int]) -> None:
+        """Add one holder to each page (share an existing allocation)."""
+        self.accounting.acquire(pages)
+
+    # paper-facing alias: fork a page table entry by reference
+    share = acquire
+
+    def release(self, pages: Sequence[int]) -> None:
+        """Drop one holder per page; last holder frees the page."""
+        self.accounting.release(pages)
+
+    def refcount(self, page: int) -> int:
+        return self.accounting.refcount(page)
+
     # -- introspection --------------------------------------------------------
     @property
     def pages_free(self) -> int:
         return self.accounting.blocks_free
+
+    @property
+    def pages_available(self) -> int:
+        """Free pages not spoken for by an outstanding reservation."""
+        return self.accounting.blocks_available
 
     @property
     def pages_used(self) -> int:

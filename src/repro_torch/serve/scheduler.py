@@ -17,10 +17,18 @@ next admission. Two KV-cache modes:
   `sync_interval` fused decode+sample ticks on the device, so tokens,
   positions and done flags cross to the host only at sync points.
 
-Token semantics match the reference's scheduler exactly in both modes: the
+With ``prefix_cache=True`` (paged mode only) admission first asks a
+refcounted `RadixCache` (`serve/prefix_cache.py`) for the longest cached
+prefix of the prompt: fully matched pages are forked by reference into the
+slot's page table (the worst-case reservation shrinks by the shared pages),
+a partially matched boundary page is copy-on-write forked through the tail
+prefill's gather, and only the uncached tail runs through the model.
+Completion returns pages to the cache instead of freeing them; page pressure
+LRU-evicts pages only the cache holds before refusing admission.
+
+Token semantics match the reference's scheduler exactly in every mode: the
 first emitted token is the greedy pick from the prefill logits; each later
-token comes from one decode step at the request's own position. The prefix
-cache (``prefix_cache=True``) is not ported yet.
+token comes from one decode step at the request's own position.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from repro_torch.core.runtime import Runtime
 from repro_torch.models.model_zoo import ModelBundle
 
 from .batching import PagedSlotDecoder, SlotDecoder
+from .prefix_cache import RadixCache
 
 
 @dataclasses.dataclass
@@ -59,13 +68,15 @@ class FinishedRequest:
 class SchedulerProgress:
     """Snapshot for a streaming front door: tokens emitted so far per
     *active* request (copies), the KV-pool occupancy in paged mode
-    (None/None in dense mode: there is no shared pool to meter), and the
-    admission headroom in free slots."""
+    (None/None in dense mode: there is no shared pool to meter), the
+    admission headroom in free slots, and the radix cache's counters
+    (`RadixCache.stats`) when the prefix cache is on, else None."""
 
     requests: Dict[str, List[int]]
     pages_free: Optional[int] = None
     pages_used: Optional[int] = None
     free_slots: int = 0
+    prefix: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -77,6 +88,9 @@ class _Active:
     emitted: List[int]
     pages: List[int] = dataclasses.field(default_factory=list)  # drawn pages
     reserved_left: int = 0  # reserved-but-undrawn pages
+    #: prefix-cache pages forked by reference (head of the page-table row);
+    #: the row holds one pool reference per shared page while active
+    shared: List[int] = dataclasses.field(default_factory=list)
 
 
 class ContinuousBatchingScheduler:
@@ -101,11 +115,10 @@ class ContinuousBatchingScheduler:
                 "prefix_cache requires kv_mode='paged' (prefixes are shared "
                 "as pool pages; dense slots own private caches)"
             )
-        if prefix_cache:
-            raise NotImplementedError("prefix_cache=True is not ported yet")
         self.kv_mode = kv_mode
         self.max_batch = max_batch
         self.max_len = max_len
+        self.prefix: Optional[RadixCache] = None
         if kv_mode == "dense":
             self.decoder = SlotDecoder(
                 model, params, max_slots=max_batch, max_len=max_len, runtime=runtime
@@ -115,7 +128,10 @@ class ContinuousBatchingScheduler:
                 model, params, max_slots=max_batch, max_len=max_len,
                 page_size=page_size, pool_pages=pool_pages,
                 sync_interval=sync_interval, runtime=runtime,
+                shared_prefix=prefix_cache,
             )
+            if prefix_cache:
+                self.prefix = RadixCache(self.decoder.kv, self.decoder.layout.page_size)
             #: scheduler-owned page table: logical page j of slot s ->
             #: physical pool page (0 = null/unallocated)
             self._page_table = np.zeros(
@@ -147,6 +163,7 @@ class ContinuousBatchingScheduler:
             return SchedulerProgress(
                 requests=requests, pages_free=kv.pages_free, pages_used=kv.pages_used,
                 free_slots=self.free_slots,
+                prefix=self.prefix.stats() if self.prefix is not None else None,
             )
         return SchedulerProgress(requests=requests, free_slots=self.free_slots)
 
@@ -171,28 +188,74 @@ class ContinuousBatchingScheduler:
         if not self._free:
             return False
 
-        pages_total = 0
+        pages_total = new_pages = 0
+        m = None  # prefix-cache match (None when the cache is off)
         if self.kv_mode == "paged":
+            layout = self.decoder.layout
             kv = self.decoder.kv
-            pages_total = self.decoder.layout.pages_for(total_positions)
-            if pages_total > kv.capacity:
+            pages_total = layout.pages_for(total_positions)
+            n_shared = 0
+            if self.prefix is not None:
+                m = self.prefix.match(request.prompt)
+                n_shared = len(m.nodes)
+            # shared pages are already resident: only the new ones need
+            # reserving (the worst case shrinks with the matched prefix)
+            new_pages = pages_total - n_shared
+            if new_pages > kv.capacity:
                 raise ValueError(
-                    f"request {request.rid!r} needs {pages_total} KV pages, "
+                    f"request {request.rid!r} needs {new_pages} KV pages, "
                     f"pool capacity is {kv.capacity}"
                 )
-            if not kv.reserve(pages_total):
-                return False  # retry once pages free up
+            if m is not None:
+                self.prefix.lock(m)
+            if not kv.reserve(new_pages):
+                # page pressure: LRU-evict cache-only pages before refusing
+                if self.prefix is not None:
+                    self.prefix.evict(new_pages - kv.pages_available)
+                if not kv.reserve(new_pages):
+                    if m is not None and self.active_count == 0:
+                        # nothing in flight will ever free pages, and our own
+                        # lock may pin every evictable page: demote the match
+                        # to a miss so eviction can reclaim them (returning
+                        # False here would livelock serve())
+                        self.prefix.unlock(m)
+                        m = None
+                        new_pages = pages_total
+                        if new_pages > kv.capacity:
+                            raise ValueError(
+                                f"request {request.rid!r} needs {new_pages} KV "
+                                f"pages uncached, pool capacity is {kv.capacity}"
+                            )
+                        self.prefix.evict(new_pages - kv.pages_available)
+                    if not kv.reserve(new_pages):
+                        if m is not None:
+                            self.prefix.unlock(m)
+                        return False  # retry once pages free up
 
         try:
-            first, state = self.decoder.prefill(request.prompt)
+            if self.prefix is not None:
+                # shared-prefix decoders always admit through the gather
+                # unit (a miss, matched or demoted, gathers null pages)
+                off = m.matched_len if m is not None else 0
+                row = (self._gather_row(m) if m is not None
+                       else np.zeros((self.decoder.layout.n_pages_seq,), np.int32))
+                first, state = self.decoder.prefill_prefix(request.prompt[off:], row, off)
+            else:
+                first, state = self.decoder.prefill(request.prompt)
         except BaseException:
-            if pages_total:  # a failed prefill must not strand the reservation
-                self.decoder.kv.free((), unreserve=pages_total)
+            if new_pages:  # a failed prefill must not strand the reservation
+                self.decoder.kv.free((), unreserve=new_pages)
+            if m is not None:
+                self.prefix.unlock(m)
             raise
         emitted = [first]
         if request.max_new_tokens == 1 or first == request.eos_id:
-            if pages_total:
-                self.decoder.kv.free((), unreserve=pages_total)
+            if new_pages:
+                self.decoder.kv.free((), unreserve=new_pages)
+            if self.prefix is not None:
+                if m is not None:
+                    self.prefix.unlock(m)  # nothing committed: no donation
+                self.prefix.note(m, prompt_len)
             self._finished.append(self._finish(request, emitted))
             return True
         slot = self._free.popleft()
@@ -201,25 +264,48 @@ class ContinuousBatchingScheduler:
             self._table[slot] = _Active(request=request, slot=slot, emitted=emitted)
             return True
         layout = self.decoder.layout
+        shared = m.shared_pages if m is not None else []
+        n_shared = len(shared)
         # draw pages for everything prefill wrote + the first decode write;
         # the rest of the reservation is drawn as the slot grows
         pages_now = layout.pages_for(prompt_len + 1)
-        drawn = self.decoder.kv.draw(pages_now)
+        drawn = self.decoder.kv.draw(pages_now - n_shared)
         self._page_table[slot, :] = 0
-        self._page_table[slot, : len(drawn)] = drawn
+        self._page_table[slot, :n_shared] = shared
+        self._page_table[slot, n_shared : n_shared + len(drawn)] = drawn
+        # shared pages are read-only: the commit scatters the dense state's
+        # prefix region into the null page instead
+        commit_row = self._page_table[slot].copy()
+        commit_row[:n_shared] = 0
         self.decoder.load(
             slot, state, first, prompt_len,
             steps_left=request.max_new_tokens - 1,
             eos_id=request.eos_id,
             capacity=pages_total * layout.page_size,
-            full_row=self._page_table[slot].copy(),
+            full_row=commit_row,
         )
+        if self.prefix is not None:
+            if m is not None:
+                self.prefix.unlock_boundary(m)  # its content is copied now
+            self.prefix.note(m, prompt_len)
         self._pos_host[slot] = prompt_len
         self._table[slot] = _Active(
             request=request, slot=slot, emitted=emitted,
-            pages=drawn, reserved_left=pages_total - pages_now,
+            pages=drawn, reserved_left=pages_total - pages_now, shared=shared,
         )
         return True
+
+    def _gather_row(self, m) -> np.ndarray:
+        """Page-table row for the tail prefill's prefix gather: the matched
+        pages (by reference) plus the copy-on-write boundary source,
+        null-padded (padded gathers read the null page and sit past every
+        position the tail can attend)."""
+        row = np.zeros((self.decoder.layout.n_pages_seq,), dtype=np.int32)
+        shared = m.shared_pages
+        row[: len(shared)] = shared
+        if m.boundary is not None:
+            row[len(shared)] = m.boundary.page
+        return row
 
     def _finish(self, request: Request, emitted: List[int]) -> FinishedRequest:
         if emitted and emitted[-1] == request.eos_id:
@@ -277,7 +363,7 @@ class ContinuousBatchingScheduler:
             if row is None or not row.reserved_left:
                 continue
             target = layout.pages_for(int(self._pos_host[slot]) + self.decoder.sync_interval)
-            filled = len(row.pages)
+            filled = len(row.shared) + len(row.pages)
             delta = min(target - filled, row.reserved_left)
             if delta > 0:
                 drawn = self.decoder.kv.draw(delta)
@@ -298,7 +384,16 @@ class ContinuousBatchingScheduler:
             row.emitted.extend(int(t) for t in ticks[ticks >= 0])
             if done_mask[slot]:
                 done.append(self._finish(row.request, row.emitted))
-                self.decoder.kv.free(row.pages, unreserve=row.reserved_left)
+                if self.prefix is not None:
+                    # return pages through the radix cache: full pages of the
+                    # written sequence are donated or shared, the rest freed.
+                    # Positions written: the prompt plus every emitted token
+                    # that was fed back (the last one never was)
+                    seq = list(row.request.prompt) + row.emitted[:-1]
+                    self.prefix.commit(seq, row.shared + row.pages)
+                    self.decoder.kv.free((), unreserve=row.reserved_left)
+                else:
+                    self.decoder.kv.free(row.pages, unreserve=row.reserved_left)
                 self._page_table[slot, :] = 0
                 self._table[slot] = None
                 self._free.append(slot)

@@ -31,7 +31,7 @@ def test_port_imports_no_jax_and_no_reference():
         for name in names:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
-                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
                      or m == "repro" or m.startswith("repro."))
         print(len(names), bad, " ".join(names))
         sys.exit(1 if bad else 0)
@@ -44,7 +44,9 @@ def test_port_imports_no_jax_and_no_reference():
     assert n_modules >= 25  # every module of the package was imported
     names = out.stdout
     for module in ("repro_torch.kernels.linear_scan", "repro_torch.models.ssm",
-                   "repro_torch.models.xlstm_model", "repro_torch.configs.xlstm_125m"):
+                   "repro_torch.models.xlstm_model", "repro_torch.configs.xlstm_125m",
+                   "repro_torch.models.hybrid", "repro_torch.configs.zamba2_7b",
+                   "repro_torch.serve.prefix_cache", "repro_torch.train.checkpoint"):
         assert module in names, module
 
 
@@ -102,6 +104,22 @@ def test_xlstm_constructors_default_to_the_card_and_never_pick_the_cpu(monkeypat
                  lambda **kw: params_from_jax(cfg, tree, **kw),
                  lambda **kw: model.init_state(2, 32, **kw),
                  lambda **kw: xlstm_model.init_states(cfg, 2, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        leaves = _leaves(make(device="cpu"))  # the CPU only when asked
+        assert leaves and all(t.device.type == "cpu" for t in leaves)
+
+
+def test_hybrid_constructors_default_to_the_card_and_never_pick_the_cpu(monkeypatch):
+    from repro_torch.models import hybrid
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("zamba2-7b", reduced=True)
+    model = build(cfg)
+    for make in (lambda **kw: model.init(seed=0, **kw),
+                 lambda **kw: hybrid.init_lm(cfg, **kw),
+                 lambda **kw: model.init_state(2, 32, **kw),
+                 lambda **kw: hybrid.init_states(cfg, 2, 32, **kw)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
         leaves = _leaves(make(device="cpu"))  # the CPU only when asked

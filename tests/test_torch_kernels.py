@@ -757,6 +757,23 @@ def test_flash_kernel_matches_plain_on_card(cuda, Sq, window, kw, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,H,KV,Sq", [(112, 32, 32, 1024), (112, 32, 32, 77), (160, 32, 8, 300)],
+                         ids=["zamba2-prefill", "zamba2-ragged", "hd160-gqa"])
+def test_flash_simt_at_wide_head_dims_matches_plain_on_card(cuda, hd, H, KV, Sq, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(hd + Sq)
+    q = torch.randn((1, Sq, H, hd), generator=gen, device=cuda).to(TDT[dtype])
+    k = torch.randn((1, Sq, KV, hd), generator=gen, device=cuda).to(TDT[dtype])
+    v = torch.randn((1, Sq, KV, hd), generator=gen, device=cuda).to(TDT[dtype])
+    assert tflash.variant(q, k, v) == "simt"
+    got = tops.attention(q, k, v)
+    want = tref.attention(q, k, v)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [0, 512, 5])
 def test_paged_kernel_matches_plain_on_card(cuda, window, dtype):
     pos = [0, 15, 16, 100, 511, 512, 777, 1087]
@@ -1020,6 +1037,7 @@ def _scan_on_card(cuda, dtype, *, B, H, S, dk, dv, state=False, layout="heads", 
     dict(B=8, H=4, S=1, dk=384, dv=384, state=True),               # a decode tick
     dict(B=8, H=4, S=1, dk=384, dv=1, state=True),
     dict(B=1, H=32, S=300, dk=64, dv=224, layout="shared"),        # Mamba2: dk != dv
+    dict(B=8, H=32, S=1, dk=64, dv=224, layout="shared", state=True),  # a Mamba2 tick
     dict(B=2, H=4, S=45, dk=32, dv=32, state=True),                # REDUCED widths
     dict(B=2, H=2, S=512, dk=32, dv=16),                           # a reference SCAN_SHAPE
     # y and the normaliser in one launch (the mLSTM's call)
@@ -1030,7 +1048,7 @@ def _scan_on_card(cuda, dtype, *, B, H, S, dk, dv, state=False, layout="heads", 
     dict(B=2, H=4, S=300, dk=384, dv=384, norm=True),              # 32-column tiles
     dict(B=4, H=4, S=2048, dk=384, dv=384, norm=True),             # the loss shape
 ], ids=["ragged-777", "ragged-777-state", "normaliser", "decode", "decode-normaliser",
-        "mamba2-shared-qk", "reduced", "ref-2x2x512x32x16", "fused-ragged-777",
+        "mamba2-shared-qk", "mamba2-tick", "reduced", "ref-2x2x512x32x16", "fused-ragged-777",
         "fused-ragged-777-state", "fused-decode", "fused-reduced", "fused-300-b2", "fused-loss"])
 def test_scan_kernel_matches_plain_on_card(cuda, case, dtype):
     """Against the plain version at a chunk of at most 16 positions: its fp32

@@ -139,10 +139,14 @@ def test_paged_decode_teacher_forced_matches_reference(reduced):
     B, max_len, page = 3, 32, 8
     jlayout = jtf.make_paged_layout(jcfg, max_slots=B, max_len=max_len, page_size=page)
     tlayout = paged_layout(cfg, max_slots=B, max_len=max_len, page_size=page)
-    want = dataclasses.asdict(jlayout)
-    assert want.pop("shared") is False  # the prefix-cache layout is not ported
-    assert dataclasses.asdict(tlayout) == want
-    assert tlayout.ring and tlayout.w_pages == 2
+    assert dataclasses.asdict(tlayout) == dataclasses.asdict(jlayout)
+    assert tlayout.ring and tlayout.w_pages == 2 and not tlayout.shared
+    # the prefix cache's shared layout: no ring, every layer on the full table
+    jshared = jtf.make_paged_layout(jcfg, max_slots=B, max_len=max_len, page_size=page,
+                                    shared=True)
+    tshared = paged_layout(cfg, max_slots=B, max_len=max_len, page_size=page, shared=True)
+    assert dataclasses.asdict(tshared) == dataclasses.asdict(jshared)
+    assert tshared.shared and not tshared.ring and tshared.w_pages == 0
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in (13, 5)]
     table = np.zeros((B, tlayout.n_pages_seq), np.int32)

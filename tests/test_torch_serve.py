@@ -162,9 +162,20 @@ def test_progress_and_unported_modes(bundle, runtime):
     assert dense.try_admit(Request("d", [1, 2, 3], 6))
     prog = dense.active_progress()
     assert set(prog.requests) == {"d"} and prog.pages_used is None and prog.free_slots == 1
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ContinuousBatchingScheduler(model, params, runtime=runtime, kv_mode="paged",
-                                    prefix_cache=True)
+    # the prefix cache (ported): a radix cache over the pool, a shared
+    # layout, and every admission through the tail prefill
+    cached = ContinuousBatchingScheduler(model, params, runtime=runtime, kv_mode="paged",
+                                         max_batch=2, max_len=32, page_size=8,
+                                         prefix_cache=True)
+    assert cached.prefix is not None and cached.prefix.pool is cached.decoder.kv
+    assert cached.decoder.layout.shared and not cached.decoder.layout.ring
+    with pytest.raises(RuntimeError, match="use prefill_prefix"):
+        cached.decoder.prefill([1, 2, 3])
+    assert cached.try_admit(Request("c", [1, 2, 3], 6))
+    prog = cached.active_progress()
+    assert prog.prefix["lookups"] == 1 and prog.prefix["hits"] == 0
+    assert prog.pages_used >= 1
+    assert sched.active_progress().prefix is None and dense.active_progress().prefix is None
     with pytest.raises(ValueError, match="requires kv_mode='paged'"):
         ContinuousBatchingScheduler(model, params, runtime=runtime, prefix_cache=True)
     with pytest.raises(ValueError, match="kv_mode"):
