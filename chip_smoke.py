@@ -7,9 +7,11 @@ Drives the port's paths -- full-width gemma3-1b served by the paged and by
 the dense continuous-batching scheduler, by the serial engine and by the
 paged scheduler with the prefix cache, the paper's Test Case 2
 (heterogeneous inference), full-width xlstm-125m served by the dense
-scheduler and the serial engine and through its forward/loss, and
-full-width zamba2-7b served by the dense scheduler and the serial engine --
-and fails (non-zero exit) if any phase fails. It imports
+scheduler and the serial engine and through its forward/loss, full-width
+zamba2-7b served by the dense scheduler and the serial engine, the dense
+family (granite-20b, minitron-8b, stablelm-12b) at full width through the
+paged scheduler, and full-width gemma3-1b through the router/worker serving
+fleet -- and fails (non-zero exit) if any phase fails. It imports
 nothing of JAX or of the JAX package. Phases:
 
 1. device: the card from `nvidia-smi` (name, power limit);
@@ -44,7 +46,13 @@ nothing of JAX or of the JAX package. Phases:
    core's simt walk at 32 heads of 112, both beside SDPA, the scan at
    Mamba2's tick and ragged prefill with the operands laid out as
    `mamba_forward` makes them; the paged kernel with window 512 through the
-   full table (the prefix cache's local layers);
+   full table (the prefix cache's local layers); the dense family's shapes:
+   flash at granite-20b's prefill (48 query heads over 1, hd 128: simt),
+   minitron-8b's (32 over 8: wgmma) and stablelm-12b's (hd 160: simt), the
+   decode core's simt walk at stablelm-12b's tick (hd 160) and the paged
+   kernel at granite-20b's tick (six head groups: mma), each held against
+   its plain version and timed warm and with its inputs cold in L2 (flash
+   and the dense decode beside SDPA);
 4. reduced: REDUCED gemma3-1b in fp32 (TF32 off): prefill plus 16
    teacher-forced paged decode ticks on the card against the same functions
    on the CPU;
@@ -100,7 +108,32 @@ nothing of JAX or of the JAX package. Phases:
    phase 5's 16 requests through the dense scheduler (max_len 1088), then
    the serial engine (8 x 512, 32 steps): flash and the decode kernel on
    their simt variants (hd 112) once per group, the scan once per layer
-   (prefills `mma`, ticks `step`), peak memory.
+   (prefills `mma`, ticks `step`), peak memory;
+17. reduced-dense-family: granite-20b, minitron-8b and stablelm-12b REDUCED
+   in fp32 on the card against the CPU: prefill plus 16 teacher-forced
+   dense ticks (within 1e-4), a paged serve and a serial `generate` (equal
+   tokens, every page back);
+18. serve-dense-family: each of the three at full width (bf16, seeded,
+   depth not cut; granite 20.3 G parameters) serves phase 5's 16 requests
+   on 8 slots through the paged scheduler, stablelm also the serial engine
+   on 4 of them; tok/s, TTFT, peak memory; flash and the decode kernels on
+   the variants their rules name (granite: flash simt at 48 query heads a
+   KV head, paged mma in 6 head groups; minitron: wgmma and mma; stablelm:
+   simt at hd 160 for both); each config's weights freed before the next;
+19. conformance: the `torchdev` manager contracts on the card (execute's
+   Future resolves and carries errors, memcpy Events land host to device,
+   device to device and device to host, alloc / register / free);
+20. reduced-fleet: REDUCED fp32 gemma3-1b through the router and two
+   runtime-created worker instances (threads) on the card: the tokens of a
+   single-instance scheduler on the card and on the CPU, also with a worker
+   killed mid-stream (its requests requeued), every surviving pool back;
+21. serve-fleet: full gemma3-1b through 2 workers x 4 slots (paged) on
+   phase 5's requests: tok/s beside phase 5's, TTFT at the router, peak
+   memory, both workers settle work, exact launch counts; then a
+   kill-and-respawn on one worker must not raise the card's peak memory by
+   a pool;
+22. apps: the paper's Test Cases 3 and 4 (Fibonacci, Jacobi local and over
+   2 localsim instances) on the machine's host against their oracles.
 
 Each path's launch counts are zeroed just before it runs and read just
 after. The line before the last is one JSON object with every kernel's
@@ -110,6 +143,7 @@ kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -117,6 +151,7 @@ import os
 import subprocess
 import sys
 import time
+import weakref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -319,6 +354,18 @@ def check_flash(torch, gen) -> dict:
         dict(Sq=1024, Skv=1024, H=32, KV=8, hd=160, dtype=torch.bfloat16),
         dict(Sq=300, Skv=300, H=8, KV=2, hd=160, dtype=torch.float32, window=64),
     ]
+    # the dense family's prefills: granite-20b's 48 query heads over 1 KV head
+    # (hd 128, a group the wgmma variant's 64 rows do not divide: simt),
+    # minitron-8b's 32 over 8 (hd 128, wgmma), stablelm-12b's 32 over 8 at hd
+    # 160 (simt), at a full prompt and ragged
+    cases += [
+        dict(Sq=1024, Skv=1024, H=48, KV=1, hd=128, dtype=torch.bfloat16),
+        dict(Sq=300, Skv=300, H=48, KV=1, hd=128, dtype=torch.float32),
+        dict(B=2, Sq=77, Skv=77, H=48, KV=1, hd=128, dtype=torch.bfloat16),
+        dict(Sq=1024, Skv=1024, H=32, KV=8, hd=128, dtype=torch.bfloat16),
+        dict(Sq=777, Skv=777, H=32, KV=8, hd=128, dtype=torch.bfloat16),
+        dict(Sq=777, Skv=777, H=32, KV=8, hd=160, dtype=torch.bfloat16),
+    ]
     # the serial engine's prefill, 8 prompts of 512 tokens: a grid over a wave,
     # so two consumer warpgroups a block
     serial = [dict(B=8, Sq=512, Skv=512, H=4, KV=1, hd=256, dtype=torch.bfloat16, window=w)
@@ -332,7 +379,8 @@ def check_flash(torch, gen) -> dict:
         name = str(case["dtype"]).split(".")[-1]
         err, ok = _max_err_and_ok(torch, got, want, TOL[name])
         desc = ", ".join(f"{k}={v}" for k, v in case.items() if k != "dtype")
-        tc = name == "bfloat16" and case["hd"] in flash_attention.WGMMA_HEAD_DIMS
+        tc = (name == "bfloat16" and case["hd"] in flash_attention.WGMMA_HEAD_DIMS
+              and flash_attention.WGMMA_ROWS % (case["H"] // case["KV"]) == 0)
         layout = kind[0]
         if kind == ["wgmma"]:
             consumers = flash_attention.consumer_warpgroups(q, k)
@@ -392,12 +440,13 @@ def check_flash(torch, gen) -> dict:
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * elem
     flops = 4 * hd * H * pairs
     b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
-    # the simt kernel at the head dims the tensor-core variant does not take:
-    # zamba2-7b's prefill (B=1, 1024 tokens, 32 heads over 32, hd 112) and
-    # stablelm-12b's hd 160 (32 over 8), each beside SDPA
-    simt_timings = [_flash_timing(torch, gen, label, **shape) for label, shape in (
-        ("zamba2-7b prefill", dict(Sq=1024, H=32, KV=32, hd=112)),
-        ("hd 160, G=4", dict(Sq=1024, H=32, KV=8, hd=160)))]
+    # the configs' other prefills (B=1, 1024 tokens), each beside SDPA: the
+    # simt kernel at the head dims and group sizes the tensor-core variant
+    # does not take (zamba2-7b: 32 heads over 32, hd 112; stablelm-12b: 32
+    # over 8, hd 160; granite-20b: 48 over 1, hd 128), and minitron-8b's 32
+    # over 8 at hd 128 on wgmma
+    shape_timings = [_flash_timing(torch, gen, label, want, **shape)
+                     for label, want, shape in FLASH_TIMINGS]
     log(f"[kernels] flash_attention timing B=1 Sq=Skv={Sq} H={H} KV={KV} hd={hd} bf16 causal "
         f"({kind}): kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms "
         f"(sdpa max_abs_err vs plain {lib_err:.3e}); device time per call: kernel "
@@ -429,20 +478,36 @@ def check_flash(torch, gen) -> dict:
         "other_timings": [
             {"shape": "B=1 Sq=Skv=1024 window=512", "ms": t_kernel_w, "device_ms": d_kernel_w},
             {"shape": "B=8 Sq=Skv=512 causal", "device_ms": d_serial},
-            {"shape": "B=4 Sq=Skv=512 causal", "device_ms": d_half}] + simt_timings,
+            {"shape": "B=4 Sq=Skv=512 causal", "device_ms": d_half}] + shape_timings,
     }
 
 
-def _flash_timing(torch, gen, label, *, Sq, H, KV, hd) -> dict:
-    """Device times of flash (bf16, B=1, causal, Sq = Skv), its plain version
-    and SDPA at one shape, with the bound."""
+#: (label, variant the rule names, shape) of the prefill shapes timed beside
+#: gemma3-1b's: B=1, a 1024-token prompt, causal, bf16
+FLASH_TIMINGS = (
+    ("zamba2-7b prefill", "simt", dict(Sq=1024, H=32, KV=32, hd=112)),
+    ("stablelm-12b prefill", "simt", dict(Sq=1024, H=32, KV=8, hd=160)),
+    ("granite-20b prefill", "simt", dict(Sq=1024, H=48, KV=1, hd=128)),
+    ("minitron-8b prefill", "wgmma", dict(Sq=1024, H=32, KV=8, hd=128)),
+)
+
+
+def _flash_timing(torch, gen, label, want_kind, *, Sq, H, KV, hd) -> dict:
+    """Device times of flash (bf16, B=1, causal, Sq = Skv), warm and with
+    its inputs cold in L2, its plain version and SDPA at one shape, with the
+    bound; the launch must take variant `want_kind`."""
     from repro_torch.kernels import flash_attention, ref
 
-    (q, k, v, kw), _, want = _flash_case(torch, gen, Sq=Sq, Skv=Sq, H=H, KV=KV, hd=hd,
-                                         dtype=torch.bfloat16)
+    (q, k, v, kw), got, want = _flash_case(torch, gen, Sq=Sq, Skv=Sq, H=H, KV=KV, hd=hd,
+                                           dtype=torch.bfloat16)
+    err, ok = _max_err_and_ok(torch, got, want, TOL["bfloat16"])
+    require(ok, f"flash_attention ({label}) disagrees with its plain version: {err:.3e}")
     kind = launched_variant(flash_attention,
                             lambda: flash_attention.flash_attention(q, k, v, **kw))
+    require(kind == want_kind, f"flash_attention ({label}) ran {kind}, expected {want_kind}")
     d_kernel = device_ms(torch, lambda: flash_attention.flash_attention(q, k, v, **kw))
+    d_cold = cold_device_ms(torch, lambda q_, k_, v_: flash_attention.flash_attention(
+        q_, k_, v_, **kw), (q, k, v), q.nbytes + k.nbytes + v.nbytes)
     d_plain = device_ms(torch, lambda: ref.attention(q, k, v, **kw), iters=5)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -454,11 +519,13 @@ def _flash_timing(torch, gen, label, *, Sq, H, KV, hd) -> dict:
     flops = 4 * hd * H * pairs
     b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
     shape = f"{label}: B=1 Sq=Skv={Sq} H={H} KV={KV} hd={hd} bf16 causal ({kind})"
-    log(f"[kernels] flash_attention timing {shape}: device time per call: kernel "
-        f"{d_kernel:.4f} ms, plain {d_plain:.4f} ms, sdpa {d_lib:.4f} ms (sdpa max_abs_err vs "
-        f"plain {lib_err:.3e}); bound {max(b_bytes, b_ops) * 1e3:.2f} us ({n_bytes} B, "
-        f"{flops} FLOP); {flops / (d_kernel * 1e-3) / 1e12:.2f} TFLOP/s on the device time")
-    return dict(shape=shape, variant=kind, device_ms=d_kernel, plain_device_ms=d_plain,
+    log(f"[kernels] flash_attention timing {shape}: max_abs_err={err:.3e}; device time per "
+        f"call: kernel {d_kernel:.4f} ms ({d_cold:.4f} ms with the inputs cold in L2), plain "
+        f"{d_plain:.4f} ms, sdpa {d_lib:.4f} ms (sdpa max_abs_err vs plain {lib_err:.3e}); bound "
+        f"{max(b_bytes, b_ops) * 1e3:.2f} us ({n_bytes} B, {flops} FLOP); "
+        f"{flops / (d_kernel * 1e-3) / 1e12:.2f} TFLOP/s on the device time")
+    return dict(shape=shape, variant=kind, max_abs_err=err, device_ms=d_kernel,
+                cold_device_ms=d_cold, plain_device_ms=d_plain,
                 library_device_ms=d_lib, bound_ms=max(b_bytes, b_ops),
                 bound_by="bytes" if b_bytes >= b_ops else "operations",
                 tflops=flops / (d_kernel * 1e-3) / 1e12)
@@ -546,6 +613,11 @@ def check_paged(torch, gen) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for H in (12, 48):
             cases.append(dict(pos=uneven, dtype=dtype, H=H, hd=128, window=0))
+    # the dense family's ticks: minitron-8b (32 over 8, hd 128: mma) and
+    # stablelm-12b (32 over 8, hd 160: the simt walk)
+    for hd in (128, 160):
+        cases.append(dict(pos=uneven, dtype=torch.bfloat16, H=32, KV=8, hd=hd))
+    cases.append(dict(pos=uneven, dtype=torch.float32, H=32, KV=8, hd=160))
     worst, worst_tol = 0.0, None
     for case in cases:
         q, kp, vp, tbl, pos = _paged_case(torch, gen, **case)
@@ -599,6 +671,9 @@ def check_paged(torch, gen) -> dict:
     log(f"[kernels] paged_decode_attention timing, window 512 through the full table (the "
         f"prefix cache's local layers; {n_window} positions in the windows): device "
         f"{d_window:.4f} ms; bound {w_bound * 1e3:.3f} us")
+    # granite-20b's tick: 48 query heads over 1 KV head, hd 128, six head
+    # groups of 8 (mma)
+    granite = _paged_timing(torch, gen, uneven, "granite-20b decode", "mma", H=48, KV=1, hd=128)
     for k in ("mma", "simt"):
         log(f"[kernels] paged_decode_attention ptxas: "
             f"{decode_ptxas('PagedRows', q.dtype, hd, H // KV, k)}")
@@ -625,8 +700,47 @@ def check_paged(torch, gen) -> dict:
         "variant": kind,
         "timed_shape": f"B={B} H={H} KV={KV} hd={hd} page=16 n_pages=68 bf16 window=0",
         "other_timings": [{"shape": "the same, window=512 through the full table",
-                           "device_ms": d_window, "bound_ms": w_bound}],
+                           "device_ms": d_window, "bound_ms": w_bound}, granite],
     }
+
+
+def _paged_timing(torch, gen, pos, label, want_kind, *, H, KV, hd) -> dict:
+    """The paged kernel at one serving tick's shape (8 slots, 16-position
+    pages, `pos` positions, bf16), warm and with the pools cold in L2,
+    beside its plain version, with the bound; no single PyTorch call
+    computes the paged gather and attention together."""
+    from repro_torch.kernels import decode_core, paged_decode_attention, ref
+
+    q, kp, vp, tbl, pos_t = _paged_case(torch, gen, pos=pos, dtype=torch.bfloat16, H=H, KV=KV,
+                                        hd=hd)
+    kind = decode_core.variant(q, kp)
+    require(kind == want_kind, f"paged_decode_attention ({label}) ran {kind}, expected {want_kind}")
+    got = paged_decode_attention.paged_decode_attention(q, kp, vp, tbl, pos_t)
+    err, ok = _max_err_and_ok(torch, got, ref.paged_decode_attention(q, kp, vp, tbl, pos_t),
+                              PAGED_TOL["bfloat16"])
+    require(ok, f"paged_decode_attention ({label}) disagrees with its plain version: {err:.3e}")
+    d_kernel = device_ms(torch, lambda: paged_decode_attention.paged_decode_attention(
+        q, kp, vp, tbl, pos_t))
+    d_plain = device_ms(torch, lambda: ref.paged_decode_attention(q, kp, vp, tbl, pos_t))
+    d_cold = cold_device_ms(
+        torch, lambda k_, v_: paged_decode_attention.paged_decode_attention(q, k_, v_, tbl, pos_t),
+        (kp, vp), kp.nbytes + vp.nbytes)
+    B = q.shape[0]
+    n_valid = sum(p + 1 for p in pos)
+    elem = q.element_size()
+    n_bytes = 2 * q.numel() * elem + 2 * n_valid * KV * hd * elem + tbl.numel() * 4 + B * 4
+    flops = 4 * H * hd * n_valid
+    b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+    shape = (f"{label}: B={B} H={H} KV={KV} hd={hd} page=16 bf16, {n_valid} valid positions "
+             f"({kind}, {decode_core.head_groups(H // KV)} head groups, cluster of "
+             f"{decode_core.cluster_size(q, kp)})")
+    log(f"[kernels] paged_decode_attention timing {shape}: max_abs_err={err:.3e}; device time "
+        f"per call: kernel {d_kernel:.4f} ms ({d_cold:.4f} ms with the pools cold in L2), plain "
+        f"{d_plain:.4f} ms; bound {max(b_bytes, b_ops) * 1e3:.3f} us ({n_bytes} B, {flops} FLOP)")
+    return dict(shape=shape, variant=kind, max_abs_err=err, device_ms=d_kernel,
+                cold_device_ms=d_cold, plain_device_ms=d_plain, library_device_ms=None,
+                bound_ms=max(b_bytes, b_ops),
+                bound_by="bytes" if b_bytes >= b_ops else "operations")
 
 
 def _decode_case(torch, gen, *, pos, dtype, B=8, S=1088, H=4, KV=1, hd=256, poison=False):
@@ -664,6 +778,10 @@ def check_decode(torch, gen) -> dict:
             # zamba2-7b's shared block: 32 heads over 32, head_dim 112 (224-byte
             # bf16 rows, 14 loads of 16 B), on the simt walk
             dict(pos=uneven, dtype=dtype, H=32, KV=32, hd=112),
+            # the dense family: stablelm-12b (32 over 8, hd 160: the simt walk
+            # at 20 loads of 16 B a bf16 row) and minitron-8b (32 over 8, hd 128)
+            dict(pos=uneven, dtype=dtype, H=32, KV=8, hd=160),
+            dict(pos=uneven, dtype=dtype, H=32, KV=8, hd=128),
         ]
     worst, worst_tol = 0.0, None
     for case in cases:
@@ -734,7 +852,8 @@ def check_decode(torch, gen) -> dict:
 
     d16, d16_paged = timed_with("MAX_CLUSTER", 16)
     d_simt, d_simt_paged = timed_with("variant", lambda q_, k_: "simt")
-    zamba2 = _decode_timing(torch, gen, uneven)
+    zamba2 = _decode_timing(torch, gen, uneven, "zamba2-7b decode", H=32, KV=32, hd=112)
+    stablelm = _decode_timing(torch, gen, uneven, "stablelm-12b decode", H=32, KV=8, hd=160)
     n_valid = sum(p + 1 for p in uneven)
     elem = q.element_size()
     n_bytes = 2 * q.numel() * elem + 2 * n_valid * KV * hd * elem + B * 4
@@ -781,19 +900,22 @@ def check_decode(torch, gen) -> dict:
         "variant": kind,
         "paged_same_positions_device_ms": d_paged,
         "timed_shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16, {n_valid} valid positions",
-        "other_timings": [zamba2],
+        "other_timings": [zamba2, stablelm],
     }
 
 
-def _decode_timing(torch, gen, pos) -> dict:
-    """The dense kernel at zamba2-7b's decode shape (8 slots, 1088-deep
-    caches, 32 heads over 32, head_dim 112, bf16: the simt walk) beside its
-    plain version and SDPA, with the bound."""
+def _decode_timing(torch, gen, pos, label, *, H, KV, hd) -> dict:
+    """The dense kernel at a decode tick's shape off the tensor-core walk
+    (8 slots, 1088-deep caches, a head_dim not a power of two, bf16: the
+    simt walk) beside its plain version and SDPA, with the bound."""
     from repro_torch.kernels import decode_attention, decode_core, ref
 
-    q, k, v, pos_t = _decode_case(torch, gen, pos=pos, dtype=torch.bfloat16, H=32, KV=32, hd=112)
+    q, k, v, pos_t = _decode_case(torch, gen, pos=pos, dtype=torch.bfloat16, H=H, KV=KV, hd=hd)
     kind = decode_core.variant(q, k)
-    require(kind == "simt", f"decode_attention at hd 112 ran {kind}, expected simt")
+    require(kind == "simt", f"decode_attention at hd {hd} ran {kind}, expected simt")
+    err, ok = _max_err_and_ok(torch, decode_attention.decode_attention(q, k, v, pos_t),
+                              ref.decode_attention(q, k, v, pos_t), TOL["bfloat16"])
+    require(ok, f"decode_attention ({label}) disagrees with its plain version: {err:.3e}")
     d_kernel = device_ms(torch, lambda: decode_attention.decode_attention(q, k, v, pos_t))
     d_plain = device_ms(torch, lambda: ref.decode_attention(q, k, v, pos_t))
     d_cold = cold_device_ms(
@@ -810,14 +932,15 @@ def _decode_timing(torch, gen, pos) -> dict:
     n_bytes = 2 * q.numel() * elem + 2 * n_valid * KV * hd * elem + B * 4
     flops = 4 * H * hd * n_valid
     b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
-    shape = (f"zamba2-7b decode: B={B} S={S} H={H} KV={KV} hd={hd} bf16, {n_valid} valid "
+    shape = (f"{label}: B={B} S={S} H={H} KV={KV} hd={hd} bf16, {n_valid} valid "
              f"positions ({kind}, cluster of {decode_core.cluster_size(q, k)})")
-    log(f"[kernels] decode_attention timing {shape}: device time per call: kernel "
+    log(f"[kernels] decode_attention timing {shape}: max_abs_err={err:.3e}; device time per call: kernel "
         f"{d_kernel:.4f} ms, plain {d_plain:.4f} ms, sdpa {d_lib:.4f} ms; kernel with the "
         f"caches cold in L2 {d_cold:.4f} ms; bound {max(b_bytes, b_ops) * 1e3:.3f} us "
         f"({n_bytes} B, {flops} FLOP)")
-    return dict(shape=shape, variant=kind, device_ms=d_kernel, plain_device_ms=d_plain,
-                cold_device_ms=d_cold, library_device_ms=d_lib, bound_ms=max(b_bytes, b_ops),
+    return dict(shape=shape, variant=kind, max_abs_err=err, device_ms=d_kernel,
+                plain_device_ms=d_plain, cold_device_ms=d_cold, library_device_ms=d_lib,
+                bound_ms=max(b_bytes, b_ops),
                 bound_by="bytes" if b_bytes >= b_ops else "operations")
 
 
@@ -1333,7 +1456,7 @@ SERVE_REQUESTS = dict(n=16, prompt_range=(64, 1025), steps_range=(16, 65), seed=
 def phase_serve(torch, kv_mode: str = "paged") -> tuple:
     """Full-width gemma3-1b serves the 16 synthetic requests through the
     continuous-batching scheduler in `kv_mode`. Returns (launch counts of
-    the served run, {rid: tokens})."""
+    the served run, {rid: tokens}, tok/s)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1434,7 +1557,7 @@ def phase_serve(torch, kv_mode: str = "paged") -> tuple:
         f"flash by variant {variants['flash_attention']}")
     for r in requests[:3]:
         log(f"{tag} {r.rid}: prompt {len(r.prompt)} tokens -> {results[r.rid].tokens[:8]}...")
-    return counts, {rid: fin.tokens for rid, fin in results.items()}
+    return counts, {rid: fin.tokens for rid, fin in results.items()}, n_tok / wall
 
 
 # ---------------------------------------------------------------------------
@@ -2442,6 +2565,650 @@ def phase_serve_zamba2(torch) -> tuple:
     return counts, serial_counts
 
 
+# ---------------------------------------------------------------------------
+# 17-18. the dense family: granite-20b, minitron-8b, stablelm-12b
+# ---------------------------------------------------------------------------
+
+
+DENSE_FAMILY = ("granite-20b", "minitron-8b", "stablelm-12b")
+#: the variants each config's full-width paged serve launches, by the
+#: kernels' rules: (flash, paged decode). granite's 48 query heads a KV head
+#: do not divide the wgmma variant's 64 rows; stablelm's head_dim 160 is
+#: neither a wgmma head dim nor a power of two
+DENSE_FAMILY_VARIANTS = {"granite-20b": ("simt", "mma"), "minitron-8b": ("wgmma", "mma"),
+                         "stablelm-12b": ("simt", "simt")}
+
+
+def phase_reduced_dense_family(torch) -> None:
+    """Each REDUCED fp32 config of the dense family on the card against the
+    CPU: prefill plus 16 teacher-forced dense ticks (logits within 1e-4),
+    then a paged continuous serve and a serial `generate` (equal tokens)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    from repro_torch.serve.workload import synthetic_requests
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in DENSE_FAMILY:
+        cfg = get_config(arch, reduced=True)
+        require(cfg.compute_dtype == "float32", f"REDUCED {arch} computes in fp32")
+        model = build(cfg)
+        params_cpu = model.init(seed=0, device="cpu")
+        params_card = _to_device(params_cpu, "cuda")
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (45, 12, 3)]
+        steps = rng.integers(1, cfg.vocab_size, (16, len(prompts))).tolist()
+        ops.reset_launch_counts()
+        on_card = dense_logits(torch, cfg, params_card, prompts, steps, "cuda")
+        counts = ops.launch_counts()
+        on_cpu = dense_logits(torch, cfg, params_cpu, prompts, steps, "cpu")
+        require(counts["flash_attention"] == len(prompts) * cfg.num_layers
+                and counts["decode_attention"] == len(steps) * cfg.num_layers,
+                f"reduced {arch} run did not go through the kernels: {counts}")
+        worst = max(float((a - b).abs().max()) for a, b in zip(on_card, on_cpu))
+        same_greedy = all(torch.equal(a.argmax(-1), b.argmax(-1)) for a, b in zip(on_card, on_cpu))
+
+        requests = synthetic_requests(cfg.vocab_size, 6, prompt_range=(3, 40),
+                                      steps_range=(2, 14), seed=0)
+        engine_prompts = rng.integers(1, cfg.vocab_size, (3, 9)).astype(np.int32)
+        served, generated, launches, pages = {}, {}, {}, {}
+        for device, params in (("cuda", params_card), ("cpu", params_cpu)):
+            with Runtime("torchdev", device=device) as rt:
+                ops.reset_launch_counts()
+                sched = ContinuousBatchingScheduler(model, params, max_batch=4, max_len=64,
+                                                    runtime=rt, kv_mode="paged", page_size=8,
+                                                    sync_interval=4)
+                served[device] = {rid: f.tokens for rid, f in sched.serve(requests).items()}
+                pages[device] = sched.decoder.kv.pages_used
+                engine = ServeEngine(model, params, max_len=40, runtime=rt)
+                generated[device] = engine.generate(engine_prompts, steps=12).tokens
+                launches[device] = ops.launch_counts()
+        log(f"[reduced-dense-family] {arch} REDUCED fp32 ({cfg.num_layers} layers, "
+            f"{cfg.num_heads}q/{cfg.num_kv_heads}kv x {cfg.resolved_head_dim}, act {cfg.act}, "
+            f"untied): prefill of {len(prompts)} prompts + {len(steps)} teacher-forced dense ticks:"
+            f" max |logits card - cpu| = {worst:.3e} (atol {REDUCED_ATOL}), greedy tokens equal: "
+            f"{same_greedy}; paged serve of {len(requests)} requests and serial generate (3 x 9, "
+            f"12 steps): card tokens equal CPU tokens: serve {served['cuda'] == served['cpu']}, "
+            f"generate {bool(np.array_equal(generated['cuda'], generated['cpu']))}; pages used "
+            f"after the drain {pages}; card launches {launches['cuda']}")
+        require(worst <= REDUCED_ATOL, f"REDUCED {arch} logits differ by {worst:.3e}")
+        require(same_greedy, f"REDUCED {arch} greedy tokens differ between the card and the CPU")
+        require(launches["cuda"]["paged_decode_attention"] > 0
+                and launches["cuda"]["decode_attention"] > 0,
+                f"the {arch} serve and engine launched no decode kernel")
+        require(served["cuda"] == served["cpu"], f"REDUCED {arch} paged serve tokens differ")
+        require(bool(np.array_equal(generated["cuda"], generated["cpu"])),
+                f"REDUCED {arch} serial generate tokens differ card vs CPU")
+        require(pages == {"cuda": 0, "cpu": 0}, f"{arch}: pages left after the drain: {pages}")
+
+
+def phase_serve_dense_family(torch) -> dict:
+    """Each dense-family config at full width (bf16, seeded, depth not cut)
+    serves the 16 synthetic requests on 8 slots through the paged scheduler;
+    stablelm-12b also runs the serial engine on 4 of them. One config's
+    weights are freed before the next is made. Returns launch counts by
+    path."""
+    counts = {}
+    for arch in DENSE_FAMILY:
+        counts.update(_serve_dense_config(torch, arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated()
+        require(left < 2**30, f"{arch}: {left / 2**30:.2f} GiB still allocated after its phase")
+    return counts
+
+
+def _serve_dense_config(torch, arch: str) -> dict:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models.common import dtype_of
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    from repro_torch.serve.workload import synthetic_requests
+
+    tag = f"[serve-dense-family] {arch}"
+    cfg = get_config(arch)
+    model = build(cfg)
+    L = cfg.num_layers
+    n_req = SERVE_REQUESTS["n"]
+    prompt_range, steps_range = SERVE_REQUESTS["prompt_range"], SERVE_REQUESTS["steps_range"]
+    max_len = (prompt_range[1] - 1) + (steps_range[1] - 1)
+    flash_kind, decode_kind = DENSE_FAMILY_VARIANTS[arch]
+    out = {}
+    gc.collect()  # earlier phases' objects in reference cycles hold card memory
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with Runtime("torchdev") as rt:
+        t0 = time.perf_counter()
+        params = model.init(seed=0, device=rt.processing_unit.context,
+                            dtype=dtype_of(cfg.compute_dtype))
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        weights = torch.cuda.memory_allocated() - base
+        log(f"{tag}: {L} layers, d_model {cfg.d_model}, {cfg.num_heads}q/{cfg.num_kv_heads}kv "
+            f"heads x {cfg.resolved_head_dim}, d_ff {cfg.d_ff} ({cfg.act}), vocab "
+            f"{cfg.vocab_size} (untied), {cfg.compute_dtype}; {n_params} parameters "
+            f"({weights / 2**30:.2f} GiB) initialised on the card in "
+            f"{time.perf_counter() - t0:.1f}s")
+        sched = ContinuousBatchingScheduler(model, params, max_batch=8, max_len=max_len,
+                                            runtime=rt, kv_mode="paged", page_size=16,
+                                            sync_interval=8)
+        pool = sum(k.nbytes + v.nbytes for k, v in sched.decoder.kv.pools)
+        warm = synthetic_requests(cfg.vocab_size, 2, prompt_range=(64, 65), steps_range=(9, 10),
+                                  seed=1, rid_prefix="warm")
+        sched.serve(warm)
+        requests = synthetic_requests(cfg.vocab_size, n_req, prompt_range=prompt_range,
+                                      steps_range=steps_range, seed=SERVE_REQUESTS["seed"])
+        ticks0 = sched.ticks
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        wall, ttft, _, tokens = _timed_serve(torch, sched, requests)
+        counts = ops.launch_counts()
+        variants = ops.variant_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        ticks = sched.ticks - ticks0
+        n_tok = 0
+        for r in requests:
+            toks = np.asarray(tokens[r.rid])
+            require(len(toks) == r.max_new_tokens,
+                    f"{arch} {r.rid}: {len(toks)} tokens, budget {r.max_new_tokens}")
+            require(bool(np.all((toks >= 0) & (toks < cfg.vocab_size))),
+                    f"{arch} {r.rid}: token out of range")
+            n_tok += len(toks)
+        want = {"flash_attention": n_req * L, "paged_decode_attention": ticks * L,
+                "decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0}
+        require(counts == want, f"{arch} serve launches {counts}, expected {want}")
+        require_variant(variants, "flash_attention", flash_kind, want["flash_attention"],
+                        f"{arch} serve")
+        require_variant(variants, "paged_decode_attention", decode_kind,
+                        want["paged_decode_attention"], f"{arch} serve")
+        require(sched.decoder.kv.pages_used == 0, f"{arch}: pages still allocated after the drain")
+        tt = np.asarray(list(ttft.values()))
+        plens = [len(r.prompt) for r in requests]
+        log(f"{tag}: {n_req} requests (prompts {min(plens)}-{max(plens)} tokens, {sum(plens)} "
+            f"prompt tokens), {n_tok} generated tokens in {wall:.3f}s: {n_tok / wall:.1f} tok/s; "
+            f"TTFT p50 {np.percentile(tt, 50) * 1e3:.1f} ms, p90 {np.percentile(tt, 90) * 1e3:.1f}"
+            f" ms (from a common start, queueing included); {ticks} decode ticks; peak device "
+            f"memory {peak / 2**30:.2f} GiB (weights "
+            f"{weights / 2**30:.2f}, page pool {pool / 2**30:.2f}); launches {counts}, "
+            f"by variant flash {variants['flash_attention']}, paged decode "
+            f"{variants['paged_decode_attention']}")
+        for r in requests[:2]:
+            log(f"{tag} {r.rid}: prompt {len(r.prompt)} tokens -> {tokens[r.rid][:8]}...")
+        out[f"serve-{arch}"] = counts
+        del sched
+        gc.collect()
+
+        if arch == "stablelm-12b":
+            # the serial engine (dense caches, the decode core's simt walk at
+            # hd 160) on 4 of the requests, one at a time
+            engine = ServeEngine(model, params, max_len=max_len, runtime=rt)
+            engine.generate(np.asarray([warm[0].prompt], np.int32), steps=2)  # warm-up
+            few = requests[:4]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            firsts, t0 = [], time.perf_counter()
+            for r in few:
+                t_req = time.perf_counter()
+                res = engine.generate(np.asarray([r.prompt], np.int32), steps=r.max_new_tokens,
+                                      on_first_token=lambda t=t_req: firsts.append(
+                                          time.perf_counter() - t))
+                toks = res.tokens[0]
+                require(len(toks) == r.max_new_tokens and bool(np.all(
+                    (toks >= 0) & (toks < cfg.vocab_size))), f"serial {r.rid}: bad tokens")
+                require(bool(np.isfinite(res.prefill_logits).all()),
+                        f"serial {r.rid}: prefill logits not finite")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            serial = ops.launch_counts()
+            serial_variants = ops.variant_counts()
+            peak = torch.cuda.max_memory_allocated() - base
+            n_steps = sum(r.max_new_tokens for r in few)
+            want = {"flash_attention": len(few) * L, "decode_attention": n_steps * L,
+                    "paged_decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0}
+            require(serial == want, f"{arch} serial launches {serial}, expected {want}")
+            require_variant(serial_variants, "flash_attention", "simt", want["flash_attention"],
+                            f"{arch} serial")
+            require_variant(serial_variants, "decode_attention", "simt",
+                            want["decode_attention"], f"{arch} serial")
+            log(f"{tag} serial ServeEngine.generate on {len(few)} requests one at a time "
+                f"(prompts {[len(r.prompt) for r in few]}): {n_steps} tokens in {wall:.3f}s: "
+                f"{n_steps / wall:.1f} tok/s; first token after "
+                f"{[round(f * 1e3, 1) for f in firsts]} ms; peak device memory "
+                f"{peak / 2**30:.2f} GiB; launches {serial}")
+            out[f"serve-{arch} serial"] = serial
+            del engine
+        del params
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 19. the torchdev backend's contracts on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_conformance(torch) -> None:
+    """The manager contracts of the conformance matrix, for `torchdev` bound
+    to the card: execute returns a Future that resolves (and carries an
+    error), memcpy returns an Event that lands host to device, device to
+    device and device to host, memory slots are allocated, registered and
+    freed."""
+    from repro_torch.backends import torchdev
+    from repro_torch.core.definitions import LifetimeError, UnsupportedOperationError
+
+    topo = torchdev.TorchTopologyManager().query_topology()
+    dev = topo.get_devices()[0]
+    require(dev.kind == "gpu" and topo.all_compute_resources()[0].attributes["sm_count"] > 0,
+            f"torchdev topology on the card: {dev}")
+    cm = torchdev.TorchComputeManager()
+    pu = cm.create_processing_unit(topo.all_compute_resources()[0])
+    cm.initialize(pu)
+    x = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+    try:
+        unit = cm.create_execution_unit(lambda t: (t * 2).sum(), name="double-sum")
+        state = cm.create_execution_state(unit, x)
+        fut = cm.execute(pu, state)
+        require(fut.wait(30), "execute's Future never resolved")
+        got = float(fut.result())
+        require(got == float((1 << 20) * ((1 << 20) - 1)), f"execute returned {got}")
+        require(fut.done() and cm.is_finished(state), "the Future resolved, the state did not")
+        try:
+            cm.execute(pu, state)
+            require(False, "a finished execution state ran again")
+        except LifetimeError:
+            pass
+
+        def boom(t):
+            raise ValueError("conformance-boom")
+
+        bad = cm.create_execution_state(cm.create_execution_unit(boom, name="boom"), x)
+        fut = cm.execute(pu, bad)
+        require(fut.wait(30), "a failing unit's Future never resolved")
+        try:
+            fut.result()
+            require(False, "the error did not propagate through the Future")
+        except ValueError as e:
+            require("conformance-boom" in str(e), f"the Future carried {e!r}")
+        require(bad.error is not None, "the failing state records no error")
+        for op in (cm.suspend, cm.resume):
+            try:
+                op(pu)
+                require(False, f"{op.__name__} did not raise")
+            except UnsupportedOperationError:
+                pass
+    finally:
+        cm.finalize(pu)
+
+    mm, host_mm = torchdev.TorchMemoryManager(), torchdev.TorchMemoryManager(device="cpu")
+    space, host = mm.memory_spaces()[0], host_mm.memory_spaces()[0]
+    require(space.kind == "device_hbm" and host.kind == "host_ram",
+            f"memory spaces {space.kind}, {host.kind}")
+    n = 1 << 22
+    payload = torch.randint(0, 256, (n,), dtype=torch.uint8, generator=torch.Generator().manual_seed(0))
+    src = host_mm.register_tensor_slot(host, payload)
+    on_card = mm.allocate_local_memory_slot(space, n)
+    again = mm.allocate_local_memory_slot(space, n)
+    back = host_mm.allocate_local_memory_slot(host, n)
+    require(on_card.handle.device.type == "cuda" and back.handle.device.type == "cpu",
+            "slots on the wrong devices")
+    comm = torchdev.TorchCommunicationManager()
+    events = {}
+    for name, dst, s in (("host to device", on_card, src), ("device to device", again, on_card),
+                         ("device to host", back, again)):
+        ev = comm.memcpy(dst, 0, s, 0, n)
+        require(ev.wait(30) and ev.done(), f"the {name} memcpy Event never completed")
+        events[name] = bool(torch.equal(dst.handle.cpu(), payload))
+    comm.fence(0)
+    require(all(events.values()), f"memcpy results wrong: {events}")
+    # offsets inside the slots, device to device
+    ev = comm.memcpy(again, 100, on_card, 7, 1000)
+    require(ev.wait(30), "offset memcpy never completed")
+    require(bool(torch.equal(again.handle[100:1100].cpu(), payload[7:1007])), "offset memcpy")
+    reg = mm.register_tensor_slot(space, x)
+    require(reg.registered and reg.size_bytes == x.nbytes and reg.handle is x,
+            "registering a card tensor did not keep it")
+    try:
+        mm.allocate_local_memory_slot(space, 0)
+        require(False, "a zero-byte allocation was accepted")
+    except ValueError:
+        pass
+    mm.free_local_memory_slot(on_card)
+    for fn in (on_card.check_alive, lambda: mm.free_local_memory_slot(on_card)):
+        try:
+            fn()
+            require(False, "a freed slot is still alive")
+        except LifetimeError:
+            pass
+    try:
+        comm.exchange_global_memory_slots(1, {})
+        require(False, "torchdev exchanged global slots")
+    except UnsupportedOperationError:
+        pass
+    log(f"[conformance] torchdev on {dev.attributes['torch_device']} "
+        f"({topo.all_compute_resources()[0].attributes['name']}): execute Future resolves and "
+        f"carries errors, states are single use, suspension refused; memcpy of {n} B "
+        f"{events}; alloc/register/free and the lifetime errors hold")
+
+
+# ---------------------------------------------------------------------------
+# 20-21. the serving fleet: a router instance and runtime-created workers
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _worker_schedulers(keep: bool = True):
+    """Record every scheduler the fleet's workers build: the schedulers
+    themselves when `keep` (their pools can be read after the drain), else
+    weak references (a kept scheduler would hold a killed worker's pool
+    alive). Yields the list."""
+    from repro_torch.serve import router
+
+    made = []
+    base = router.ContinuousBatchingScheduler
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self if keep else weakref.ref(self))
+
+    router.ContinuousBatchingScheduler = Recorded
+    try:
+        yield made
+    finally:
+        router.ContinuousBatchingScheduler = base
+
+
+def _kill_mid_stream(at: int):
+    """The fleet's fault injection, as `tests/test_fleet.py` triggers it:
+    the `on_forward` hook kills the worker of the first request observed at
+    `at` forwarded tokens, before its terminal chunk."""
+    state = {"worker": None, "victim": None}
+
+    def hook(router_, rid, chunk):
+        if state["worker"] is not None or "error" in chunk:
+            return
+        fl = router_._flights.get(rid)
+        if fl and fl.worker is not None and fl.forwarded >= at and not chunk["done"]:
+            state["worker"], state["victim"] = fl.worker, rid
+            router_.kill_worker(fl.worker)
+
+    return state, hook
+
+
+def phase_reduced_fleet(torch) -> None:
+    """REDUCED fp32 gemma3-1b through the fleet on the card: a 2-worker
+    paged fleet gives the tokens of a single-instance scheduler on the card
+    and on the CPU; a worker killed mid-stream requeues onto the survivor,
+    token-identically; every surviving worker's pool is back."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.serve.router import run_fleet
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    from repro_torch.serve.workload import synthetic_requests
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("gemma3-1b", reduced=True)
+    model = build(cfg)
+    params_cpu = model.init(seed=0, device="cpu")
+    params_card = _to_device(params_cpu, "cuda")
+    paged = dict(kv_mode="paged", page_size=16, sync_interval=2)
+
+    def single(requests, max_len):
+        out = {}
+        for device, params in (("cuda", params_card), ("cpu", params_cpu)):
+            with Runtime("torchdev", device=device) as rt:
+                sched = ContinuousBatchingScheduler(model, params, max_batch=4, max_len=max_len,
+                                                    runtime=rt, **paged)
+                out[device] = {rid: f.tokens for rid, f in sched.serve(requests).items()}
+        require(out["cuda"] == out["cpu"], "single-instance tokens differ card vs CPU")
+        return out["cuda"]
+
+    requests = synthetic_requests(cfg.vocab_size, 8, prompt_range=(3, 9), steps_range=(6, 14),
+                                  seed=0)
+    want = single(requests, 32)
+    with _worker_schedulers() as made:
+        ops.reset_launch_counts()
+        out = run_fleet(model, params_card, requests, n_workers=2, max_batch=2, max_len=32,
+                        device="cuda", **paged)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    got = {rid: res.get("tokens") for rid, res in out.results.items()}
+    settled = out.stats["per_worker_settled"]
+    ticks = sum(s.ticks for s in made)
+    log(f"[reduced-fleet] 2 workers x 2 slots, paged, {len(requests)} requests: tokens equal the "
+        f"single-instance scheduler's on the card and the CPU: {got == want}; per-worker settled "
+        f"{settled}; worker errors {out.stats['worker_errors']}; pages used after the drain "
+        f"{[s.decoder.kv.pages_used for s in made]}; launches {counts}")
+    require(got == want, "fleet tokens differ from the single-instance scheduler's")
+    require(out.stats["worker_errors"] == {} and len(made) == 2, "a fleet worker failed")
+    require(sorted(settled) == [0, 1] and min(settled.values()) >= 1,
+            f"admissions did not spread over both workers: {settled}")
+    require(all(s.decoder.kv.pages_used == 0 for s in made), "a worker's pool is not back")
+    require(counts["flash_attention"] == len(requests) * cfg.num_layers
+            and counts["paged_decode_attention"] == ticks * cfg.num_layers,
+            f"fleet launches {counts}, expected flash {len(requests) * cfg.num_layers} and "
+            f"paged decode {ticks * cfg.num_layers}")
+
+    requests = synthetic_requests(cfg.vocab_size, 5, prompt_range=(3, 7), steps_range=(16, 25),
+                                  seed=5)
+    want = single(requests, 48)
+    state, hook = _kill_mid_stream(2)
+    with _worker_schedulers() as made:
+        out = run_fleet(model, params_card, requests, n_workers=2, max_batch=2, max_len=48,
+                        stream_interval=1, on_forward=hook, device="cuda", **paged)
+        torch.cuda.synchronize()
+    got = {rid: res.get("tokens") for rid, res in out.results.items()}
+    restarted = set(out.stats["restarted"])
+    live = [s for s in made if s.active_count == 0]
+    log(f"[reduced-fleet] kill mid-stream: worker {state['worker']} killed at request "
+        f"{state['victim']}; restarted {sorted(restarted)}; tokens equal the single-instance "
+        f"scheduler's: {got == want}; worker errors {out.stats['worker_errors']}; pages used by "
+        f"the survivors after the drain {[s.decoder.kv.pages_used for s in live]}")
+    require(state["worker"] is not None, "the kill never triggered")
+    require(state["victim"] in restarted, "the killed worker's request was not requeued")
+    require(got == want, "tokens after a kill differ from the single-instance scheduler's")
+    require(all(out.results[rid]["restarted"] == (rid in restarted) for rid in want),
+            "restarted flags disagree with the router's stats")
+    require(any("terminated with" in e for e in out.stats["worker_errors"].values()),
+            "the killed worker's failure was not recorded")
+    require(len(live) == 1 and live[0].decoder.kv.pages_used == 0,
+            "the surviving worker's pool is not back")
+
+
+def phase_serve_fleet(torch, serve_tokens: dict, serve_tok_s: float) -> dict:
+    """Full-width gemma3-1b through a 2-worker fleet (4 slots each, paged) on
+    the 16 synthetic requests, then a kill-and-respawn beside a plain run on
+    one worker, both on 4 requests, for the card's memory. Returns the
+    timed fleet run's launch counts."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models.common import dtype_of
+    from repro_torch.serve.router import run_fleet
+    from repro_torch.serve.workload import synthetic_requests
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma3-1b")
+    model = build(cfg)
+    L = cfg.num_layers
+    n_req = SERVE_REQUESTS["n"]
+    prompt_range, steps_range = SERVE_REQUESTS["prompt_range"], SERVE_REQUESTS["steps_range"]
+    max_len = (prompt_range[1] - 1) + (steps_range[1] - 1)
+    with Runtime("torchdev") as rt:
+        params = model.init(seed=0, device=rt.processing_unit.context,
+                            dtype=dtype_of(cfg.compute_dtype))
+    torch.cuda.synchronize()
+    fleet = dict(max_batch=4, max_len=max_len, kv_mode="paged", page_size=16, sync_interval=8,
+                 msg_size=max(512, 128 + 8 * max_len), stream_interval=1)
+    # warm-up, and the fleet's own cost: spawning two workers (a Runtime, a
+    # scheduler and its pool each) and draining them with no request
+    run_fleet(model, params, synthetic_requests(cfg.vocab_size, 2, prompt_range=(64, 65),
+                                                steps_range=(9, 10), seed=1, rid_prefix="warm"),
+              n_workers=2, **fleet)
+    t0 = time.perf_counter()
+    run_fleet(model, params, [], n_workers=2, **fleet)
+    spawn_s = time.perf_counter() - t0
+
+    requests = synthetic_requests(cfg.vocab_size, n_req, prompt_range=prompt_range,
+                                  steps_range=steps_range, seed=SERVE_REQUESTS["seed"])
+    first = {}
+
+    def on_forward(router_, rid, chunk):
+        if rid not in first and chunk.get("delta"):
+            first[rid] = time.perf_counter() - t0
+
+    with _worker_schedulers() as made:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_fleet(model, params, requests, n_workers=2, on_forward=on_forward, **fleet)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        variants = ops.variant_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ticks = [s.ticks for s in made]
+        pages = [s.decoder.kv.pages_used for s in made]
+        pool_bytes = sum(k.nbytes + v.nbytes for k, v in made[0].decoder.kv.pools)
+    n_tok = 0
+    for r in requests:
+        res = out.results[r.rid]
+        toks = np.asarray(res.get("tokens", []))
+        require(len(toks) == r.max_new_tokens and res.get("finish_reason") == "length",
+                f"fleet {r.rid}: {res}")
+        require(bool(np.all((toks >= 0) & (toks < cfg.vocab_size))), f"fleet {r.rid}: bad token")
+        n_tok += len(toks)
+    settled = out.stats["per_worker_settled"]
+    require(out.stats["worker_errors"] == {}, f"fleet workers failed: {out.stats['worker_errors']}")
+    require(len(settled) == 2 and min(settled.values()) >= 1,
+            f"both workers must settle work: {settled}")
+    want = {"flash_attention": n_req * L, "paged_decode_attention": sum(ticks) * L,
+            "decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0}
+    require(counts == want, f"fleet launches {counts}, expected {want}")
+    require_variant(variants, "flash_attention", "wgmma", want["flash_attention"], "fleet")
+    require_variant(variants, "paged_decode_attention", "mma", want["paged_decode_attention"],
+                    "fleet")
+    require(pages == [0, 0], f"fleet workers' pages after the drain: {pages}")
+    same, total = _agreement({rid: out.results[rid]["tokens"] for rid in serve_tokens},
+                             serve_tokens)
+    tt = np.asarray([first[r.rid] for r in requests])
+    # the fleet's own cost without a second worker: one worker with all 8
+    # slots, the single scheduler's batch behind the router and channels
+    first, t0 = {}, time.perf_counter()
+    one = run_fleet(model, params, requests, n_workers=1, on_forward=on_forward,
+                    **dict(fleet, max_batch=8))
+    torch.cuda.synchronize()
+    wall_one = time.perf_counter() - t0
+    tt_one = np.asarray([first[r.rid] for r in requests])
+    require(all(len(one.results[r.rid].get("tokens", [])) == r.max_new_tokens for r in requests),
+            "the one-worker fleet did not finish every request")
+    log(f"[serve-fleet] gemma3-1b, 2 workers x 4 slots (paged, one card, one stream), "
+        f"{n_req} requests, {n_tok} generated tokens in {wall:.3f}s: {n_tok / wall:.1f} tok/s "
+        f"(the single scheduler on 8 slots, phase serve: {serve_tok_s:.1f} tok/s); TTFT p50 "
+        f"{np.percentile(tt, 50) * 1e3:.1f} ms, p90 {np.percentile(tt, 90) * 1e3:.1f} ms (first "
+        f"streamed token at the router, from a common start that includes spawning the workers;"
+        f" spawning and draining two idle workers takes {spawn_s:.3f}s); peak device memory "
+        f"{peak / 2**30:.2f} GiB; per-worker settled {settled}, decode ticks {ticks}; launches "
+        f"{counts}; tokens equal to phase serve's at {same} of {total} positions "
+        f"({same / total:.3f}; bf16 in other batches, reported, not required)")
+    log(f"[serve-fleet] the same through 1 worker x 8 slots: {n_tok / wall_one:.1f} tok/s "
+        f"({wall_one:.3f}s), TTFT p50 {np.percentile(tt_one, 50) * 1e3:.1f} ms, p90 "
+        f"{np.percentile(tt_one, 90) * 1e3:.1f} ms")
+
+    # kill-and-respawn on one worker beside the same run without the kill: a
+    # killed worker's pool must be freed when its thread ends, so the card's
+    # peak does not grow by a pool when its replacement allocates its own
+    few = synthetic_requests(cfg.vocab_size, 4, prompt_range=(64, 257), steps_range=(24, 33),
+                             seed=2)
+    peaks, results = {}, {}
+    for kill in (False, True):
+        state, hook = _kill_mid_stream(2)
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with _worker_schedulers(keep=False) as made:
+            res = run_fleet(model, params, few, n_workers=1, respawn=kill,
+                            on_forward=hook if kill else None, **fleet)
+        torch.cuda.synchronize()
+        peaks[kill] = torch.cuda.max_memory_allocated() - base
+        gc.collect()
+        left = torch.cuda.memory_allocated() - base
+        results[kill] = {rid: r.get("tokens") for rid, r in res.results.items()}
+        require(all(ref() is None for ref in made), "a worker's scheduler outlived its fleet")
+        require(left < pool_bytes // 2, f"{left} B still allocated after the fleet")
+        if kill:
+            require(state["worker"] is not None and res.stats["workers_spawned"] == 2
+                    and state["victim"] in res.stats["restarted"],
+                    f"kill-and-respawn did not happen: {state}, {res.stats}")
+    log(f"[serve-fleet] kill-and-respawn on one worker (4 requests, prompts 64-256): peak "
+        f"device memory above the weights {peaks[True] / 2**20:.1f} MiB against "
+        f"{peaks[False] / 2**20:.1f} MiB without the kill (one worker's pool: "
+        f"{pool_bytes / 2**20:.1f} MiB); tokens equal to the run without the kill: "
+        f"{results[True] == results[False]} (reported: bf16)")
+    require(peaks[True] < peaks[False] + pool_bytes // 2,
+            "the card's peak memory grew by a pool over a kill-and-respawn")
+    del params
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 22. the paper's Test Cases 3 and 4, on the host of the card's machine
+# ---------------------------------------------------------------------------
+
+
+def phase_apps() -> None:
+    """Fibonacci (fine-grained tasking, n = 14, both task managers) and
+    Jacobi (coarse-grained tasking, locally and over 2 localsim instances)
+    against their oracles. Host programs, as in the JAX package: the times
+    are host times of this machine's CPU, not of the card."""
+    import numpy as np
+
+    from repro_torch.apps import fibonacci, jacobi
+
+    for manager in ("coroutine", "threads"):
+        out = fibonacci.run_fibonacci(14, workers=4, task_manager=manager)
+        require(out["value"] == fibonacci.fib_reference(14) == 377
+                and out["tasks"] == fibonacci.expected_tasks(14),
+                f"fibonacci ({manager}): {out['value']}, {out['tasks']} tasks")
+        log(f"[apps] fibonacci n=14 ({manager}, 4 workers): value {out['value']}, "
+            f"{out['tasks']} tasks in {out['seconds']:.4f}s host time, per worker "
+            f"{out['per_worker']}")
+    grid = jacobi.init_grid((20, 16, 16))
+    want = jacobi.jacobi_reference(grid, 4)
+    for name, run in (("local, 2x2x1 subgrids", lambda: jacobi.run_local(
+            grid, 4, thread_grid=(2, 2, 1))),
+            ("distributed, 2 instances (rdma)", lambda: jacobi.run_distributed(
+                grid, 4, instances=2, mode="rdma")),
+            ("distributed, 2 instances (rendezvous)", lambda: jacobi.run_distributed(
+                grid, 4, instances=2, mode="rendezvous"))):
+        out = run()
+        err = float(np.abs(out["grid"] - want).max())
+        require(bool(np.allclose(out["grid"], want, rtol=1e-6, atol=1e-6)),
+                f"jacobi ({name}) differs from the oracle by {err:.3e}")
+        log(f"[apps] jacobi 20x16x16, 4 iterations ({name}): max |grid - oracle| {err:.3e}; "
+            f"{out['seconds']:.4f}s host time, {out['gflops']:.3f} GFLOP/s on the host")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -2480,9 +3247,9 @@ def main() -> int:
         run_phase("build", phase_build)
         kernels = run_phase("kernels", phase_kernels, torch)
         run_phase("reduced", phase_reduced, torch)
-        paged_counts, paged_tokens = run_phase("serve", phase_serve, torch, "paged")
+        paged_counts, paged_tokens, paged_tok_s = run_phase("serve", phase_serve, torch, "paged")
         run_phase("reduced-dense", phase_reduced_dense, torch)
-        dense_counts, dense_tokens = run_phase("serve-dense", phase_serve, torch, "dense")
+        dense_counts, dense_tokens, _ = run_phase("serve-dense", phase_serve, torch, "dense")
         agree = sum(sum(a == b for a, b in zip(dense_tokens[rid], paged_tokens[rid]))
                     for rid in paged_tokens)
         total = sum(len(t) for t in paged_tokens.values())
@@ -2498,6 +3265,13 @@ def main() -> int:
         prefix_counts = run_phase("serve-prefix", phase_serve_prefix, torch)
         run_phase("reduced-zamba2", phase_reduced_zamba2, torch)
         zamba2_counts, zamba2_serial_counts = run_phase("serve-zamba2", phase_serve_zamba2, torch)
+        run_phase("reduced-dense-family", phase_reduced_dense_family, torch)
+        family_counts = run_phase("serve-dense-family", phase_serve_dense_family, torch)
+        run_phase("conformance", phase_conformance, torch)
+        run_phase("reduced-fleet", phase_reduced_fleet, torch)
+        fleet_counts = run_phase("serve-fleet", phase_serve_fleet, torch, paged_tokens,
+                                 paged_tok_s)
+        run_phase("apps", phase_apps)
         log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
@@ -2510,7 +3284,8 @@ def main() -> int:
     path_counts = {"serve": paged_counts, "serve-dense": dense_counts, "serial": serial_counts,
                    "tc2": tc2_counts, "serve-xlstm": xlstm_counts, "loss-xlstm": loss_counts,
                    "serve-prefix": prefix_counts, "serve-zamba2": zamba2_counts,
-                   "serve-zamba2 serial": zamba2_serial_counts}
+                   "serve-zamba2 serial": zamba2_serial_counts, **family_counts,
+                   "serve-fleet": fleet_counts}
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]] for path, c in path_counts.items()
                                  if c[k["name"]]}

@@ -104,7 +104,9 @@ ARCH_IDS: Sequence[str] = (
 )
 
 #: Architectures whose config (and model family) the port runs today.
-PORTED_ARCH_IDS: Sequence[str] = ("gemma3-1b", "xlstm-125m", "zamba2-7b")
+PORTED_ARCH_IDS: Sequence[str] = (
+    "gemma3-1b", "granite-20b", "stablelm-12b", "minitron-8b", "xlstm-125m", "zamba2-7b",
+)
 
 
 def get_config(arch_id: str, *, reduced: bool = False) -> ArchConfig:

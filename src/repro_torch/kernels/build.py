@@ -8,6 +8,10 @@ have no `nvcc`), and uses only the sources in this package. The library lands
 in `_build/` beside the package (listed in `.gitignore`), named by a hash of
 the sources and flags, so a changed source rebuilds and an unchanged one
 loads the existing library. A failed build raises.
+
+The wrappers may run on several threads of one process (the serving
+fleet's workers): `load` builds once under a lock, and every wrapper counts
+its launches through `count_launch`, under one lock shared by all of them.
 """
 from __future__ import annotations
 
@@ -17,7 +21,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
+import threading
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -30,6 +36,10 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 _build_log: str = ""
+#: guards the check-then-build in `load`
+_load_lock = threading.Lock()
+#: guards every wrapper's launch counts (`count_launch`, `ops.reset_launch_counts`)
+COUNT_LOCK = threading.Lock()
 
 
 def sources() -> List[Path]:
@@ -101,12 +111,24 @@ def build(*, verbose: bool = False) -> Tuple[Path, str]:
 
 
 def load(*, verbose: bool = False) -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed (once per process)."""
+    """The loaded kernel library, built first if needed (once per process,
+    whichever thread asks first; the others wait for that build)."""
     global _lib, _build_log
-    if _lib is None:
-        path, _build_log = build(verbose=verbose)
-        _lib = ctypes.CDLL(str(path))
-    return _lib
+    with _load_lock:
+        if _lib is None:
+            path, _build_log = build(verbose=verbose)
+            _lib = ctypes.CDLL(str(path))
+        return _lib
+
+
+def count_launch(module_name: str, kind: str) -> None:
+    """Count one launch of variant `kind` in the wrapper module
+    `module_name`'s `launches` and `variant_launches`, atomically: a bare
+    `+=` on a module global can lose an increment between threads."""
+    mod = sys.modules[module_name]
+    with COUNT_LOCK:
+        mod.launches += 1
+        mod.variant_launches[kind] += 1
 
 
 def build_log() -> str:

@@ -54,7 +54,6 @@ def decode_attention(
     """q: (B, H, hd); k/v_cache: (B, S, KV, hd); pos: int32 scalar or (B,),
     each >= 0 (positions past S - 1 see the whole cache). Returns
     (B, H, hd), on CUDA."""
-    global launches
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError("decode_attention: q must be (B, H, hd), caches (B, S, KV, hd)")
     B, H, hd = q.shape
@@ -85,6 +84,5 @@ def decode_attention(
         decode_core.VARIANT_CODES[kind], torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, f"decode_attention ({kind})")
-    launches += 1
-    variant_launches[kind] += 1
+    build.count_launch(__name__, kind)
     return out

@@ -94,7 +94,6 @@ def flash_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) -> (B, Sq, H, hd), on CUDA."""
-    global launches
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be 4-D (B, S, heads, head_dim)")
     B, Sq, H, hd = q.shape
@@ -125,6 +124,5 @@ def flash_attention(
         _VARIANT_CODES[kind], consumers, torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, f"flash_attention ({kind})")
-    launches += 1
-    variant_launches[kind] += 1
+    build.count_launch(__name__, kind)
     return out

@@ -87,7 +87,6 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                  act: str = "none") -> torch.Tensor:
     """x: (M, K); w: (K, N); b: (N,) -> act(x @ w + b) (M, N) in x's dtype,
     on CUDA."""
-    global launches
     if act not in ACTS:
         raise ValueError(f"fused_linear: act {act!r} not in {sorted(ACTS)}")
     if x.dim() != 2 or w.dim() != 2 or b.dim() != 1:
@@ -112,6 +111,5 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, f"fused_linear ({kind})")
-    launches += 1
-    variant_launches[kind] += 1
+    build.count_launch(__name__, kind)
     return y

@@ -137,7 +137,6 @@ def gated_linear_scan(
     (B, H, dk, dv) fp32), on CUDA. With ``normaliser=True`` (and an optional
     contiguous fp32 `initial_normaliser` (B, H, dk, 1)) also the scan of
     v = ones: (y, state, nrm (B, H, S, 1) in q's dtype, n (B, H, dk, 1) fp32)."""
-    global launches
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or log_a.dim() != 3:
         raise ValueError("gated_linear_scan: q, k, v must be (B, H, S, d), log_a (B, H, S)")
     B, H, S, dk = q.shape
@@ -194,6 +193,5 @@ def gated_linear_scan(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, f"gated_linear_scan ({kind})")
-    launches += 1
-    variant_launches[kind] += 1
+    build.count_launch(__name__, kind)
     return (y, state, nrm, n) if normaliser else (y, state)

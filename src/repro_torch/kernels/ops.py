@@ -13,6 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from . import build
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import fused_linear as _linear
@@ -122,7 +123,8 @@ def variant_counts() -> Dict[str, Dict[str, int]]:
 
 def reset_launch_counts() -> None:
     """Zero every launch count, the counts by variant included."""
-    for mod in _KERNELS.values():
-        mod.launches = 0
-        for kind in mod.variant_launches:
-            mod.variant_launches[kind] = 0
+    with build.COUNT_LOCK:
+        for mod in _KERNELS.values():
+            mod.launches = 0
+            for kind in mod.variant_launches:
+                mod.variant_launches[kind] = 0

@@ -55,7 +55,6 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """q: (B, H, hd); k/v_pool: (P, page, KV, hd); page_table: (B, n_pages)
     int32; pos: (B,) int32, each >= 0. Returns (B, H, hd), on CUDA."""
-    global launches
     if q.dim() != 3 or k_pool.dim() != 4:
         raise ValueError("paged_decode_attention: q must be (B, H, hd), pools (P, page, KV, hd)")
     B, H, hd = q.shape
@@ -85,6 +84,5 @@ def paged_decode_attention(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, f"paged_decode_attention ({kind})")
-    launches += 1
-    variant_launches[kind] += 1
+    build.count_launch(__name__, kind)
     return out

@@ -13,10 +13,16 @@ registry-built `torchdev` Runtime.
     # serial engine, one request at a time: --mode serial
     # weights from `repro/train/checkpoint.py`'s layout: --ckpt-dir DIR
     # the hybrid family: --arch zamba2-7b (dense or serial)
+    # the dense family: --arch granite-20b | minitron-8b | stablelm-12b
+
+    # data-parallel fleet: router + N worker instances (paper §3.1.1), each
+    # worker a localsim thread running its own scheduler on the shared weights
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+        --mode fleet --workers 2 --max-batch 4 --requests 16
 
 Runs on the CUDA device; ``--device cpu`` runs on the CPU instead (the
-kernels' plain PyTorch versions then stand in for the CUDA kernels). The
-reference's fleet mode is not ported yet.
+kernels' plain PyTorch versions then stand in for the CUDA kernels).
+``--kv-mode`` and ``--prefix-cache`` apply per worker in fleet mode.
 """
 from __future__ import annotations
 
@@ -42,7 +48,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--mode", choices=("serial", "continuous"), default="continuous")
+    ap.add_argument("--mode", choices=("serial", "continuous", "fleet"), default="continuous")
+    ap.add_argument("--workers", type=int, default=2,
+                    help="fleet mode: worker instances spawned by the router")
+    ap.add_argument("--msg-size", type=int, default=None,
+                    help="fleet mode: channel message size in bytes (default: "
+                    "sized to fit the workload's longest possible request)")
     ap.add_argument("--kv-mode", choices=("dense", "paged"), default="dense",
                     help="continuous mode: dense per-slot caches, or the paged "
                     "KV pool + device-resident decode loop")
@@ -63,7 +74,8 @@ def main(argv=None):
                     help="fraction of requests opening with a shared system prompt "
                     "(the workload prefix caching exists for); 0 keeps the fully "
                     "unique synthetic workload")
-    ap.add_argument("--max-batch", type=int, default=8, help="scheduler slots (continuous mode)")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="scheduler slots (continuous mode; per worker in fleet mode)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--steps", type=int, default=32)
@@ -105,7 +117,35 @@ def main(argv=None):
             )
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        if args.mode == "serial":
+        if args.mode == "fleet":
+            from repro_torch.serve.router import run_fleet
+
+            # default msg_size: room for the longest admissible request wire
+            # (~6 bytes per prompt token + JSON framing), rounded up
+            msg_size = args.msg_size or max(512, 128 + 8 * max_len)
+            out = run_fleet(
+                model, params, requests, n_workers=args.workers,
+                max_batch=args.max_batch, max_len=max_len, msg_size=msg_size,
+                kv_mode=args.kv_mode, page_size=args.page_size,
+                pool_pages=args.pool_pages, sync_interval=args.sync_interval,
+                prefix_cache=args.prefix_cache, device=str(device),
+            )
+            for r in requests:
+                res = out.results[r.rid]
+                if "error" in res:
+                    print(f"{r.rid}: ERROR {res['error']}")
+                else:
+                    print(f"{r.rid}: {res['tokens'][:8]}... ({res['finish_reason']})")
+            stats = out.stats
+            print(f"fleet: {stats['workers_spawned']} workers, per-worker settled "
+                  f"{stats['per_worker_settled']}, restarted {stats['restarted']}")
+            if args.prefix_cache:
+                for idx, pstats in sorted(stats.get("per_worker_prefix", {}).items()):
+                    if pstats:
+                        print(f"  worker {idx} prefix cache: hit_rate="
+                              f"{pstats['hit_rate']:.2f} cached_pages="
+                              f"{pstats['cached_pages']}")
+        elif args.mode == "serial":
             engine = ServeEngine(model, params, max_len=max_len, runtime=runtime)
             for r in requests:
                 result = engine.generate(np.asarray([r.prompt], dtype=np.int32),
@@ -140,7 +180,8 @@ def main(argv=None):
         total_tokens = sum(r.max_new_tokens for r in requests)
         print(f"kernel launches: {ops.launch_counts()}")
         print(f"served {len(requests)} requests / {total_tokens} tokens in {dt:.2f}s "
-              f"({total_tokens / dt:.1f} tok/s, mode={args.mode}, device={device})")
+              f"({total_tokens / dt:.1f} tok/s, mode={args.mode}, device={device}"
+              + (f", workers={args.workers})" if args.mode == "fleet" else ")"))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Serial serving engine: prefill + greedy decode of one batch end to end.
-Port of `repro/serve/engine.py` (the reference's channel front door
-re-export is not ported: front ends come later).
+Port of `repro/serve/engine.py`, with its re-export of the channel front
+door (`serve/server.py`).
 
 `ServeEngine` is the serial baseline the continuous-batching scheduler is
 measured against. Its execution units are dispatched through the compute
@@ -77,3 +77,7 @@ class ServeEngine:
         return GenerationResult(
             tokens=np.stack(out[:steps], axis=1), prefill_logits=logits.float().cpu().numpy()
         )
+
+
+# compat re-export: the channel front door moved to serve/server.py
+from repro_torch.serve.server import ChannelServer  # noqa: E402,F401

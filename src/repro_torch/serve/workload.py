@@ -1,9 +1,8 @@
 """Synthetic serving workloads: requests with varied prompt/decode lengths
 (the traffic shape continuous batching exists for), shared-system-prompt
 traffic and multi-turn resumption (the shapes prefix caching exists for).
-Port of `repro/serve/workload.py` without `to_wire` (the channel front door
-is not ported): the same numpy RNG calls in the same order, so a seed gives
-the reference's requests."""
+Port of `repro/serve/workload.py`: the same numpy RNG calls in the same
+order, so a seed gives the reference's requests, and the same wire body."""
 from __future__ import annotations
 
 from typing import List, Tuple
@@ -121,3 +120,15 @@ def resume_prompt(prior_prompt: List[int], prior_tokens: List[int], followup: Li
     cache holds everything up to the reply's final token, so a prefix cache
     turns nearly this entire history into a page-table fork."""
     return list(prior_prompt) + list(prior_tokens) + list(followup)
+
+
+def to_wire(request: Request) -> dict:
+    """The ChannelServer JSON request body for `request`."""
+    body = {
+        "id": request.rid,
+        "prompt": list(request.prompt),
+        "steps": request.max_new_tokens,
+    }
+    if request.eos_id is not None:
+        body["eos"] = request.eos_id
+    return body

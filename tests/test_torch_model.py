@@ -41,7 +41,7 @@ def test_config_copy_matches_reference():
         assert dataclasses.asdict(get_config("gemma3-1b", reduced=reduced_)) == \
             dataclasses.asdict(jax_get_config("gemma3-1b", reduced=reduced_))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("granite-20b")
+        get_config("grok-1-314b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
