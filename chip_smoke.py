@@ -10,8 +10,10 @@ paged scheduler with the prefix cache, the paper's Test Case 2
 scheduler and the serial engine and through its forward/loss, full-width
 zamba2-7b served by the dense scheduler and the serial engine, the dense
 family (granite-20b, minitron-8b, stablelm-12b) at full width through the
-paged scheduler, and full-width gemma3-1b through the router/worker serving
-fleet -- and fails (non-zero exit) if any phase fails. It imports
+paged scheduler, full-width gemma3-1b through the router/worker serving
+fleet, the MoE family (grok-1-314b, kimi-k2-1t-a32b) at its published widths
+with the depth cut through the paged and dense schedulers, and full-width
+paligemma-3b and whisper-small through their model bundles -- and fails (non-zero exit) if any phase fails. It imports
 nothing of JAX or of the JAX package. Phases:
 
 1. device: the card from `nvidia-smi` (name, power limit);
@@ -52,7 +54,16 @@ nothing of JAX or of the JAX package. Phases:
    decode core's simt walk at stablelm-12b's tick (hd 160) and the paged
    kernel at granite-20b's tick (six head groups: mma), each held against
    its plain version and timed warm and with its inputs cold in L2 (flash
-   and the dense decode beside SDPA);
+   and the dense decode beside SDPA); the remaining families' shapes: flash
+   at paligemma-3b's prefix-LM prefill (B=8, 256 + 32 positions, wgmma, SDPA
+   with the same boolean mask), whisper-small's bidirectional encoder
+   (1500 frames) and cross-attention (Sq = 16 and 1 against 1500 keys, a
+   ragged last key tile), grok-1's prefill (48 over 8, hd 128: simt) and
+   kimi-k2's (64 over 8, hd 112: simt); the decode core at grok's dense
+   tick, paligemma's and whisper's ticks (mma) and the paged kernel at
+   grok's (mma) and kimi's (simt) ticks; and rows that are not whole
+   16-byte loads (fp32 hd 18, bf16 hd 36: element loads on the simt walk),
+   dense and paged;
 4. reduced: REDUCED gemma3-1b in fp32 (TF32 off): prefill plus 16
    teacher-forced paged decode ticks on the card against the same functions
    on the CPU;
@@ -133,7 +144,28 @@ nothing of JAX or of the JAX package. Phases:
    kill-and-respawn on one worker must not raise the card's peak memory by
    a pool;
 22. apps: the paper's Test Cases 3 and 4 (Fibonacci, Jacobi local and over
-   2 localsim instances) on the machine's host against their oracles.
+   2 localsim instances) on the machine's host against their oracles;
+23. reduced-moe: grok-1 and kimi-k2 REDUCED in fp32 on the card against the
+   CPU: prefill plus 16 teacher-forced dense ticks (within 1e-4), the dense
+   and the paged serve and a serial `generate` (equal tokens);
+24. serve-moe: grok-1 (8 of its 64 layers) and kimi-k2 (1 of 61) at their
+   published widths (bf16, seeded; grok 28.1 G parameters, kimi 19.4 G: 384
+   experts of d_ff 2048) serve phase 5's 16 requests on 8 slots through the
+   paged scheduler, grok also through the dense one (whose ticks keep the
+   reference's per-slot capacity: no row dropped); tok/s, TTFT, peak memory,
+   rows dropped by capacity, exact launches on the variants the rules name
+   (flash simt for both; paged mma for grok, simt for kimi at hd 112);
+25. reduced-vlm: REDUCED paligemma-3b in fp32 through its bundle on the card
+   against the CPU: prefill logits within 1e-4, 16 greedy tokens equal;
+26. generate-paligemma: the full 18-layer paligemma-3b (bf16, seeded), 8
+   requests of 256 seeded patch embeddings (width 1152) and 32 prompt
+   tokens, 64 greedy tokens each through the bundle: prefix-LM flash
+   (wgmma), decode mma;
+27. reduced-whisper: REDUCED whisper-small as phase 25, with frames;
+28. generate-whisper: the full whisper-small (12 + 12 layers), 8 requests of
+   1500 seeded frames (x 0.02) and 16 prompt tokens, 128 greedy tokens each:
+   the bidirectional encoder and every cross-attention (Sq = 16, then 1 a
+   step, against 1500 keys) on flash wgmma, self-attention decode on mma.
 
 Each path's launch counts are zeroed just before it runs and read just
 after. The line before the last is one JSON object with every kernel's
@@ -366,6 +398,26 @@ def check_flash(torch, gen) -> dict:
         dict(Sq=777, Skv=777, H=32, KV=8, hd=128, dtype=torch.bfloat16),
         dict(Sq=777, Skv=777, H=32, KV=8, hd=160, dtype=torch.bfloat16),
     ]
+    # the remaining families: paligemma-3b's prefix-LM prefill (8 over 1, hd
+    # 256, 256 bidirectional vision positions before a causal prompt: wgmma),
+    # whisper-small's bidirectional encoder over 1500 frames and its
+    # cross-attention (Sq = 16 or 1 against Skv = 1500, not a whole number of
+    # key tiles: the tail tile masked), 12 heads over 12 at hd 64 (wgmma);
+    # grok-1's 48 over 8 at hd 128 (a group of 6: simt) and kimi-k2's 64
+    # over 8 at hd 112 (simt); each ragged and in fp32 too
+    cases += [
+        dict(B=2, Sq=288, Skv=288, H=8, KV=1, hd=256, dtype=torch.bfloat16, prefix_len=256),
+        dict(Sq=261, Skv=261, H=8, KV=1, hd=256, dtype=torch.float32, prefix_len=256),
+        dict(B=2, Sq=1500, Skv=1500, H=12, KV=12, hd=64, dtype=torch.bfloat16, causal=False),
+        dict(Sq=1500, Skv=1500, H=12, KV=12, hd=64, dtype=torch.float32, causal=False),
+        dict(B=2, Sq=16, Skv=1500, H=12, KV=12, hd=64, dtype=torch.bfloat16, causal=False),
+        dict(B=8, Sq=1, Skv=1500, H=12, KV=12, hd=64, dtype=torch.bfloat16, causal=False),
+        dict(B=3, Sq=1, Skv=1500, H=12, KV=12, hd=64, dtype=torch.float32, causal=False),
+        dict(Sq=300, Skv=300, H=48, KV=8, hd=128, dtype=torch.bfloat16),
+        dict(Sq=300, Skv=300, H=48, KV=8, hd=128, dtype=torch.float32),
+        dict(Sq=300, Skv=300, H=64, KV=8, hd=112, dtype=torch.bfloat16),
+        dict(Sq=77, Skv=77, H=64, KV=8, hd=112, dtype=torch.float32),
+    ]
     # the serial engine's prefill, 8 prompts of 512 tokens: a grid over a wave,
     # so two consumer warpgroups a block
     serial = [dict(B=8, Sq=512, Skv=512, H=4, KV=1, hd=256, dtype=torch.bfloat16, window=w)
@@ -489,17 +541,32 @@ FLASH_TIMINGS = (
     ("stablelm-12b prefill", "simt", dict(Sq=1024, H=32, KV=8, hd=160)),
     ("granite-20b prefill", "simt", dict(Sq=1024, H=48, KV=1, hd=128)),
     ("minitron-8b prefill", "wgmma", dict(Sq=1024, H=32, KV=8, hd=128)),
+    ("grok-1-314b prefill", "simt", dict(Sq=1024, H=48, KV=8, hd=128)),
+    ("kimi-k2-1t-a32b prefill", "simt", dict(Sq=1024, H=64, KV=8, hd=112)),
+    # the two bundles' batches of 8 (phases generate-paligemma, -whisper)
+    ("paligemma-3b prefill", "wgmma", dict(B=8, Sq=288, H=8, KV=1, hd=256, prefix_len=256)),
+    ("whisper-small encoder", "wgmma", dict(B=8, Sq=1500, H=12, KV=12, hd=64, causal=False)),
+    ("whisper-small decoder prefill", "wgmma", dict(B=8, Sq=16, H=12, KV=12, hd=64)),
+    ("whisper-small cross-attention prefill", "wgmma",
+     dict(B=8, Sq=16, Skv=1500, H=12, KV=12, hd=64, causal=False)),
+    ("whisper-small cross-attention decode", "wgmma",
+     dict(B=8, Sq=1, Skv=1500, H=12, KV=12, hd=64, causal=False)),
 )
 
 
-def _flash_timing(torch, gen, label, want_kind, *, Sq, H, KV, hd) -> dict:
-    """Device times of flash (bf16, B=1, causal, Sq = Skv), warm and with
-    its inputs cold in L2, its plain version and SDPA at one shape, with the
-    bound; the launch must take variant `want_kind`."""
+def _flash_timing(torch, gen, label, want_kind, *, Sq, H, KV, hd, B=1, Skv=None, causal=True,
+                  prefix_len=0) -> dict:
+    """Device times of flash (bf16) at one shape, warm and with its inputs
+    cold in L2, its plain version and SDPA (one call with the same mask: a
+    boolean one for the prefix-LM), with the bound from the pairs the mask
+    keeps; the launch must take variant `want_kind`."""
     from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels.ref import _build_mask
 
-    (q, k, v, kw), got, want = _flash_case(torch, gen, Sq=Sq, Skv=Sq, H=H, KV=KV, hd=hd,
-                                           dtype=torch.bfloat16)
+    Skv = Skv or Sq
+    (q, k, v, kw), got, want = _flash_case(torch, gen, B=B, Sq=Sq, Skv=Skv, H=H, KV=KV, hd=hd,
+                                           dtype=torch.bfloat16, causal=causal,
+                                           prefix_len=prefix_len)
     err, ok = _max_err_and_ok(torch, got, want, TOL["bfloat16"])
     require(ok, f"flash_attention ({label}) disagrees with its plain version: {err:.3e}")
     kind = launched_variant(flash_attention,
@@ -511,14 +578,22 @@ def _flash_timing(torch, gen, label, want_kind, *, Sq, H, KV, hd) -> dict:
     d_plain = device_ms(torch, lambda: ref.attention(q, k, v, **kw), iters=5)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    d_lib = device_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-    lib_err = float((sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2).float()
+    mask = _build_mask(Sq, Skv, causal=causal, window=0, prefix_len=prefix_len, q_offset=0,
+                       device="cuda")
+    if prefix_len:
+        lib_kw = dict(attn_mask=mask)
+    else:
+        lib_kw = dict(is_causal=causal)
+    d_lib = device_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib_kw))
+    lib_err = float((sdpa(qt, kt, vt, enable_gqa=True, **lib_kw).transpose(1, 2).float()
                      - want.float()).abs().max())
-    pairs = Sq * (Sq + 1) // 2
+    pairs = B * int(mask.sum().item())
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     flops = 4 * hd * H * pairs
     b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
-    shape = f"{label}: B=1 Sq=Skv={Sq} H={H} KV={KV} hd={hd} bf16 causal ({kind})"
+    masks = ("causal" if causal else "bidirectional") + (
+        f" prefix_len={prefix_len}" if prefix_len else "")
+    shape = f"{label}: B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} hd={hd} bf16 {masks} ({kind})"
     log(f"[kernels] flash_attention timing {shape}: max_abs_err={err:.3e}; device time per "
         f"call: kernel {d_kernel:.4f} ms ({d_cold:.4f} ms with the inputs cold in L2), plain "
         f"{d_plain:.4f} ms, sdpa {d_lib:.4f} ms (sdpa max_abs_err vs plain {lib_err:.3e}); bound "
@@ -618,6 +693,15 @@ def check_paged(torch, gen) -> dict:
     for hd in (128, 160):
         cases.append(dict(pos=uneven, dtype=torch.bfloat16, H=32, KV=8, hd=hd))
     cases.append(dict(pos=uneven, dtype=torch.float32, H=32, KV=8, hd=160))
+    # the MoE family's ticks: grok-1 (48 over 8, hd 128: mma) and kimi-k2 (64
+    # over 8, hd 112: simt); rows that are not whole 16-byte loads (fp32 hd
+    # 18, bf16 hd 36: element loads on the simt walk)
+    cases += [dict(pos=uneven, dtype=torch.bfloat16, H=48, KV=8, hd=128),
+              dict(pos=uneven, dtype=torch.bfloat16, H=64, KV=8, hd=112),
+              dict(pos=uneven, dtype=torch.float32, H=64, KV=8, hd=112),
+              dict(pos=uneven, dtype=torch.float32, H=4, KV=2, hd=18),
+              dict(pos=uneven, dtype=torch.float32, H=4, KV=2, hd=18, window=100),
+              dict(pos=uneven, dtype=torch.bfloat16, H=12, KV=2, hd=36)]
     worst, worst_tol = 0.0, None
     for case in cases:
         q, kp, vp, tbl, pos = _paged_case(torch, gen, **case)
@@ -674,6 +758,9 @@ def check_paged(torch, gen) -> dict:
     # granite-20b's tick: 48 query heads over 1 KV head, hd 128, six head
     # groups of 8 (mma)
     granite = _paged_timing(torch, gen, uneven, "granite-20b decode", "mma", H=48, KV=1, hd=128)
+    grok = _paged_timing(torch, gen, uneven, "grok-1-314b decode", "mma", H=48, KV=8, hd=128)
+    kimi = _paged_timing(torch, gen, uneven, "kimi-k2-1t-a32b decode", "simt", H=64, KV=8,
+                         hd=112)
     for k in ("mma", "simt"):
         log(f"[kernels] paged_decode_attention ptxas: "
             f"{decode_ptxas('PagedRows', q.dtype, hd, H // KV, k)}")
@@ -700,7 +787,7 @@ def check_paged(torch, gen) -> dict:
         "variant": kind,
         "timed_shape": f"B={B} H={H} KV={KV} hd={hd} page=16 n_pages=68 bf16 window=0",
         "other_timings": [{"shape": "the same, window=512 through the full table",
-                           "device_ms": d_window, "bound_ms": w_bound}, granite],
+                           "device_ms": d_window, "bound_ms": w_bound}, granite, grok, kimi],
     }
 
 
@@ -782,7 +869,19 @@ def check_decode(torch, gen) -> dict:
             # at 20 loads of 16 B a bf16 row) and minitron-8b (32 over 8, hd 128)
             dict(pos=uneven, dtype=dtype, H=32, KV=8, hd=160),
             dict(pos=uneven, dtype=dtype, H=32, KV=8, hd=128),
+            # the remaining families' ticks: grok-1's dense serve (48 over 8,
+            # hd 128), paligemma-3b (8 over 1, hd 256, 352-deep caches),
+            # whisper-small (12 over 12, hd 64, 144-deep)
+            dict(pos=uneven, dtype=dtype, H=48, KV=8, hd=128),
+            dict(pos=[320] * 8, dtype=dtype, S=352, H=8, KV=1, hd=256),
+            dict(pos=[80, 80, 80, 80, 143, 0, 16, 17], dtype=dtype, S=144, H=12, KV=12, hd=64),
         ]
+    # rows that are not whole 16-byte loads: element loads on the simt walk
+    cases += [dict(pos=[299, 0, 150, 77], dtype=torch.float32, B=4, S=300, H=4, KV=2, hd=18,
+                   poison=True),
+              dict(pos=uneven, dtype=torch.float32, H=4, KV=2, hd=18),
+              dict(pos=uneven, dtype=torch.bfloat16, H=12, KV=2, hd=36, poison=True),
+              dict(pos=[5, 15], dtype=torch.bfloat16, B=2, S=16, H=6, KV=1, hd=36)]
     worst, worst_tol = 0.0, None
     for case in cases:
         q, k, v, pos = _decode_case(torch, gen, **case)
@@ -854,6 +953,15 @@ def check_decode(torch, gen) -> dict:
     d_simt, d_simt_paged = timed_with("variant", lambda q_, k_: "simt")
     zamba2 = _decode_timing(torch, gen, uneven, "zamba2-7b decode", H=32, KV=32, hd=112)
     stablelm = _decode_timing(torch, gen, uneven, "stablelm-12b decode", H=32, KV=8, hd=160)
+    grok = _decode_timing(torch, gen, uneven, "grok-1-314b dense decode", H=48, KV=8, hd=128,
+                          want_kind="mma")
+    paligemma = _decode_timing(torch, gen, [320] * 8, "paligemma-3b decode", H=8, KV=1, hd=256,
+                               S=352, want_kind="mma")
+    whisper = _decode_timing(torch, gen, [80] * 8, "whisper-small decode", H=12, KV=12, hd=64,
+                             S=144, want_kind="mma")
+    ragged = [_decode_timing(torch, gen, uneven, f"hd {hd} {dt} (rows not whole 16-byte loads)",
+                             H=4, KV=2, hd=hd, dtype=getattr(torch, dt))
+              for hd, dt in ((18, "float32"), (36, "bfloat16"))]
     n_valid = sum(p + 1 for p in uneven)
     elem = q.element_size()
     n_bytes = 2 * q.numel() * elem + 2 * n_valid * KV * hd * elem + B * 4
@@ -900,21 +1008,24 @@ def check_decode(torch, gen) -> dict:
         "variant": kind,
         "paged_same_positions_device_ms": d_paged,
         "timed_shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16, {n_valid} valid positions",
-        "other_timings": [zamba2, stablelm],
+        "other_timings": [zamba2, stablelm, grok, paligemma, whisper] + ragged,
     }
 
 
-def _decode_timing(torch, gen, pos, label, *, H, KV, hd) -> dict:
-    """The dense kernel at a decode tick's shape off the tensor-core walk
-    (8 slots, 1088-deep caches, a head_dim not a power of two, bf16: the
-    simt walk) beside its plain version and SDPA, with the bound."""
+def _decode_timing(torch, gen, pos, label, *, H, KV, hd, S=1088, want_kind="simt",
+                   dtype=None) -> dict:
+    """The dense kernel at a decode tick's shape (8 slots, `S`-deep caches,
+    bf16 unless `dtype`) on the walk `want_kind`, beside its plain version
+    and SDPA, with the bound."""
     from repro_torch.kernels import decode_attention, decode_core, ref
 
-    q, k, v, pos_t = _decode_case(torch, gen, pos=pos, dtype=torch.bfloat16, H=H, KV=KV, hd=hd)
+    dtype = dtype or torch.bfloat16
+    name = str(dtype).split(".")[-1]
+    q, k, v, pos_t = _decode_case(torch, gen, pos=pos, dtype=dtype, S=S, H=H, KV=KV, hd=hd)
     kind = decode_core.variant(q, k)
-    require(kind == "simt", f"decode_attention at hd {hd} ran {kind}, expected simt")
+    require(kind == want_kind, f"decode_attention ({label}) ran {kind}, expected {want_kind}")
     err, ok = _max_err_and_ok(torch, decode_attention.decode_attention(q, k, v, pos_t),
-                              ref.decode_attention(q, k, v, pos_t), TOL["bfloat16"])
+                              ref.decode_attention(q, k, v, pos_t), TOL[name])
     require(ok, f"decode_attention ({label}) disagrees with its plain version: {err:.3e}")
     d_kernel = device_ms(torch, lambda: decode_attention.decode_attention(q, k, v, pos_t))
     d_plain = device_ms(torch, lambda: ref.decode_attention(q, k, v, pos_t))
@@ -931,8 +1042,8 @@ def _decode_timing(torch, gen, pos, label, *, H, KV, hd) -> dict:
     elem = q.element_size()
     n_bytes = 2 * q.numel() * elem + 2 * n_valid * KV * hd * elem + B * 4
     flops = 4 * H * hd * n_valid
-    b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
-    shape = (f"{label}: B={B} S={S} H={H} KV={KV} hd={hd} bf16, {n_valid} valid "
+    b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[name] * 1e3
+    shape = (f"{label}: B={B} S={S} H={H} KV={KV} hd={hd} {name}, {n_valid} valid "
              f"positions ({kind}, cluster of {decode_core.cluster_size(q, k)})")
     log(f"[kernels] decode_attention timing {shape}: max_abs_err={err:.3e}; device time per call: kernel "
         f"{d_kernel:.4f} ms, plain {d_plain:.4f} ms, sdpa {d_lib:.4f} ms; kernel with the "
@@ -3209,6 +3320,435 @@ def phase_apps() -> None:
             f"{out['seconds']:.4f}s host time, {out['gflops']:.3f} GFLOP/s on the host")
 
 
+# ---------------------------------------------------------------------------
+# 23-28. the remaining families: MoE serving (grok-1, kimi-k2), paligemma-3b
+# and whisper-small through their bundles
+# ---------------------------------------------------------------------------
+
+MOE_FAMILY = ("grok-1-314b", "kimi-k2-1t-a32b")
+#: full-width layers each MoE config keeps on one 80 GB card (of 64 and 61):
+#: the published widths, the depth cut (grok 3.31 G parameters a layer, kimi
+#: 17.03 G, beside 1.61 G and 2.35 G of untied embeddings)
+MOE_LAYERS = {"grok-1-314b": 8, "kimi-k2-1t-a32b": 1}
+#: (flash, decode core) variants their serves launch: grok's 6 query heads a
+#: KV head do not divide wgmma's 64 rows (simt) and its hd 128 takes the
+#: mma walk; kimi's hd 112 is neither a wgmma head dim nor a power of two
+MOE_VARIANTS = {"grok-1-314b": ("simt", "mma"), "kimi-k2-1t-a32b": ("simt", "simt")}
+#: kv modes each full-width MoE config serves (grok also the dense per-slot
+#: decoder, whose MoE keeps the reference's per-slot capacity: no drop)
+MOE_MODES = {"grok-1-314b": ("paged", "dense"), "kimi-k2-1t-a32b": ("paged",)}
+
+
+@contextlib.contextmanager
+def _moe_drops(torch):
+    """Counts the rows MoE layers drop by capacity, in prefills (S > 1) and in
+    decode ticks, by wrapping `models.moe.moe_ffn` (which the transformer
+    calls through its module); the counts stay on the device until read."""
+    from repro_torch.models import moe
+
+    real = moe.moe_ffn
+    tally = {"prefill": [], "tick": [], "prefill_rows": 0, "tick_rows": 0}
+
+    def counted(cfg, p, x, *, dropless=False):
+        y, aux = real(cfg, p, x, dropless=dropless)
+        where = "prefill" if x.shape[1] > 1 else "tick"
+        tally[where].append(aux["dropped"].sum())
+        tally[f"{where}_rows"] += aux["dropped"].numel()
+        return y, aux
+
+    moe.moe_ffn = counted
+    try:
+        yield tally
+    finally:
+        moe.moe_ffn = real
+
+
+def _drops(torch, tally, where: str) -> int:
+    return int(torch.stack(tally[where]).sum().item()) if tally[where] else 0
+
+
+def phase_reduced_moe(torch) -> None:
+    """grok-1 and kimi-k2 REDUCED in fp32 on the card against the CPU: prefill
+    plus 16 teacher-forced dense ticks (logits within 1e-4, equal greedy
+    tokens), then the dense and the paged continuous serve and a serial
+    `generate` (equal tokens, every page back)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    from repro_torch.serve.workload import synthetic_requests
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in MOE_FAMILY:
+        cfg = get_config(arch, reduced=True)
+        require(cfg.compute_dtype == "float32", f"REDUCED {arch} computes in fp32")
+        model = build(cfg)
+        params_cpu = model.init(seed=0, device="cpu")
+        params_card = _to_device(params_cpu, "cuda")
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (45, 12, 3)]
+        steps = rng.integers(1, cfg.vocab_size, (16, len(prompts))).tolist()
+        ops.reset_launch_counts()
+        on_card = dense_logits(torch, cfg, params_card, prompts, steps, "cuda")
+        counts = ops.launch_counts()
+        on_cpu = dense_logits(torch, cfg, params_cpu, prompts, steps, "cpu")
+        require(counts["flash_attention"] == len(prompts) * cfg.num_layers
+                and counts["decode_attention"] == len(steps) * cfg.num_layers,
+                f"reduced {arch} run did not go through the kernels: {counts}")
+        worst = max(float((a - b).abs().max()) for a, b in zip(on_card, on_cpu))
+        same_greedy = all(torch.equal(a.argmax(-1), b.argmax(-1)) for a, b in zip(on_card, on_cpu))
+
+        requests = synthetic_requests(cfg.vocab_size, 6, prompt_range=(3, 40),
+                                      steps_range=(2, 14), seed=0)
+        engine_prompts = rng.integers(1, cfg.vocab_size, (3, 9)).astype(np.int32)
+        served, generated, launches, pages = {}, {}, {}, {}
+        for device, params in (("cuda", params_card), ("cpu", params_cpu)):
+            with Runtime("torchdev", device=device) as rt:
+                ops.reset_launch_counts()
+                for kv_mode in ("dense", "paged"):
+                    sched = ContinuousBatchingScheduler(
+                        model, params, max_batch=4, max_len=64, runtime=rt, kv_mode=kv_mode,
+                        page_size=8, sync_interval=4)
+                    served[device, kv_mode] = {rid: f.tokens
+                                               for rid, f in sched.serve(requests).items()}
+                    if kv_mode == "paged":
+                        pages[device] = sched.decoder.kv.pages_used
+                engine = ServeEngine(model, params, max_len=40, runtime=rt)
+                generated[device] = engine.generate(engine_prompts, steps=12).tokens
+                launches[device] = ops.launch_counts()
+        same = {m: served["cuda", m] == served["cpu", m] for m in ("dense", "paged")}
+        log(f"[reduced-moe] {arch} REDUCED fp32 ({cfg.num_layers} layers, {cfg.num_experts} "
+            f"experts top-{cfg.experts_per_token}, {cfg.act}, {cfg.num_heads}q/"
+            f"{cfg.num_kv_heads}kv x {cfg.resolved_head_dim}): prefill of {len(prompts)} prompts "
+            f"+ {len(steps)} teacher-forced dense ticks: max |logits card - cpu| = {worst:.3e} "
+            f"(atol {REDUCED_ATOL}), greedy tokens equal: {same_greedy}; dense and paged serves "
+            f"of {len(requests)} requests and serial generate (3 x 9, 12 steps): card tokens "
+            f"equal CPU tokens: {same}, generate "
+            f"{bool(np.array_equal(generated['cuda'], generated['cpu']))}; pages used after the "
+            f"drain {pages}; card launches {launches['cuda']}")
+        require(worst <= REDUCED_ATOL, f"REDUCED {arch} logits differ by {worst:.3e}")
+        require(same_greedy, f"REDUCED {arch} greedy tokens differ between the card and the CPU")
+        require(launches["cuda"]["paged_decode_attention"] > 0
+                and launches["cuda"]["decode_attention"] > 0,
+                f"the {arch} serves and engine launched no decode kernel")
+        require(all(same.values()), f"REDUCED {arch} serve tokens differ card vs CPU: {same}")
+        require(bool(np.array_equal(generated["cuda"], generated["cpu"])),
+                f"REDUCED {arch} serial generate tokens differ card vs CPU")
+        require(pages == {"cuda": 0, "cpu": 0}, f"{arch}: pages left after the drain: {pages}")
+
+
+def phase_serve_moe(torch) -> dict:
+    """grok-1 (8 of 64 layers) and kimi-k2 (1 of 61) at their published widths
+    (bf16, seeded weights made on the card) serve the 16 synthetic requests
+    on 8 slots through the paged scheduler, grok also through the dense one.
+    One config's weights are freed before the next is made. Returns launch
+    counts by path."""
+    counts = {}
+    for arch in MOE_FAMILY:
+        counts.update(_serve_moe_config(torch, arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated()
+        require(left < 2**30, f"{arch}: {left / 2**30:.2f} GiB still allocated after its phase")
+    return counts
+
+
+def _serve_moe_config(torch, arch: str) -> dict:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models.common import dtype_of
+    from repro_torch.models.moe import capacity
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    from repro_torch.serve.workload import synthetic_requests
+
+    tag = f"[serve-moe] {arch}"
+    full = get_config(arch)
+    cfg = full.replace(num_layers=MOE_LAYERS[arch])
+    model = build(cfg)
+    L = cfg.num_layers
+    n_req = SERVE_REQUESTS["n"]
+    prompt_range, steps_range = SERVE_REQUESTS["prompt_range"], SERVE_REQUESTS["steps_range"]
+    max_len = (prompt_range[1] - 1) + (steps_range[1] - 1)
+    flash_kind, decode_kind = MOE_VARIANTS[arch]
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    require(base < 2**30, f"{arch}: {base / 2**30:.2f} GiB allocated before its phase")
+    with Runtime("torchdev") as rt:
+        t0 = time.perf_counter()
+        params = model.init(seed=0, device=rt.processing_unit.context,
+                            dtype=dtype_of(cfg.compute_dtype))
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        weights = torch.cuda.memory_allocated() - base
+        experts = sum(t.nbytes for layer in params["layers"] for name, t in layer["moe"].items()
+                      if name != "router")
+        log(f"{tag}: {L} of {full.num_layers} layers at the published widths (d_model "
+            f"{cfg.d_model}, {cfg.num_heads}q/{cfg.num_kv_heads}kv heads x "
+            f"{cfg.resolved_head_dim}, {cfg.num_experts} experts top-{cfg.experts_per_token} of "
+            f"d_ff {cfg.expert_d_ff} ({cfg.act}), vocab {cfg.vocab_size} untied, "
+            f"{cfg.compute_dtype}); {n_params} parameters ({weights / 2**30:.2f} GiB, experts "
+            f"{experts / 2**30:.2f} GiB) made on the card in {time.perf_counter() - t0:.1f}s")
+        for kv_mode in MOE_MODES[arch]:
+            path = f"serve-{arch}" + ("" if kv_mode == "paged" else f" {kv_mode}")
+            sched = ContinuousBatchingScheduler(model, params, max_batch=8, max_len=max_len,
+                                                runtime=rt, kv_mode=kv_mode, page_size=16,
+                                                sync_interval=8)
+            warm = synthetic_requests(cfg.vocab_size, 2, prompt_range=(64, 65),
+                                      steps_range=(9, 10), seed=1, rid_prefix="warm")
+            sched.serve(warm)
+            requests = synthetic_requests(cfg.vocab_size, n_req, prompt_range=prompt_range,
+                                          steps_range=steps_range, seed=SERVE_REQUESTS["seed"])
+            ticks0 = sched.ticks
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            with _moe_drops(torch) as tally:
+                wall, ttft, _, tokens = _timed_serve(torch, sched, requests)
+                counts = ops.launch_counts()
+                variants = ops.variant_counts()
+            dropped = {w: _drops(torch, tally, w) for w in ("prefill", "tick")}
+            peak = torch.cuda.max_memory_allocated() - base
+            ticks = sched.ticks - ticks0
+            if kv_mode == "paged":
+                state = sum(k.nbytes + v.nbytes for k, v in sched.decoder.kv.pools)
+            else:
+                state = sum(t.nbytes for kv in sched.decoder._states for t in kv)
+            n_tok = 0
+            for r in requests:
+                toks = np.asarray(tokens[r.rid])
+                require(len(toks) == r.max_new_tokens,
+                        f"{path} {r.rid}: {len(toks)} tokens, budget {r.max_new_tokens}")
+                require(bool(np.all((toks >= 0) & (toks < cfg.vocab_size))),
+                        f"{path} {r.rid}: token out of range")
+                n_tok += len(toks)
+            decode = "paged_decode_attention" if kv_mode == "paged" else "decode_attention"
+            want = {"flash_attention": n_req * L, "paged_decode_attention": 0,
+                    "decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0}
+            want[decode] = ticks * L
+            require(counts == want, f"{path} launches {counts}, expected {want}")
+            require_variant(variants, "flash_attention", flash_kind, want["flash_attention"], path)
+            require_variant(variants, decode, decode_kind, want[decode], path)
+            if kv_mode == "paged":
+                require(sched.decoder.kv.pages_used == 0, f"{path}: pages left after the drain")
+            else:  # the per-slot capacity: a dense tick never drops a row
+                require(dropped["tick"] == 0, f"{path}: dense ticks dropped {dropped['tick']} rows")
+            tt = np.asarray(list(ttft.values()))
+            plens = [len(r.prompt) for r in requests]
+            log(f"{tag} {kv_mode}: {n_req} requests (prompts {min(plens)}-{max(plens)} tokens, "
+                f"{sum(plens)} prompt tokens), {n_tok} generated tokens in {wall:.3f}s: "
+                f"{n_tok / wall:.1f} tok/s; TTFT p50 {np.percentile(tt, 50) * 1e3:.1f} ms, p90 "
+                f"{np.percentile(tt, 90) * 1e3:.1f} ms (from a common start, queueing included); "
+                f"{ticks} decode ticks; peak device memory above the base {peak / 2**30:.2f} GiB "
+                f"(weights {weights / 2**30:.2f}, {'page pool' if kv_mode == 'paged' else 'slot caches'}"
+                f" {state / 2**30:.2f}, the rest {(peak - weights - state) / 2**30:.2f}); rows "
+                f"dropped by capacity: {dropped['prefill']} of {tally['prefill_rows']} in "
+                f"prefills (capacity at a 1024-token prompt {capacity(cfg, 1024)} an expert), "
+                f"{dropped['tick']} of {tally['tick_rows']} in ticks; launches {counts}, by "
+                f"variant flash {variants['flash_attention']}, decode {variants[decode]}")
+            for r in requests[:2]:
+                log(f"{tag} {kv_mode} {r.rid}: prompt {len(r.prompt)} tokens -> "
+                    f"{tokens[r.rid][:8]}...")
+            out[path] = counts
+            del sched
+            gc.collect()
+        del params
+    return out
+
+
+def _bundle_generate(torch, model, params, batch, steps: int, first_pos: int, max_len: int):
+    """Greedy decoding through a `ModelBundle`: `make_prefill(max_len)` on the
+    batch, then `steps - 1` `decode_step`s at a shared position from
+    `first_pos`. Returns (tokens (B, steps) on the host, TTFT s, wall s,
+    prefill logits, last logits)."""
+    prefill = model.make_prefill(max_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, batch)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = [tok.cpu()]  # the first token, on the host
+    ttft = time.perf_counter() - t0
+    first_logits = logits.float().cpu()
+    for i in range(steps - 1):
+        logits, state = model.decode_step(params, state, {"tokens": tok[:, None],
+                                                          "pos": first_pos + i})
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok.cpu())
+    wall = time.perf_counter() - t0
+    return torch.stack(out, dim=1).numpy(), ttft, wall, first_logits, logits.float().cpu()
+
+
+def _reduced_bundle(torch, arch: str, extra: str, make_extra, n_text: int, tag: str):
+    """A REDUCED fp32 bundle on the card against the CPU, 3 requests: prefill
+    logits within 1e-4 and a greedy chain of 16 tokens identical. Returns
+    (the config, the card run's launch counts)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch, reduced=True)
+    require(cfg.compute_dtype == "float32", f"REDUCED {arch} computes in fp32")
+    model = build(cfg)
+    params_cpu = model.init(seed=0, device="cpu")
+    params_card = _to_device(params_cpu, "cuda")
+    rng = np.random.default_rng(11)
+    tokens = rng.integers(1, cfg.vocab_size, (3, n_text)).astype(np.int32)
+    ext = make_extra(rng, cfg, 3)
+    prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
+    chain, runs = 16, {}
+    for device, params in (("cuda", params_card), ("cpu", params_cpu)):
+        batch = {"tokens": torch.as_tensor(tokens, device=device),
+                 extra: torch.as_tensor(ext, device=device)}
+        ops.reset_launch_counts()
+        runs[device] = _bundle_generate(torch, model, params, batch, chain, prefix + n_text,
+                                        prefix + n_text + chain)
+        runs[device] += (ops.launch_counts(),)
+    err_first = float((runs["cuda"][3] - runs["cpu"][3]).abs().max())
+    err_last = float((runs["cuda"][4] - runs["cpu"][4]).abs().max())
+    same = bool(np.array_equal(runs["cuda"][0], runs["cpu"][0]))
+    counts = runs["cuda"][5]
+    log(f"[{tag}] {arch} REDUCED fp32 (B=3, {n_text}-token prompts"
+        + (f" after {prefix} vision tokens" if prefix else "") + f"): prefill max |logits card "
+        f"- cpu| = {err_first:.3e}, after {chain - 1} decode steps {err_last:.3e} (atol "
+        f"{REDUCED_ATOL}); greedy chains of {chain} equal: {same}; card launches {counts}")
+    require(err_first <= REDUCED_ATOL and err_last <= REDUCED_ATOL,
+            f"REDUCED {arch} logits differ: {err_first:.3e}, {err_last:.3e}")
+    require(same, f"REDUCED {arch} greedy chains differ between the card and the CPU")
+    require(runs["cpu"][5]["flash_attention"] == 0, "the CPU run launched a kernel")
+    return cfg, counts
+
+
+def phase_reduced_vlm(torch) -> None:
+    def patches(rng, cfg, B):
+        return rng.standard_normal((B, cfg.vision_tokens, cfg.vision_embed_dim)).astype("float32")
+
+    cfg, counts = _reduced_bundle(torch, "paligemma-3b", "patches", patches, 7, "reduced-vlm")
+    L = cfg.num_layers
+    require(counts["flash_attention"] == L and counts["decode_attention"] == 15 * L,
+            f"REDUCED paligemma did not go through the kernels: {counts}")
+
+
+def phase_reduced_whisper(torch) -> None:
+    def frames(rng, cfg, B):
+        return (rng.standard_normal((B, cfg.encoder_context, cfg.d_model)) * 0.02).astype(
+            "float32")
+
+    cfg, counts = _reduced_bundle(torch, "whisper-small", "frames", frames, 5, "reduced-whisper")
+    Le, Ld = cfg.encoder_layers, cfg.num_layers
+    require(counts["flash_attention"] == Le + 2 * Ld + 15 * Ld
+            and counts["decode_attention"] == 15 * Ld,
+            f"REDUCED whisper did not go through the kernels: {counts}")
+
+
+GENERATE = {  # B, prompt tokens, generated tokens of the two bundle phases
+    "paligemma-3b": dict(B=8, prompt=32, steps=64),
+    "whisper-small": dict(B=8, prompt=16, steps=128),
+}
+
+
+def phase_generate_bundle(torch, arch: str) -> dict:
+    """paligemma-3b (18 layers) or whisper-small (12 + 12) at full width,
+    bf16, seeded: a batch of 8 requests through the bundle, prefill with
+    their seeded patches (256 x 1152) or frames (1500 x 768, x 0.02, as the
+    reference's `make_batch`), then greedy decoding. Checks finite logits,
+    tokens in the vocabulary, exact launch counts and variants. Returns the
+    launch counts."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models.common import dtype_of
+
+    tag = f"[generate-{arch.split('-')[0]}]"
+    cfg = get_config(arch)
+    model = build(cfg)
+    cd = dtype_of(cfg.compute_dtype)
+    g = GENERATE[arch]
+    B, S, steps = g["B"], g["prompt"], g["steps"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda", dtype=cd)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    weights = torch.cuda.memory_allocated() - base
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    if cfg.family == "vlm":
+        extra = "patches"
+        ext = torch.randn((B, cfg.vision_tokens, cfg.vision_embed_dim), generator=gen,
+                          device="cuda").to(cd)
+        prefix = cfg.vision_tokens
+    else:
+        extra = "frames"
+        ext = (torch.randn((B, cfg.encoder_context, cfg.d_model), generator=gen,
+                           device="cuda") * 0.02).to(cd)
+        prefix = 0
+    log(f"{tag} {arch}: {cfg.num_layers} layers" + (
+        f" + {cfg.encoder_layers} encoder layers over {cfg.encoder_context} frames"
+        if cfg.family == "audio" else f", a {cfg.vision_tokens}-token vision prefix") +
+        f", d_model {cfg.d_model}, {cfg.num_heads}q/{cfg.num_kv_heads}kv x "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, {cfg.compute_dtype}; {n_params} "
+        f"parameters ({weights / 2**30:.2f} GiB) made on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    batch = {"tokens": tokens, extra: ext}
+    max_len = prefix + S + steps
+    _bundle_generate(torch, model, params, {"tokens": tokens[:2], extra: ext[:2]}, 2,
+                     prefix + S, max_len)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out, ttft, wall, first, last = _bundle_generate(torch, model, params, batch, steps,
+                                                    prefix + S, max_len)
+    counts = ops.launch_counts()
+    variants = ops.variant_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    require(out.shape == (B, steps), f"{arch}: tokens of shape {out.shape}")
+    require(bool(np.all((out >= 0) & (out < cfg.vocab_size))), f"{arch}: token out of range")
+    require(bool(torch.isfinite(first).all()) and bool(torch.isfinite(last).all()),
+            f"{arch}: logits not finite")
+    L = cfg.num_layers
+    if cfg.family == "vlm":
+        want_flash = L
+    else:  # encoder, decoder self and cross at prefill, cross every step
+        want_flash = cfg.encoder_layers + 2 * L + (steps - 1) * L
+    want = {"flash_attention": want_flash, "decode_attention": (steps - 1) * L,
+            "paged_decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0}
+    require(counts == want, f"{arch} launches {counts}, expected {want}")
+    require_variant(variants, "flash_attention", "wgmma", want_flash, arch)
+    require_variant(variants, "decode_attention", "mma", want["decode_attention"], arch)
+    n_tok = B * steps
+    log(f"{tag} {arch}: B={B}, {S}-token prompts{' after the vision prefix' if prefix else ''}"
+        f", {steps} greedy tokens each: {n_tok} tokens in {wall:.3f}s: {n_tok / wall:.1f} "
+        f"tok/s; first token after {ttft * 1e3:.1f} ms (prefill{' with the encoder' if not prefix else ''}); "
+        f"peak device memory above the base {peak / 2**30:.2f} GiB (weights "
+        f"{weights / 2**30:.2f}); launches {counts}; flash by variant "
+        f"{variants['flash_attention']}, decode by variant {variants['decode_attention']}")
+    log(f"{tag} request 0 -> {out[0, :8].tolist()}...")
+    del params, batch, ext
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -3272,6 +3812,14 @@ def main() -> int:
         fleet_counts = run_phase("serve-fleet", phase_serve_fleet, torch, paged_tokens,
                                  paged_tok_s)
         run_phase("apps", phase_apps)
+        run_phase("reduced-moe", phase_reduced_moe, torch)
+        moe_counts = run_phase("serve-moe", phase_serve_moe, torch)
+        run_phase("reduced-vlm", phase_reduced_vlm, torch)
+        paligemma_counts = run_phase("generate-paligemma", phase_generate_bundle, torch,
+                                     "paligemma-3b")
+        run_phase("reduced-whisper", phase_reduced_whisper, torch)
+        whisper_counts = run_phase("generate-whisper", phase_generate_bundle, torch,
+                                   "whisper-small")
         log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
@@ -3285,7 +3833,8 @@ def main() -> int:
                    "tc2": tc2_counts, "serve-xlstm": xlstm_counts, "loss-xlstm": loss_counts,
                    "serve-prefix": prefix_counts, "serve-zamba2": zamba2_counts,
                    "serve-zamba2 serial": zamba2_serial_counts, **family_counts,
-                   "serve-fleet": fleet_counts}
+                   "serve-fleet": fleet_counts, **moe_counts,
+                   "generate-paligemma": paligemma_counts, "generate-whisper": whisper_counts}
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]] for path, c in path_counts.items()
                                  if c[k["name"]]}

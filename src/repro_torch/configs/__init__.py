@@ -1,11 +1,10 @@
 """Architecture configs: the port's own copy of the reference's
 `ArchConfig` and `get_config`.
 
-Every architecture id of the reference is known here, but only the ones
-whose model family the port runs have a config module; the others raise
-`NotImplementedError` until their slice is ported. Each config module
-defines ``CONFIG`` (the published configuration) and ``REDUCED`` (a small
-same-family config for CPU tests).
+Every architecture id of the reference has its config module here, and the
+port runs each one's model family. Each config module defines ``CONFIG``
+(the published configuration) and ``REDUCED`` (a small same-family config
+for CPU tests).
 """
 from __future__ import annotations
 
@@ -103,19 +102,13 @@ ARCH_IDS: Sequence[str] = (
     "zamba2-7b",
 )
 
-#: Architectures whose config (and model family) the port runs today.
-PORTED_ARCH_IDS: Sequence[str] = (
-    "gemma3-1b", "granite-20b", "stablelm-12b", "minitron-8b", "xlstm-125m", "zamba2-7b",
-)
+#: Architectures whose config (and model family) the port runs: all of them.
+PORTED_ARCH_IDS: Sequence[str] = ARCH_IDS
 
 
 def get_config(arch_id: str, *, reduced: bool = False) -> ArchConfig:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {list(ARCH_IDS)}")
-    if arch_id not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet; ported: {list(PORTED_ARCH_IDS)}"
-        )
     mod_name = arch_id.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.REDUCED if reduced else mod.CONFIG

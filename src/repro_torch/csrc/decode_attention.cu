@@ -19,7 +19,8 @@
 #include "decode_core.cuh"
 
 // C entry point. q, out: (B, H, hd); k_cache, v_cache: (B, S, KV, hd),
-// 16-byte aligned, hd * element size a multiple of 16; pos: (B,) int32,
+// 16-byte aligned, any hd up to 256 (rows that are not whole 16-byte loads
+// take the SIMT walk's element loads); pos: (B,) int32,
 // >= 0 (positions past S - 1 see the whole cache). All contiguous, one float
 // dtype (0 fp32, 1 bf16); H a multiple of KV; `cluster` blocks (1, 2, 4, 8 or
 // 16) per (slot, KV head, group of at most 8 of its query heads). Returns the

@@ -25,7 +25,11 @@
 //   512-byte hd = 256 bf16 row; narrower rows are moved several at once.
 //   Each warp walks a strided subset of the block's positions, its K and V
 //   rows copied by cp.async into a 3-stage ring in shared memory, two steps
-//   ahead of the one being scored.
+//   ahead of the one being scored. Rows that are not a whole number of
+//   16-byte loads (hd * element size not a multiple of 16, so most rows
+//   start unaligned) take the SIMT walk with element loads instead, each
+//   lane still filling its own 16-byte ring slots (zeros past hd); the
+//   merge buffers then hold rows of hd rounded up to those slots (`hs`).
 // * Warp-private online softmax in base 2 (scores scaled by scale * log2 e):
 //   each warp keeps (m, l, acc) per query head in registers and q beside
 //   them, so the walk has no block barrier; all G query heads share each
@@ -50,6 +54,7 @@
 #include <cooperative_groups.h>
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 #include "common.cuh"
@@ -79,6 +84,8 @@ struct Params {
   const int* table;  // paged: (B, n_pages); dense: unused
   void* out;         // (B, H, hd)
   int H, KV, hd;
+  int hs;            // floats a row of the merge buffers: hd rounded up to whole loads
+  int vec_rows;      // 1: rows are whole 16-byte loads (cp.async); 0: element loads
   int GT;            // query heads per KV head
   int ngrp;          // blocks' head groups per KV head: ceil(GT / MAX_GROUP)
   int G;             // query heads a group holds (the last group may hold fewer)
@@ -161,6 +168,22 @@ __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u, float* f) 
   }
 }
 
+// The first n (<= 16 / sizeof(T)) elements at src, zeros after them, as the
+// 16 bytes a cp.async of a whole chunk would have delivered: the load of a
+// row that is not a whole number of 16-byte loads (src may be unaligned).
+template <typename T>
+__device__ __forceinline__ uint4 load_elems(const T* src, int n) {
+  using Bits = typename std::conditional<sizeof(T) == 4, unsigned, unsigned short>::type;
+  constexpr int VEC = 16 / int(sizeof(T));
+  const Bits* s = reinterpret_cast<const Bits*>(src);
+  Bits w[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) w[e] = e < n ? __ldg(s + e) : Bits(0);
+  uint4 u;
+  memcpy(&u, w, sizeof(u));
+  return u;
+}
+
 // Weight of a state with max m in a merge whose max is M >= m: 0 for a
 // state that saw nothing (m = -inf), so -inf - -inf never arises.
 __device__ __forceinline__ float weight(float m, float M) {
@@ -233,14 +256,15 @@ struct Batch {
 
 // Shared memory of a block, in floats: the warps' rings, then the merge
 // buffers (each block's acc, its receive slices, the (m, l) tables).
-__host__ __device__ constexpr size_t merge_floats(int G, int hd) {
-  return size_t(G) * hd + 4 * MAX_CLUSTER            // recv
+// `hs` is a row of the merge buffers: hd rounded up to whole 16-byte loads.
+__host__ __device__ constexpr size_t merge_floats(int G, int hs) {
+  return size_t(G) * hs + 4 * MAX_CLUSTER            // recv
          + (3 * MAX_CLUSTER + NW) * MAX_GROUP;        // wm, wl, recv_ml
 }
 template <typename T, int HDP, int GMAX>
-__host__ __device__ constexpr size_t smem_floats(int G, int hd) {
-  return size_t(4) * NW * Batch<T, HDP, GMAX>::RING + size_t(NW) * G * hd  // rings, wacc
-         + merge_floats(G, hd);
+__host__ __device__ constexpr size_t smem_floats(int G, int hs) {
+  return size_t(4) * NW * Batch<T, HDP, GMAX>::RING + size_t(NW) * G * hs  // rings, wacc
+         + merge_floats(G, hs);
 }
 
 // The tensor-core walk (bf16, hd = HDP): a warp takes TR = 8 positions a
@@ -265,12 +289,13 @@ struct MmaGeo {
 // The rings, which the warps' acc (at most NW * 8 * HDP floats) reuses
 // after the walk, then the merge buffers.
 template <int HDP>
-__host__ __device__ constexpr size_t mma_smem_floats(int G, int hd) {
-  return size_t(NW) * MmaGeo<HDP>::RING / 4 + merge_floats(G, hd);
+__host__ __device__ constexpr size_t mma_smem_floats(int G, int hs) {
+  return size_t(NW) * MmaGeo<HDP>::RING / 4 + merge_floats(G, hs);
 }
 
 // The end of both kernels. On entry each warp's (m, l) is in wm / wl
-// [warp][g] and its acc in wacc[warp][g][hd]. Merges the block's warps and
+// [warp][g] and its acc in wacc[warp][g][hs] (hs = hd but for the rows that
+// are not whole loads, whose padding holds zeros). Merges the block's warps and
 // sends the result to the cluster: block r of the cluster writes slice r of
 // the output, so each block stores slice r of its acc into block r's `recv`
 // and its (m, l) into every block's `recv_ml`; the stores complete before
@@ -281,12 +306,12 @@ __device__ __forceinline__ void merge_and_store(const Params& p, cg::cluster_gro
                                                 float* recv, float* wm, const float* wl,
                                                 float* recv_ml) {
   const int C = static_cast<int>(cluster.dim_blocks().x);
-  const int tid = threadIdx.x, hd = p.hd;
+  const int tid = threadIdx.x, hd = p.hd, hs = p.hs;
   cluster_wait();
-  const int n4 = G * hd / 4;           // float4s of a (slot, KV head)'s output
+  const int n4 = G * hs / 4;           // float4s of a (slot, KV head)'s output
   const int slice = (n4 + C - 1) / C;  // float4s each block writes
   for (int i4 = tid; i4 < n4; i4 += NT) {
-    const int g = 4 * i4 / hd;
+    const int g = 4 * i4 / hs;
     float M = REPRO_ABSENT;
 #pragma unroll
     for (int w = 0; w < NW; ++w) M = fmaxf(M, wm[w * MAX_GROUP + g]);
@@ -294,7 +319,7 @@ __device__ __forceinline__ void merge_and_store(const Params& p, cg::cluster_gro
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
       const float wt = weight(wm[w * MAX_GROUP + g], M);
-      const float4 x = reinterpret_cast<const float4*>(wacc + size_t(w) * G * hd)[i4];
+      const float4 x = reinterpret_cast<const float4*>(wacc + size_t(w) * G * hs)[i4];
       a.x = fmaf(wt, x.x, a.x);
       a.y = fmaf(wt, x.y, a.y);
       a.z = fmaf(wt, x.z, a.z);
@@ -331,7 +356,7 @@ __device__ __forceinline__ void merge_and_store(const Params& p, cg::cluster_gro
   __syncthreads();
   T* op = static_cast<T*>(p.out) + (size_t(b) * p.H + hb) * hd;
   for (int j = tid; j < slice && rank * slice + j < n4; j += NT) {
-    const int i4 = rank * slice + j, g = 4 * i4 / hd;
+    const int i4 = rank * slice + j, g = 4 * i4 / hs, col = 4 * i4 - g * hs;
     float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int r = 0; r < C; ++r) {
       const float wt = wm[r * MAX_GROUP + g];
@@ -341,10 +366,11 @@ __device__ __forceinline__ void merge_and_store(const Params& p, cg::cluster_gro
       o.z = fmaf(wt, x.z, o.z);
       o.w = fmaf(wt, x.w, o.w);
     }
-    op[4 * i4] = from_float<T>(o.x);
-    op[4 * i4 + 1] = from_float<T>(o.y);
-    op[4 * i4 + 2] = from_float<T>(o.z);
-    op[4 * i4 + 3] = from_float<T>(o.w);
+    T* og = op + g * hd + col;  // the padding past hd is not written
+    if (col < hd) og[0] = from_float<T>(o.x);
+    if (col + 1 < hd) og[1] = from_float<T>(o.y);
+    if (col + 2 < hd) og[2] = from_float<T>(o.z);
+    if (col + 3 < hd) og[3] = from_float<T>(o.w);
   }
 }
 
@@ -367,15 +393,16 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(const Params p) {
   const int kvh = blockIdx.y / p.ngrp, grp = blockIdx.y - kvh * p.ngrp, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int unit = lane / LPR, ul = lane % LPR;
-  const int G = min(p.G, p.GT - grp * p.G), hd = p.hd;
+  const int G = min(p.G, p.GT - grp * p.G), hd = p.hd, hs = p.hs;
   const int hb = kvh * p.GT + grp * p.G;  // this block's first query head
-  const int nch = hd / VEC;  // 16-byte chunks of a row that exist
+  const int nch = (hd + VEC - 1) / VEC;  // 16-byte chunks of a row that exist (the last
+                                         // one partial where rows are not whole loads)
 
   extern __shared__ __align__(16) float smem[];
   uint4* ring = reinterpret_cast<uint4*>(smem) + warp * Bt::RING;
-  float* wacc = smem + 4 * NW * Bt::RING;  // [NW][G][hd] each warp's acc
-  float* recv = wacc + NW * G * hd;        // [C][slice] acc slices the blocks send here
-  float* wm = recv + G * hd + 4 * MAX_CLUSTER;  // [NW][MAX_GROUP] each warp's m, then
+  float* wacc = smem + 4 * NW * Bt::RING;  // [NW][G][hs] each warp's acc
+  float* recv = wacc + NW * G * hs;        // [C][slice] acc slices the blocks send here
+  float* wm = recv + G * hs + 4 * MAX_CLUSTER;  // [NW][MAX_GROUP] each warp's m, then
                                                 // [C][MAX_GROUP] each block's weight
   float* wl = wm + MAX_CLUSTER * MAX_GROUP;     // [NW][MAX_GROUP] each warp's l
   float* recv_ml = wl + NW * MAX_GROUP;         // [C][MAX_GROUP][m, l] from each block
@@ -393,7 +420,7 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(const Params p) {
 
   // q: (B, H, hd); this block's heads are hb .. hb + G - 1
   const T* qp = static_cast<const T*>(p.q) + (size_t(b) * p.H + hb) * hd;
-  const bool qvec = reinterpret_cast<uintptr_t>(p.q) % 16 == 0;
+  const bool qvec = reinterpret_cast<uintptr_t>(p.q) % 16 == 0 && hd % VEC == 0;
   float qr[GMAX][EPL], m[GMAX], l[GMAX], acc[GMAX][EPL];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
@@ -408,7 +435,8 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(const Params p) {
           unpack<T>(__ldg(reinterpret_cast<const uint4*>(qp + g * hd) + ch), f);
         } else {
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) f[e] = to_float(qp[g * hd + ch * VEC + e]);
+          for (int e = 0; e < VEC; ++e)
+            f[e] = ch * VEC + e < hd ? to_float(qp[g * hd + ch * VEC + e]) : 0.f;
         }
       } else {
 #pragma unroll
@@ -433,7 +461,8 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(const Params p) {
 
     // copy batch j (rows t, t + GR, ..., t + (U - 1) GR, t = tw + j STEP +
     // unit) into stage j % STAGES; each lane copies, and later reads, only
-    // its own 16-byte chunks, so no barrier is needed
+    // its own 16-byte chunks, so no barrier is needed. Rows that are not
+    // whole 16-byte loads are read element by element (block-uniform branch)
     auto issue = [&](int j) {
       const int t = tw + j * STEP + unit, st = j % STAGES;
 #pragma unroll
@@ -444,8 +473,14 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(const Params p) {
         for (int c = 0; c < CPL; ++c) {
           const int ch = c * LPR + ul;
           const bool in = ok && ch < nch;
-          cp_async16(slot(st, i, 0, c), in ? kp + row * hd + ch * VEC : kp, in);
-          cp_async16(slot(st, i, 1, c), in ? vp + row * hd + ch * VEC : vp, in);
+          if (p.vec_rows) {
+            cp_async16(slot(st, i, 0, c), in ? kp + row * hd + ch * VEC : kp, in);
+            cp_async16(slot(st, i, 1, c), in ? vp + row * hd + ch * VEC : vp, in);
+          } else {
+            const int n = in ? min(VEC, hd - ch * VEC) : 0;
+            *slot(st, i, 0, c) = load_elems<T>(kp + row * hd + ch * VEC, n);
+            *slot(st, i, 1, c) = load_elems<T>(vp + row * hd + ch * VEC, n);
+          }
         }
         cur.advance();
       }
@@ -542,7 +577,7 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(const Params p) {
           wm[warp * MAX_GROUP + g] = m[g];
           wl[warp * MAX_GROUP + g] = l[g];
         }
-        float* dst = wacc + (size_t(warp) * G + g) * hd;
+        float* dst = wacc + (size_t(warp) * G + g) * hs;
 #pragma unroll
         for (int c = 0; c < CPL; ++c) {
           const int ch = c * LPR + lane;
@@ -582,6 +617,7 @@ __global__ void __launch_bounds__(NT, 1) decode_mma_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   char* ring = reinterpret_cast<char*>(smem) + warp * Mg::RING;
   float* wacc = smem;  // [NW][G][hd] each warp's acc, over the rings once they are done
+                       // (hs = hd: the tensor-core walk takes whole-load rows only)
   float* recv = smem + NW * Mg::RING / 4;
   float* wm = recv + G * hd + 4 * MAX_CLUSTER;
   float* wl = wm + MAX_CLUSTER * MAX_GROUP;
@@ -755,8 +791,14 @@ inline int head_dim_bucket(int hd) {
 }
 
 template <typename T, int HDP, int GMAX, bool MMA>
-constexpr size_t smem_floats_of(int G, int hd) {
-  return MMA ? mma_smem_floats<HDP>(G, hd) : smem_floats<T, HDP, GMAX>(G, hd);
+constexpr size_t smem_floats_of(int G, int hs) {
+  return MMA ? mma_smem_floats<HDP>(G, hs) : smem_floats<T, HDP, GMAX>(G, hs);
+}
+
+// hd rounded up to whole 16-byte loads of `elem`-byte elements.
+inline int row_floats(int hd, int elem) {
+  const int vec = 16 / elem;
+  return (hd + vec - 1) / vec * vec;
 }
 
 namespace {  // internal linkage: each library keeps its own launch state
@@ -778,7 +820,7 @@ cudaError_t launch_kernel(const Params& p, int B, int cluster, cudaStream_t stre
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, p.KV * p.ngrp, B);
   cfg.blockDim = dim3(NT, 1, 1);
-  cfg.dynamicSmemBytes = sizeof(float) * smem_floats_of<T, HDP, GMAX, MMA>(p.G, p.hd);
+  cfg.dynamicSmemBytes = sizeof(float) * smem_floats_of<T, HDP, GMAX, MMA>(p.G, p.hs);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -824,8 +866,9 @@ inline size_t smem_bytes(int dtype, int G, int hd, int variant) {
   return dispatch(dtype, hd, G, [&](auto t, auto hdp, auto gmax) {
     using T = decltype(t);
     constexpr int H = decltype(hdp)::value, M = decltype(gmax)::value;
-    return sizeof(float) * (variant == kMma ? smem_floats_of<T, H, M, true>(G, hd)
-                                            : smem_floats_of<T, H, M, false>(G, hd));
+    const int hs = row_floats(hd, int(sizeof(T)));
+    return sizeof(float) * (variant == kMma ? smem_floats_of<T, H, M, true>(G, hs)
+                                            : smem_floats_of<T, H, M, false>(G, hs));
   });
 }
 
@@ -839,13 +882,15 @@ cudaError_t run(Params p, int B, int dtype, float scale, int cluster, int varian
   p.GT = p.H / p.KV;
   p.ngrp = (p.GT + MAX_GROUP - 1) / MAX_GROUP;
   p.G = block_group(p.GT);
-  if (p.KV * p.ngrp > 65535 || p.hd < 1 || p.hd > MAX_HD || (p.hd * elem) % 16 != 0)
-    return cudaErrorInvalidValue;
+  if (p.KV * p.ngrp > 65535 || p.hd < 1 || p.hd > MAX_HD) return cudaErrorInvalidValue;
+  p.hs = row_floats(p.hd, elem);
+  p.vec_rows = (p.hd * elem) % 16 == 0;
   if (reinterpret_cast<uintptr_t>(p.k) % 16 != 0 || reinterpret_cast<uintptr_t>(p.v) % 16 != 0)
     return cudaErrorMisalignedAddress;
   if (cluster < 1 || cluster > MAX_CLUSTER || (cluster & (cluster - 1)) != 0)
     return cudaErrorInvalidValue;
-  if (variant == kMma && (dtype != kBFloat16 || p.hd < 16 || head_dim_bucket(p.hd) != p.hd))
+  if (variant == kMma && (dtype != kBFloat16 || p.hd < 16 || head_dim_bucket(p.hd) != p.hd ||
+                          !p.vec_rows))
     return cudaErrorInvalidValue;
   if (variant != kMma && variant != kSimt) return cudaErrorInvalidValue;
   p.qscale = scale * LOG2E;

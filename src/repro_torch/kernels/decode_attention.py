@@ -11,8 +11,8 @@ the positions <= pos among its blocks on the device and merging them
 through distributed shared memory; bf16 rows are scored on the tensor
 cores (`decode_core.variant`). Any cache depth S runs.
 
-The wrapper checks device, dtype, shape, contiguity and the 16-byte load
-layout (`decode_core.layout_error`), broadcasts a scalar `pos`, allocates
+The wrapper checks device, dtype, shape, contiguity and the K/V layout
+(`decode_core.layout_error`), broadcasts a scalar `pos`, allocates
 the output with `torch.empty`, launches on the current stream without
 synchronising, and counts its launches in `launches` and, by variant, in
 `variant_launches`.

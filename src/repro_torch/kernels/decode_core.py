@@ -12,14 +12,18 @@ tests reach, and the operand checks of both wrappers.
   its heads into `head_groups` groups of `block_group` (the last may hold
   fewer), a grid axis, each group's cluster re-reading the KV head's rows.
   At 8 heads or fewer there is one group and the launch is unchanged.
-* `layout_error`: the shapes and pointers the kernel's 16-byte row loads
-  take. The wrappers raise on any other; there is no narrower load path.
+* `layout_error`: the shapes and pointers the kernels take: any head_dim
+  up to 256 and 16-byte aligned K and V. Rows that are a whole number of
+  16-byte loads are copied by cp.async 16 bytes a lane; other rows (bf16 at
+  head_dim 36, fp32 at 18: most rows start unaligned) by element loads, on
+  the ``simt`` walk. The wrappers raise on any other layout.
 * `variant`: how a block walks its positions. ``mma``: bf16 at head_dim 16,
   32, 64, 128 or 256, scores and P V on the tensor cores (`mma.sync`
   m16n8k16, fp32 accumulation, P rounded to bf16 as the flash kernel's wgmma
   variant does), eight positions a warp step; ``simt``: everything else
-  (fp32, whose 1e-5 parity bf16 products would break, and other head dims),
-  exact fp32 FMA. Both wrappers count their launches by variant.
+  (fp32, whose 1e-5 parity bf16 products would break, and other head dims,
+  rows that are not whole 16-byte loads among them), exact fp32 FMA. Both
+  wrappers count their launches by variant.
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ MMA_HEAD_DIMS = (16, 32, 64, 128, 256)  # whole k16 steps, unrolled at compile t
 
 def variant(q: torch.Tensor, k: torch.Tensor) -> str:
     """The walk `decode_attention` / `paged_decode_attention` launch for q
-    against K rows k (see the module note): a rule on dtype and head_dim."""
+    against K rows k (see the module note): a rule on dtype and head_dim
+    (every ``mma`` head dim is a whole number of 16-byte bf16 loads)."""
     return "mma" if q.dtype == torch.bfloat16 and k.shape[-1] in MMA_HEAD_DIMS else "simt"
 
 
@@ -74,12 +79,9 @@ def cluster_size(q: torch.Tensor, k: torch.Tensor) -> int:
 def layout_error(num_heads: int, k: torch.Tensor, v: torch.Tensor) -> Optional[str]:
     """Why the kernel cannot take K and V rows of this layout, or None.
     k, v: (..., KV, hd) with hd contiguous; `num_heads` query heads."""
-    hd, elem = k.shape[-1], k.element_size()
+    hd = k.shape[-1]
     if not 1 <= hd <= MAX_HEAD_DIM:
         return f"head_dim {hd} outside 1..{MAX_HEAD_DIM}"
-    if hd * elem % LOAD_BYTES:
-        return (f"head_dim {hd} of {elem}-byte elements is not a whole number of "
-                f"{LOAD_BYTES}-byte loads")
     for name, t in (("k", k), ("v", v)):
         if t.data_ptr() % LOAD_BYTES:
             return f"{name} is not {LOAD_BYTES}-byte aligned"

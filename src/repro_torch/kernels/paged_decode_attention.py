@@ -12,8 +12,8 @@ Pallas scalar prefetch), and merges them through distributed shared memory.
 Each loaded row serves the query heads of its KV head; bf16 rows are
 scored on the tensor cores (`decode_core.variant`).
 
-The wrapper checks device, dtype, shape, contiguity and the 16-byte load
-layout (`decode_core.layout_error`), allocates the output with
+The wrapper checks device, dtype, shape, contiguity and the K/V layout
+(`decode_core.layout_error`), allocates the output with
 `torch.empty`, launches on the current stream without synchronising, and
 counts its launches in `launches` and, by variant, in `variant_launches`.
 """

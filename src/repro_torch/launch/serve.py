@@ -14,6 +14,8 @@ registry-built `torchdev` Runtime.
     # weights from `repro/train/checkpoint.py`'s layout: --ckpt-dir DIR
     # the hybrid family: --arch zamba2-7b (dense or serial)
     # the dense family: --arch granite-20b | minitron-8b | stablelm-12b
+    # the MoE family: --arch grok-1-314b | kimi-k2-1t-a32b (every mode; full
+    # width needs the depth cut to fit one card: see chip_smoke.py)
 
     # data-parallel fleet: router + N worker instances (paper §3.1.1), each
     # worker a localsim thread running its own scheduler on the shared weights

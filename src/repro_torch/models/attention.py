@@ -1,7 +1,8 @@
-"""Attention layers: GQA/MQA self-attention prefill that fills a dense KV
-cache, the prefill of a prompt's tail against a cached prefix, one-token
-decode over that dense cache, and the paged KV-cache decode path. Port of
-the serving half of `repro/models/attention.py`.
+"""Attention layers: GQA/MQA self-attention (full-sequence with no cache, and
+the prefill that fills a dense KV cache), the prefill of a prompt's tail
+against a cached prefix, one-token decode over that dense cache, the paged
+KV-cache decode path, and cross-attention to precomputed encoder K/V (the
+whisper decoder). Port of the serving half of `repro/models/attention.py`.
 
 Weights keep the reference's einsum shapes, heads as their own dimension:
 
@@ -51,6 +52,21 @@ def _out_proj(p, out: torch.Tensor) -> torch.Tensor:
     """(..., H, hd) -> (..., d) through wo (H, hd, d)."""
     H, hd, d = p["wo"].shape
     return out.reshape(*out.shape[:-2], H * hd) @ p["wo"].to(out.dtype).reshape(H * hd, d)
+
+
+def self_attention(
+    cfg: ArchConfig, p, x: torch.Tensor, *, positions: Optional[torch.Tensor] = None,
+    causal: bool = True, window: int = 0, prefix_len: int = 0,
+) -> torch.Tensor:
+    """Full-sequence self-attention with no cache (the whisper encoder's,
+    ``causal=False``). x: (B,S,d) -> (B,S,d); RoPE at `positions`
+    (default 0 .. S - 1)."""
+    B, S, d = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    out = ops.attention(q, k, v, causal=causal, window=window, prefix_len=prefix_len)
+    return _out_proj(p, out)
 
 
 def prefill_attention(
@@ -142,6 +158,39 @@ def decode_self_attention(
     eff_pos = torch.clamp(pos, max=S_buf - 1)
     out = ops.decode_attention(q[:, 0], k_cache, v_cache, eff_pos, window=window)
     return _out_proj(p, out)[:, None, :], (k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attention(pi: ParamInit, cfg: ArchConfig):
+    return init_attention(pi, cfg)
+
+
+def cross_attention_kv(cfg: ArchConfig, p, enc_out: torch.Tensor):
+    """Encoder K/V, computed once a request. enc_out: (B, T, d) -> k, v
+    (B, T, KV, hd), contiguous (the kernel's layout)."""
+    B, T, d = enc_out.shape
+    cd = enc_out.dtype
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    k = (enc_out @ p["wk"].to(cd).reshape(d, KV * hd)).reshape(B, T, KV, hd)
+    v = (enc_out @ p["wv"].to(cd).reshape(d, KV * hd)).reshape(B, T, KV, hd)
+    return k, v
+
+
+def cross_attention(cfg: ArchConfig, p, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """x: (B,S,d) attends to precomputed encoder K/V (no mask, no RoPE);
+    on a decode step S = 1. Returns (B,S,d)."""
+    B, S, d = x.shape
+    cd = x.dtype
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    k, v = enc_kv
+    q = (x @ p["wq"].to(cd).reshape(d, H * hd)).reshape(B, S, H, hd)
+    out = ops.attention(q, k, v, causal=False)
+    return _out_proj(p, out)
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, *, window: int = 0,

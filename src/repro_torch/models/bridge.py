@@ -16,6 +16,14 @@ Hybrid (zamba2) trees stack their Mamba2 layers: ``mamba`` leaves are
 (n_groups * interval, ...) and ``mamba_tail`` leaves (n_tail, ...); the
 port keeps one dict per layer in each list, and the shared block as is.
 
+MoE layers carry ``moe`` (``router`` (d, E), ``w_up``/``w_gate`` (E, d, f),
+``w_down`` (E, f, d)) in place of ``ffn``; the router stays fp32. The VLM's
+tree is the transformer's plus ``vision_proj``; the encoder-decoder's
+(``embed``, ``enc_pos``, ``encoder`` stacked over ``encoder_layers``,
+``enc_norm``, ``decoder`` stacked over ``num_layers`` with ``ln_x`` and
+``cross``, ``final_norm``) becomes per-layer ``encoder`` and ``decoder``
+lists.
+
 Leaves may also be CPU tensors (the checkpoint reader's); bf16 crosses bit
 for bit (`as_tensor`).
 """
@@ -32,8 +40,9 @@ from .hybrid import group_structure
 from .transformer import unit_structure
 
 #: leaves kept in fp32 whatever the matrices' storage dtype (rms_norm reads
-#: the norm weights as fp32, Mamba2 its decay parameters)
-NORM_KEYS = frozenset({"ln1", "ln2", "final_norm", "norm", "out_norm", "A_log", "dt_bias"})
+#: the norm weights as fp32, Mamba2 its decay parameters, the MoE its router)
+NORM_KEYS = frozenset({"ln1", "ln2", "ln_x", "final_norm", "enc_norm", "norm", "out_norm",
+                       "A_log", "dt_bias", "router"})
 
 
 def _map(fn: Callable, tree):
@@ -58,8 +67,9 @@ def as_tensor(a) -> torch.Tensor:
 
 
 def unstack_layers(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
-    """Reference tree -> {"embed", "final_norm", "layers": [per-layer tree]},
-    leaves indexed out of the stacks (numpy views, no copy)."""
+    """Reference tree -> {"embed", "final_norm", "layers": [per-layer tree]}
+    (and any other top-level leaf, the VLM's ``vision_proj``), leaves
+    indexed out of the stacks (numpy views, no copy)."""
     unit_len, n_units, n_tail = unit_structure(cfg)
     layers: List[dict] = []
     if "layers" in tree:
@@ -73,7 +83,20 @@ def unstack_layers(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
             layers.append(_map(lambda a, t=t: a[t], tree["tail"]))
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config has {cfg.num_layers}")
-    return {"embed": dict(tree["embed"]), "final_norm": tree["final_norm"], "layers": layers}
+    out = {k: v for k, v in tree.items() if k not in ("layers", "units", "tail")}
+    out["embed"] = dict(tree["embed"])
+    out["layers"] = layers
+    return out
+
+
+def unstack_encdec(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
+    """Reference encoder-decoder tree -> the port's: the ``encoder`` and
+    ``decoder`` stacks as per-layer lists (views, no copy), the rest as is."""
+    out = dict(tree)
+    out["encoder"] = [_map(lambda a, i=i: a[i], tree["encoder"])
+                      for i in range(cfg.encoder_layers)]
+    out["decoder"] = [_map(lambda a, i=i: a[i], tree["decoder"]) for i in range(cfg.num_layers)]
+    return out
 
 
 def unstack_hybrid(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
@@ -98,6 +121,8 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any], *, device=None,
         flat = dict(tree)
     elif cfg.family == "hybrid":
         flat = unstack_hybrid(cfg, tree)
+    elif cfg.family == "audio":
+        flat = unstack_encdec(cfg, tree)
     else:
         flat = unstack_layers(cfg, tree)
 

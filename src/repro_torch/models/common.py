@@ -42,12 +42,30 @@ class ParamInit:
             self.gen = torch.Generator(device=self.device)
             self.gen.manual_seed(seed)
 
-    def normal(self, shape: Sequence[int], *, fan_in: int, scale: float = 1.0) -> torch.Tensor:
+    def normal(self, shape: Sequence[int], *, fan_in: int, scale: float = 1.0,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Drawn in fp32 and stored in `dtype` (default: the storage dtype)."""
         std = scale / math.sqrt(max(1, fan_in))
         if self.gen is None:
-            return torch.empty(tuple(shape), dtype=self.dtype, device=self.device)
+            return torch.empty(tuple(shape), dtype=dtype or self.dtype, device=self.device)
         x = torch.randn(tuple(shape), generator=self.gen, device=self.device, dtype=torch.float32)
-        return (x * std).to(self.dtype)
+        return (x * std).to(dtype or self.dtype)
+
+    def stacked_normal(self, shape: Sequence[int], *, fan_in: int,
+                       scale: float = 1.0) -> torch.Tensor:
+        """`normal` for a stack of matrices (MoE experts: (E, d, f)), drawn one
+        leading index at a time into a tensor of the storage dtype, so the
+        fp32 transient is one matrix, not the stack (kimi-k2's `w_up` is 22.5
+        GB in fp32). The same seed gives the same numbers every time."""
+        out = torch.empty(tuple(shape), dtype=self.dtype, device=self.device)
+        if self.gen is None:
+            return out
+        std = scale / math.sqrt(max(1, fan_in))
+        for i in range(shape[0]):
+            x = torch.randn(tuple(shape[1:]), generator=self.gen, device=self.device,
+                            dtype=torch.float32)
+            out[i] = x * std
+        return out
 
     def zeros(self, shape: Sequence[int], *, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         return torch.zeros(tuple(shape), dtype=dtype or self.dtype, device=self.device)

@@ -1,7 +1,16 @@
 """Model zoo: one bundle of functions per architecture family, with the
-serving protocol of the reference's `repro/models/model_zoo.py`. Ported: the
-transformer family (dense, no MoE), the recurrent ``ssm`` family (xlstm)
-and the ``hybrid`` family (zamba2: Mamba2 + a shared attention block)."""
+serving protocol of the reference's `repro/models/model_zoo.py`:
+
+    prefill batch: {"tokens": (B,S)[, "patches" | "frames"]}
+    decode batch:  {"tokens": (B,1), "pos": scalar or (B,)[, "per_slot": True]}
+
+Every family of the reference: the transformers (``dense`` and ``moe``),
+the ``vlm`` (paligemma: a vision prefix), ``audio`` (whisper: an
+encoder-decoder), the recurrent ``ssm`` (xlstm) and the ``hybrid`` (zamba2:
+Mamba2 + a shared attention block). The slot decoder marks its steps
+``per_slot`` (every row its own request; MoE layers then never drop, as the
+reference's vmapped B=1 step). The losses of all but xlstm wait for the
+training slice."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +18,7 @@ import functools
 from typing import Callable
 
 from repro_torch.configs import ArchConfig
-from . import hybrid, transformer, xlstm_model
+from . import encdec, hybrid, transformer, vlm, xlstm_model
 from .attention import paged_layout
 
 
@@ -48,23 +57,28 @@ class ModelBundle:
     #: (max_len) -> prefill(params, batch) whose caches have headroom for
     #: `max_len` positions, made on the tokens' device
     make_prefill: Callable
-    #: (params, state, {"tokens": (B,1), "pos": scalar or (B,)})
+    #: (params, state, {"tokens": (B,1), "pos": scalar or (B,)[, "per_slot"]})
     #: -> (logits (B,V), state): dense caches updated in place, recurrent
     #: states replaced
     decode_step: Callable
     #: paged KV-cache ops, or None for families without a paged decode path
-    #: (recurrent states are O(1))
+    #: (recurrent states are O(1); the VLM and the encoder-decoder need
+    #: prefill inputs the scheduler does not carry, as in the reference)
     paged_ops: PagedOps = None
 
 
 def build(cfg: ArchConfig) -> ModelBundle:
-    if cfg.family == "dense" and not cfg.is_moe:
+    if cfg.family in ("dense", "moe"):
         return _build_transformer(cfg)
+    if cfg.family == "vlm":
+        return _build_vlm(cfg)
+    if cfg.family == "audio":
+        return _build_encdec(cfg)
     if cfg.family == "ssm":
         return _build_xlstm(cfg)
     if cfg.family == "hybrid":
         return _build_hybrid(cfg)
-    raise NotImplementedError(f"model family {cfg.family!r} is not ported yet")
+    raise KeyError(cfg.family)
 
 
 def _build_transformer(cfg: ArchConfig) -> ModelBundle:
@@ -81,7 +95,8 @@ def _build_transformer(cfg: ArchConfig) -> ModelBundle:
         return prefill
 
     def decode_step(params, state, batch):
-        return transformer.lm_decode_step(cfg, params, state, batch["tokens"], batch["pos"])
+        return transformer.lm_decode_step(cfg, params, state, batch["tokens"], batch["pos"],
+                                          dropless=batch.get("per_slot", False))
 
     return ModelBundle(
         cfg=cfg,
@@ -97,6 +112,60 @@ def _build_transformer(cfg: ArchConfig) -> ModelBundle:
             decode_step=functools.partial(transformer.lm_paged_decode_step, cfg),
             prefix_prefill=functools.partial(transformer.lm_prefix_prefill, cfg),
         ),
+    )
+
+
+def _build_vlm(cfg: ArchConfig) -> ModelBundle:
+    P = cfg.vision_tokens
+
+    def loss(params, batch):
+        raise NotImplementedError("the VLM loss is not ported yet (training slice)")
+
+    def make_prefill(max_len=None):
+        def prefill(params, batch):
+            tokens = batch["tokens"]
+            B, S_text = tokens.shape
+            caches = vlm.init_states(cfg, B, max_len or (P + S_text), device=tokens.device)
+            return vlm.lm_prefill(cfg, params, tokens, caches, batch["patches"])
+
+        return prefill
+
+    def decode_step(params, state, batch):
+        return vlm.lm_decode_step(cfg, params, state, batch["tokens"], batch["pos"])
+
+    return ModelBundle(
+        cfg=cfg,
+        init=functools.partial(vlm.init_lm, cfg),
+        loss=loss,
+        init_state=functools.partial(vlm.init_states, cfg),
+        make_prefill=make_prefill,
+        decode_step=decode_step,
+    )
+
+
+def _build_encdec(cfg: ArchConfig) -> ModelBundle:
+    def loss(params, batch):
+        raise NotImplementedError("the encoder-decoder loss is not ported yet (training slice)")
+
+    def make_prefill(max_len=None):
+        def prefill(params, batch):
+            tokens = batch["tokens"]
+            B, S = tokens.shape
+            states = encdec.init_states(cfg, B, max_len or S, device=tokens.device)
+            return encdec.lm_prefill(cfg, params, tokens, states, batch["frames"])
+
+        return prefill
+
+    def decode_step(params, state, batch):
+        return encdec.lm_decode_step(cfg, params, state, batch["tokens"], batch["pos"])
+
+    return ModelBundle(
+        cfg=cfg,
+        init=functools.partial(encdec.init_lm, cfg),
+        loss=loss,
+        init_state=functools.partial(encdec.init_states, cfg),
+        make_prefill=make_prefill,
+        decode_step=decode_step,
     )
 
 

@@ -1,6 +1,6 @@
-"""Decoder-only LM for serving: dense transformers with sliding-window /
-global interleaving (gemma3). Port of the serving half of
-`repro/models/transformer.py`.
+"""Decoder-only LM for serving: dense and MoE transformers with
+sliding-window / global interleaving (gemma3) and prefix-LM attention (the
+VLM's backbone). Port of the serving half of `repro/models/transformer.py`.
 
 The reference stacks layers for `jax.lax.scan`, grouped in repeating units
 (gemma3: 5 local layers + 1 global) plus a tail. PyTorch runs eagerly, so
@@ -8,6 +8,12 @@ the port keeps one parameter dict and one cache per layer in a plain list,
 in layer order: unit u, layer j of the reference is layer ``unit_len * u +
 j``; tail layer t is layer ``unit_len * n_units + t`` (`models/bridge.py`
 maps one onto the other). Caches and pools are written in place.
+
+MoE layers hold ``"moe"`` in place of ``"ffn"`` and dispatch with the
+reference's capacity: a batched step's rows compete for it. The slot
+decoder's step (``dropless=True`` in `lm_decode_step`) keeps the reference's
+per-slot semantics instead, where every slot is a B=1 request that never
+drops (`moe.moe_ffn`).
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from .common import (
     rms_norm,
     unembed,
 )
+from . import moe
 from .ffn import ffn, init_ffn
 
 # ---------------------------------------------------------------------------
@@ -76,9 +83,7 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None, dtype=None):
     stored in `dtype`
     (default: the config's param dtype; the compute dtype stores them once
     at full width, which changes no number since every use casts to it);
-    norm weights stay fp32, as `rms_norm` reads them."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet")
+    norm weights and MoE routers stay fp32, as the model reads them."""
     pi = ParamInit(seed, resolve_device(device), dtype or dtype_of(cfg.param_dtype))
     d = cfg.d_model
     params = {
@@ -91,9 +96,16 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None, dtype=None):
             "ln1": pi.zeros((d,), dtype=torch.float32),
             "ln2": pi.zeros((d,), dtype=torch.float32),
             "attn": init_attention(pi, cfg),
-            "ffn": init_ffn(pi, cfg),
+            **({"moe": moe.init_moe(pi, cfg)} if cfg.is_moe else {"ffn": init_ffn(pi, cfg)}),
         })
     return params
+
+
+def _mlp(cfg: ArchConfig, p_l, x: torch.Tensor, *, dropless: bool = False) -> torch.Tensor:
+    """The layer's FFN: dense, or MoE (``dropless``: see the module note)."""
+    if cfg.is_moe:
+        return moe.moe_ffn(cfg, p_l["moe"], x, dropless=dropless)[0]
+    return ffn(cfg, p_l["ffn"], x)
 
 
 # ---------------------------------------------------------------------------
@@ -119,16 +131,16 @@ def _prefill_layer(cfg, p_l, h, cache_kv, *, window, prefix_len=0):
     )
     h = h + attn_out
     ffn_in = rms_norm(h, p_l["ln2"], eps=cfg.norm_eps)
-    return h + ffn(cfg, p_l["ffn"], ffn_in), new_cache
+    return h + _mlp(cfg, p_l, ffn_in), new_cache
 
 
-def _decode_layer(cfg, p_l, h, cache_kv, pos, *, window):
+def _decode_layer(cfg, p_l, h, cache_kv, pos, *, window, dropless=False):
     attn_in = rms_norm(h, p_l["ln1"], eps=cfg.norm_eps)
     attn_out, new_cache = decode_self_attention(cfg, p_l["attn"], attn_in, cache_kv, pos,
                                                 window=window)
     h = h + attn_out
     ffn_in = rms_norm(h, p_l["ln2"], eps=cfg.norm_eps)
-    return h + ffn(cfg, p_l["ffn"], ffn_in), new_cache
+    return h + _mlp(cfg, p_l, ffn_in, dropless=dropless), new_cache
 
 
 def backbone_prefill(cfg: ArchConfig, params, h, caches, *, prefix_len: int = 0):
@@ -147,16 +159,18 @@ def lm_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, caches, *, prefix_
     return unembed(params["embed"], h[:, 0], tie=cfg.tie_embeddings), caches
 
 
-def lm_decode_step(cfg: ArchConfig, params, caches, tokens: torch.Tensor, pos):
+def lm_decode_step(cfg: ArchConfig, params, caches, tokens: torch.Tensor, pos, *,
+                   dropless: bool = False):
     """One decode step over dense per-layer caches. tokens: (B, 1); pos: a
     scalar shared by the batch (the serial engine) or (B,) per-slot
-    positions (the slot decoder). Returns (logits (B,V), caches), the caches
-    updated in place."""
+    positions (the slot decoder). ``dropless``: every row is its own
+    request, so MoE layers never drop (the slot decoder; see the module
+    note). Returns (logits (B,V), caches), the caches updated in place."""
     cd = dtype_of(cfg.compute_dtype)
     pos = slot_positions(pos, tokens.shape[0], tokens.device)  # once for every layer
     h = embed(params["embed"], tokens, compute_dtype=cd)  # (B,1,d)
     for i, (p_l, w) in enumerate(zip(params["layers"], serving_windows(cfg))):
-        h, caches[i] = _decode_layer(cfg, p_l, h, caches[i], pos, window=w)
+        h, caches[i] = _decode_layer(cfg, p_l, h, caches[i], pos, window=w, dropless=dropless)
     h = rms_norm(h, params["final_norm"], eps=cfg.norm_eps)
     return unembed(params["embed"], h[:, 0], tie=cfg.tie_embeddings), caches
 
@@ -224,7 +238,7 @@ def _tail_prefill_layer(cfg, p_l, h, cache_kv, off, *, window):
                                                  window=window)
     h = h + attn_out
     ffn_in = rms_norm(h, p_l["ln2"], eps=cfg.norm_eps)
-    return h + ffn(cfg, p_l["ffn"], ffn_in), new_cache
+    return h + _mlp(cfg, p_l, ffn_in), new_cache
 
 
 def lm_prefix_prefill(cfg: ArchConfig, layout: PagedLayout, params, pools, row: torch.Tensor,
@@ -255,7 +269,7 @@ def _paged_decode_layer(cfg, layout, p_l, h, pool_kv, table, pos, active, *, win
     )
     h = h + attn_out
     ffn_in = rms_norm(h, p_l["ln2"], eps=cfg.norm_eps)
-    return h + ffn(cfg, p_l["ffn"], ffn_in), new_kv
+    return h + _mlp(cfg, p_l, ffn_in), new_kv
 
 
 def lm_paged_decode_step(cfg: ArchConfig, layout: PagedLayout, params, pools,

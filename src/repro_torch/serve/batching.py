@@ -72,7 +72,11 @@ class SlotDecoder:
     global ones), written in place by each tick; for xlstm one dict of fp32
     recurrent states per block, replaced by each tick. The reference vmaps a
     B=1 decode over the slot axis; here the slot axis is the batch, with
-    per-slot positions, which is exact because no family mixes rows. Tokens
+    per-slot positions. Only MoE layers mix rows, through the experts'
+    capacity: a batched step would let slots compete for it, where each of
+    the reference's B=1 steps has a capacity of 8 >= k and never drops. The
+    tick marks its batch ``per_slot``, and MoE layers then dispatch with no
+    drop, the exact batched equivalent (`models/moe.py`). Tokens
     and positions live on the host (`last_tokens`, `pos`) and are uploaded
     every tick; values in slots without a live request are garbage that the
     caller ignores.
@@ -109,8 +113,10 @@ class SlotDecoder:
 
         def batched_decode(p, states, tokens, pos):
             # states: per-layer slot states, batch axis max_slots; tokens and
-            # pos (max_slots,): each slot decodes at its own position
-            logits, states = model.decode_step(p, states, {"tokens": tokens[:, None], "pos": pos})
+            # pos (max_slots,): each slot decodes at its own position, as its
+            # own request (per_slot: no MoE row competes with another slot's)
+            logits, states = model.decode_step(
+                p, states, {"tokens": tokens[:, None], "pos": pos, "per_slot": True})
             return torch.argmax(logits, dim=-1).to(torch.int32), states
 
         self._decode_unit = cm.create_execution_unit(batched_decode, name="batched_decode")

@@ -46,7 +46,11 @@ def test_port_imports_no_jax_and_no_reference():
     for module in ("repro_torch.kernels.linear_scan", "repro_torch.models.ssm",
                    "repro_torch.models.xlstm_model", "repro_torch.configs.xlstm_125m",
                    "repro_torch.models.hybrid", "repro_torch.configs.zamba2_7b",
-                   "repro_torch.serve.prefix_cache", "repro_torch.train.checkpoint"):
+                   "repro_torch.serve.prefix_cache", "repro_torch.train.checkpoint",
+                   "repro_torch.models.moe", "repro_torch.models.vlm",
+                   "repro_torch.models.encdec", "repro_torch.configs.grok_1_314b",
+                   "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.configs.paligemma_3b",
+                   "repro_torch.configs.whisper_small"):
         assert module in names, module
 
 
@@ -120,6 +124,19 @@ def test_hybrid_constructors_default_to_the_card_and_never_pick_the_cpu(monkeypa
                  lambda **kw: hybrid.init_lm(cfg, **kw),
                  lambda **kw: model.init_state(2, 32, **kw),
                  lambda **kw: hybrid.init_states(cfg, 2, 32, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        leaves = _leaves(make(device="cpu"))  # the CPU only when asked
+        assert leaves and all(t.device.type == "cpu" for t in leaves)
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "paligemma-3b", "whisper-small"])
+def test_moe_vlm_encdec_constructors_default_to_the_card_and_never_pick_the_cpu(
+        monkeypatch, arch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build(get_config(arch, reduced=True))
+    for make in (lambda **kw: model.init(seed=0, **kw),
+                 lambda **kw: model.init_state(2, 32, **kw)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
         leaves = _leaves(make(device="cpu"))  # the CPU only when asked

@@ -194,6 +194,10 @@ DECODE_CASES = [
     pytest.param(dict(B=8, S=64, H=4, KV=1, hd=256, pos=[0, 1, 15, 16, 31, 40, 62, 63]),
                  id="mqa-hd256"),
     pytest.param(dict(B=2, S=512, H=48, KV=1, hd=128, pos=[40, 511]), id="groups-48"),
+    # head dims whose rows are not whole 16-byte loads (fp32 18, bf16 36):
+    # the reference's kernels take any head_dim, so the port's take them too
+    pytest.param(dict(B=2, S=512, H=4, KV=2, hd=18, pos=[100, 511]), id="hd18"),
+    pytest.param(dict(B=3, S=512, H=6, KV=1, hd=36, pos=[0, 77, 511]), id="hd36"),
 ]
 
 
@@ -668,15 +672,20 @@ def test_decode_head_groups_rule(monkeypatch, groups, n_groups, per_block):
     ("bfloat16", 48, 1, 128, "aligned", None),    # granite-20b: six groups of 8
     ("float32", 12, 1, 128, "aligned", None),     # two groups of 6
     ("bfloat16", 4, 1, 512, "aligned", "head_dim 512"),
-    ("bfloat16", 4, 1, 100, "aligned", "head_dim 100 of 2-byte elements"),
-    ("float32", 4, 1, 18, "aligned", "head_dim 18 of 4-byte elements"),
-    ("bfloat16", 4, 1, 4, "aligned", "head_dim 4 of 2-byte elements"),
+    # rows that are not whole 16-byte loads: element loads on the simt walk
+    ("bfloat16", 4, 1, 100, "aligned", None),
+    ("float32", 4, 1, 18, "aligned", None),
+    ("bfloat16", 4, 1, 4, "aligned", None),
+    ("bfloat16", 6, 1, 36, "aligned", None),
+    ("float32", 4, 2, 1, "aligned", None),
+    ("float32", 4, 1, 0, "aligned", "head_dim 0"),
     ("bfloat16", 4, 1, 256, "unaligned-k", "k is not 16-byte aligned"),
     ("float32", 4, 1, 64, "unaligned-v", "v is not 16-byte aligned"),
 ])
 def test_decode_layout_rule(dtype, H, KV, hd, layout, want):
-    """The shapes and pointers the decode kernels' 16-byte row loads take;
-    the wrappers raise with the reason on any other."""
+    """The shapes and pointers the decode kernels take (any head_dim up to
+    256, 16-byte aligned K and V); the wrappers raise with the reason on any
+    other."""
     dt = TDT[dtype]
     shape = (3, 16, KV, hd)
     k = _unaligned(shape, dt) if layout == "unaligned-k" else torch.empty(shape, dtype=dt)
@@ -696,6 +705,8 @@ def test_decode_layout_rule(dtype, H, KV, hd, layout, want):
     ("bfloat16", 48, "simt"),
     ("bfloat16", 8, "simt"),     # not a whole k16 step
     ("bfloat16", 40, "simt"),
+    ("bfloat16", 36, "simt"),    # rows not whole 16-byte loads: element loads
+    ("float32", 18, "simt"),
     ("float32", 256, "simt"),    # fp32 stays exact: no bf16 products
     ("float32", 16, "simt"),     # REDUCED serving in fp32
 ])
@@ -844,9 +855,12 @@ def test_decode_kernel_variants_match_plain_on_card(cuda, case, kind):
     dict(B=8, S=1088, H=12, KV=1, hd=128, pos=[0, 15, 16, 100, 511, 512, 777, 1087]),
     dict(B=8, S=1088, H=48, KV=1, hd=128, pos=[0, 15, 16, 100, 511, 512, 777, 1087]),
     dict(B=3, S=300, H=24, KV=2, hd=128, pos=[299, 0, 150]),
+    # rows that are not whole 16-byte loads (element loads)
+    dict(B=4, S=300, H=4, KV=2, hd=18, pos=[299, 0, 150, 77], poison=True),
+    dict(B=4, S=1088, H=12, KV=2, hd=36, pos=[1087, 0, 500, 9], poison=True),
 ], ids=["global-1088", "ring-512", "gqa-ragged-300", "poison", "reduced-ring-16", "long-8192",
         "share-boundaries", "fewer-positions-than-blocks", "groups-8-hd128", "groups-12-hd128",
-        "groups-48-hd128", "groups-12-kv2-hd128"])
+        "groups-48-hd128", "groups-12-kv2-hd128", "hd18-partial-loads", "hd36-partial-loads"])
 def test_decode_kernel_matches_plain_on_card(cuda, case, dtype):
     q, kc, vc, pos = _decode_on_card(cuda, dtype, **case)
     before = tdecode.launches
@@ -879,8 +893,13 @@ def test_decode_kernel_matches_plain_on_card(cuda, case, dtype):
           pos=[299, 0, 150, 77]), 0),
     (dict(B=4, H=48, KV=1, hd=128, page=16, n_pages=20, pool_pages=81,
           pos=[299, 0, 150, 77]), 100),
+    (dict(B=4, H=4, KV=2, hd=18, page=16, n_pages=20, pool_pages=81,
+          pos=[299, 0, 150, 77]), 0),
+    (dict(B=4, H=12, KV=2, hd=36, page=16, n_pages=20, pool_pages=81,
+          pos=[299, 0, 150, 77]), 100),
 ], ids=["long-8192", "long-8192-window", "share-boundaries", "fewer-positions-than-blocks",
-        "groups-8-hd128-window", "gqa-kv2-hd128", "groups-12-hd128", "groups-48-hd128-window"])
+        "groups-8-hd128-window", "gqa-kv2-hd128", "groups-12-hd128", "groups-48-hd128-window",
+        "hd18-partial-loads", "hd36-partial-loads-window"])
 def test_paged_kernel_edge_cases_on_card(cuda, case, window, dtype):
     q, kp, vp, table, pos = (torch.from_numpy(a).to(cuda) for a in _pool_case(
         8, poison=True, **case))
