@@ -13,7 +13,9 @@ family (granite-20b, minitron-8b, stablelm-12b) at full width through the
 paged scheduler, full-width gemma3-1b through the router/worker serving
 fleet, the MoE family (grok-1-314b, kimi-k2-1t-a32b) at its published widths
 with the depth cut through the paged and dense schedulers, and full-width
-paligemma-3b and whisper-small through their model bundles -- and fails (non-zero exit) if any phase fails. It imports
+paligemma-3b and whisper-small through their model bundles, and full-width
+gemma3-1b trained through the launcher -- and fails (non-zero exit) if any
+phase fails. It imports
 nothing of JAX or of the JAX package. Phases:
 
 1. device: the card from `nvidia-smi` (name, power limit);
@@ -63,7 +65,13 @@ nothing of JAX or of the JAX package. Phases:
    tick, paligemma's and whisper's ticks (mma) and the paged kernel at
    grok's (mma) and kimi's (simt) ticks; and rows that are not whole
    16-byte loads (fp32 hd 18, bf16 hd 36: element loads on the simt walk),
-   dense and paged;
+   dense and paged; the flash backward kernel (`flash_attention_bwd`)
+   against `ref.attention_backward` at gemma3-1b's training shape (B=4,
+   S=1024, 4 query heads over 1 at hd 256, bf16, a global and a local
+   layer), a group of 4 at hd 128, hd 112 and 160, a prefix-LM mask, fp32
+   at hd 16 and rows with no key (max |d| / max |plain| within 2e-2 bf16,
+   1e-4 fp32; the forward's log-sum-exp within 1e-3), timed warm and cold
+   at the training shape beside its plain version and SDPA's backward;
 4. reduced: REDUCED gemma3-1b in fp32 (TF32 off): prefill plus 16
    teacher-forced paged decode ticks on the card against the same functions
    on the CPU;
@@ -165,7 +173,20 @@ nothing of JAX or of the JAX package. Phases:
 28. generate-whisper: the full whisper-small (12 + 12 layers), 8 requests of
    1500 seeded frames (x 0.02) and 16 prompt tokens, 128 greedy tokens each:
    the bidirectional encoder and every cross-attention (Sq = 16, then 1 a
-   step, against 1500 keys) on flash wgmma, self-attention decode on mma.
+   step, against 1500 keys) on flash wgmma, self-attention decode on mma;
+29. reduced-train: one AdamW step of REDUCED gemma3-1b in fp32 on the card
+   against the CPU (metrics within rtol 1e-5, gradients rtol 1e-4 / atol
+   1e-6, updated parameters rtol 1e-4 / atol 1e-5), every attention's
+   forward and backward on the kernels;
+30. train: full-width gemma3-1b (fp32 masters, bf16 compute, AdamW), B=4 x
+   S=1024, 6 steps through `launch/train.py`: finite losses, every
+   parameter's step-1 gradient finite and non-zero, the step-0 loss within
+   1e-2 relative of the plain attention's, 26 flash forward (wgmma) and 26
+   backward launches a step; ms a step, training tok/s, peak memory; then
+   one traced step (device time by kernel group, idle share);
+31. train-resume: REDUCED gemma3-1b on the card through the launcher, 4
+   steps against 2, a checkpoint and a resumed launch of 2 more (rtol 1e-6,
+   atol 1e-7).
 
 Each path's launch counts are zeroed just before it runs and read just
 after. The line before the last is one JSON object with every kernel's
@@ -604,6 +625,186 @@ def _flash_timing(torch, gen, label, want_kind, *, Sq, H, KV, hd, B=1, Skv=None,
                 library_device_ms=d_lib, bound_ms=max(b_bytes, b_ops),
                 bound_by="bytes" if b_bytes >= b_ops else "operations",
                 tflops=flops / (d_kernel * 1e-3) / 1e12)
+
+
+#: flash_attention_bwd's tolerance: max |kernel - plain| / max |plain| for
+#: each of dq, dk, dv (bf16: the reference's flash tolerance,
+#: tests/test_kernels.py:26-27; fp32: sums of up to 1024 products in another
+#: order); and the forward's log-sum-exp against the plain version's
+#: (absolute: fp32 sums of the same bf16 products in another order)
+BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LSE_ATOL = 1e-3
+
+#: (label, shape) of the backward's checked cases: gemma3-1b's training shape
+#: (a global and a local layer), a GQA group of 4 at hd 128, the simt head
+#: dims 112 and 160, a prefix-LM mask, fp32 at REDUCED's hd 16, and rows with
+#: no key (a window past the last key, q_offset)
+BWD_CASES = (
+    ("gemma3-1b train, global", dict(B=4, Sq=1024, H=4, KV=1, hd=256, dtype="bfloat16")),
+    ("gemma3-1b train, local", dict(B=4, Sq=1024, H=4, KV=1, hd=256, dtype="bfloat16",
+                                    window=512)),
+    ("hd 128, G=4", dict(B=2, Sq=300, H=8, KV=2, hd=128, dtype="bfloat16")),
+    ("hd 112", dict(B=1, Sq=400, H=32, KV=32, hd=112, dtype="bfloat16")),
+    ("hd 160, G=4", dict(B=1, Sq=300, H=32, KV=8, hd=160, dtype="bfloat16", window=64)),
+    ("prefix-LM 256", dict(B=2, Sq=288, H=8, KV=1, hd=256, dtype="bfloat16", prefix_len=256)),
+    ("REDUCED fp32 hd 16", dict(B=4, Sq=45, H=4, KV=1, hd=16, dtype="float32", window=16)),
+    ("fp32, empty rows", dict(B=1, Sq=40, Skv=50, H=4, KV=1, hd=32, dtype="float32",
+                              q_offset=30, window=8)),
+)
+
+
+def _bwd_case(torch, gen, *, B, Sq, H, KV, hd, dtype, Skv=None, causal=True, window=0,
+              prefix_len=0, q_offset=0):
+    """Seeded q, k, v, dO on the card, the forward with its log-sum-exp, and
+    the masks' keywords."""
+    from repro_torch.kernels import flash_attention
+
+    dt = getattr(torch, dtype)
+    Skv = Skv or Sq
+    q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, Skv, KV, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, Skv, KV, hd), generator=gen, device="cuda").to(dt)
+    do = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dt)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len, q_offset=q_offset)
+    out, lse = flash_attention.flash_attention_with_lse(q, k, v, **kw)
+    return q, k, v, out, lse, do, kw
+
+
+def _bwd_bound_ms(q, k, lse, kw) -> tuple:
+    """(bound ms, bound_by, bytes, FLOP) of one backward call: q, k, v, o,
+    dO and lse read once, dq, dk, dv written once; five products over the
+    (query, key) pairs the masks keep, for every query head."""
+    from repro_torch.kernels.ref import _build_mask
+
+    B, Sq, H, hd = q.shape
+    pairs = B * int(_build_mask(Sq, k.shape[1], device="cuda", **kw).sum().item())
+    elem = q.element_size()
+    n_bytes = (4 * q.numel() + 4 * k.numel()) * elem + lse.numel() * 4
+    flops = 10 * hd * H * pairs
+    b_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    b_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations"), n_bytes, flops
+
+
+def check_flash_bwd(torch, gen) -> dict:
+    """The backward kernel against `ref.attention_backward` at `BWD_CASES`
+    (and the forward's log-sum-exp against the plain one), then timed at
+    gemma3-1b's training shape: warm and cold device time, the plain
+    version's, and SDPA's backward (one library call computing the same
+    gradient: the flash backend at the global layer's causal mask, K/V shared
+    by the query heads through ``enable_gqa``; at the local layer's window,
+    SDPA with that boolean mask)."""
+    from repro_torch.kernels import flash_attention, ref
+
+    worst_abs, worst_rel, worst_tol = 0.0, 0.0, None
+    for label, case in BWD_CASES:
+        q, k, v, out, lse, do, kw = _bwd_case(torch, gen, **case)
+        _, lse_plain = ref.attention_with_lse(q, k, v, **kw)
+        live = lse_plain > -1e29  # rows with a key
+        lse_err = float((lse - lse_plain)[live].abs().max().item())
+        before = flash_attention.backward.launches
+        got = flash_attention.flash_attention_backward(q, k, v, out, lse, do, **kw)
+        want = ref.attention_backward(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        require(flash_attention.backward.launches == before + 1,
+                f"flash_attention_backward ({label}) did not count one launch")
+        rel = {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            diff = float((a.float() - b.float()).abs().max().item())
+            rel[name] = diff / max(float(b.float().abs().max().item()), 1e-30)
+            require(bool(torch.isfinite(a).all().item()), f"{label}: {name} not finite")
+            worst_abs = max(worst_abs, diff)
+        tol = BWD_REL_TOL[case["dtype"]]
+        ok = max(rel.values()) <= tol and lse_err <= LSE_ATOL
+        desc = ", ".join(f"{n}={x}" for n, x in case.items() if n != "dtype")
+        log(f"[kernels] flash_attention_bwd {case['dtype']} {label} ({desc}): max |d| / max |plain| "
+            + ", ".join(f"{n} {x:.3e}" for n, x in rel.items())
+            + f" (tol {tol}); forward lse max err {lse_err:.3e} (tol {LSE_ATOL}) "
+            + ("ok" if ok else "FAIL"))
+        require(ok, f"flash_attention_bwd disagrees with its plain version ({label})")
+        if max(rel.values()) > worst_rel:
+            worst_rel, worst_tol = max(rel.values()), tol
+        del q, k, v, out, lse, do, got, want
+
+    # timing at gemma3-1b's training shape: B=4, S=1024, 4 over 1, hd 256, bf16
+    shape = BWD_CASES[0][1]
+    timings = {}
+    for label, case in BWD_CASES[:2]:
+        q, k, v, out, lse, do, kw = _bwd_case(torch, gen, **case)
+        call = lambda: flash_attention.flash_attention_backward(  # noqa: E731
+            q, k, v, out, lse, do, **kw)
+        bound, bound_by, n_bytes, flops = _bwd_bound_ms(q, k, lse, kw)
+        t = dict(ms=time_ms(torch, call, iters=10), device_ms=device_ms(torch, call, iters=10))
+        t["cold_device_ms"] = cold_device_ms(
+            torch, lambda *xs: flash_attention.flash_attention_backward(*xs, **kw),
+            (q, k, v, out, lse, do), sum(x.nbytes for x in (q, k, v, out, lse, do)))
+        t["plain_ms"] = time_ms(torch, lambda: ref.attention_backward(
+            q, k, v, out, lse, do, **kw), iters=3, warmup=1)
+        t["plain_device_ms"] = device_ms(torch, lambda: ref.attention_backward(
+            q, k, v, out, lse, do, **kw), iters=3)
+        # SDPA's backward: heads second, the same inputs and output gradient
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if kw["window"]:
+            from repro_torch.kernels.ref import _build_mask
+
+            lib_kw = dict(attn_mask=_build_mask(q.shape[1], k.shape[1], device="cuda",
+                                                causal=True, window=kw["window"],
+                                                prefix_len=0, q_offset=0))
+        else:
+            lib_kw = dict(is_causal=True)
+        lib_out = sdpa(qt, kt, vt, enable_gqa=True, **lib_kw)
+        lib_call = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,  # noqa: E731
+                                               retain_graph=True)
+        t["library_ms"] = time_ms(torch, lib_call, iters=10)
+        t["library_device_ms"] = device_ms(torch, lib_call, iters=10)
+        lib_dq = lib_call()[0].transpose(1, 2)
+        want_dq = ref.attention_backward(q, k, v, out, lse, do, **kw)[0]
+        t["library_dq_err"] = float((lib_dq.float() - want_dq.float()).abs().max().item())
+        t.update(bound_ms=bound, bound_by=bound_by, bytes=n_bytes, flops=flops,
+                 tflops=flops / (t["device_ms"] * 1e-3) / 1e12)
+        log(f"[kernels] flash_attention_bwd timing {label} (B=4 S=1024 H=4 KV=1 hd=256 bf16"
+            f"{', window 512' if kw['window'] else ', causal'}): kernel {t['ms']:.4f} ms, "
+            f"device {t['device_ms']:.4f} ms ({t['cold_device_ms']:.4f} ms with the inputs cold "
+            f"in L2); plain {t['plain_ms']:.4f} ms, device {t['plain_device_ms']:.4f}; SDPA "
+            f"backward {t['library_ms']:.4f} ms, device {t['library_device_ms']:.4f} (its dq "
+            f"max err vs plain {t['library_dq_err']:.3e}); bound {bound * 1e3:.2f} us "
+            f"({bound_by}: {n_bytes} B, {flops} FLOP); {t['tflops']:.2f} TFLOP/s on the "
+            f"device time")
+        timings[label] = t
+        del q, k, v, out, lse, do, qt, kt, vt, lib_out
+    g = timings[BWD_CASES[0][0]]
+    local = timings[BWD_CASES[1][0]]
+    return {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        # the gradient of this Pallas kernel, which has no VJP of its own
+        "replaces": "src/repro/kernels/flash_attention.py:95",
+        "launches": 0,
+        "max_abs_err": worst_abs,
+        "max_rel_err": worst_rel,
+        "tolerance": worst_tol,
+        "ms": g["ms"],
+        "plain_ms": g["plain_ms"],
+        "device_ms": g["device_ms"],
+        "cold_device_ms": g["cold_device_ms"],
+        "plain_device_ms": g["plain_device_ms"],
+        "bound_ms": g["bound_ms"],
+        "bound_us": g["bound_ms"] * 1e3,
+        "bound_by": g["bound_by"],
+        "library_ms": g["library_ms"],
+        "library_device_ms": g["library_device_ms"],
+        "tflops": g["tflops"],
+        "variant": "simt",
+        "timed_shape": "B=4 Sq=Skv=1024 H=4 KV=1 hd=256 bf16 causal window=0 (gemma3-1b "
+                       "training, a global layer)",
+        "other_timings": [dict(shape="the same, window=512 (a local layer)", **{
+            n: local[n] for n in ("ms", "device_ms", "cold_device_ms", "plain_ms",
+                                  "plain_device_ms", "library_ms", "library_device_ms",
+                                  "bound_ms", "bound_by", "tflops")})],
+    }
 
 
 def decode_ptxas(rows: str, dtype, hd: int, groups: int, kind: str) -> str:
@@ -1479,8 +1680,8 @@ def scan_ptxas() -> str:
 def phase_kernels(torch) -> list:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    return [check_flash(torch, gen), check_paged(torch, gen), check_decode(torch, gen),
-            check_fused_linear(torch, gen), check_scan(torch, gen)]
+    return [check_flash(torch, gen), check_flash_bwd(torch, gen), check_paged(torch, gen),
+            check_decode(torch, gen), check_fused_linear(torch, gen), check_scan(torch, gen)]
 
 
 # ---------------------------------------------------------------------------
@@ -2617,7 +2818,8 @@ def phase_serve_zamba2(torch) -> tuple:
             n_tok += len(toks)
         want = {"flash_attention": n_groups * n_req, "decode_attention": n_groups * ticks,
                 "gated_linear_scan": cfg.num_layers * (n_req + ticks),
-                "paged_decode_attention": 0, "fused_linear": 0}
+                "paged_decode_attention": 0, "fused_linear": 0,
+                "flash_attention_bwd": 0}
         require(counts == want, f"zamba2 serve launches {counts}, expected {want}")
         require_variant(variants, "flash_attention", "simt", want["flash_attention"],
                         "zamba2 serve")
@@ -2664,7 +2866,8 @@ def phase_serve_zamba2(torch) -> tuple:
     require(bool(np.isfinite(out.prefill_logits).all()), "serial prefill logits not finite")
     want = {"flash_attention": n_groups, "decode_attention": n_groups * steps,
             "gated_linear_scan": cfg.num_layers * (1 + steps), "paged_decode_attention": 0,
-            "fused_linear": 0}
+            "fused_linear": 0,
+            "flash_attention_bwd": 0}
     require(serial_counts == want, f"zamba2 serial launches {serial_counts}, expected {want}")
     require(serial_variants["gated_linear_scan"] == {
         "simt": 0, "mma": cfg.num_layers, "step": cfg.num_layers * steps},
@@ -2837,7 +3040,8 @@ def _serve_dense_config(torch, arch: str) -> dict:
                     f"{arch} {r.rid}: token out of range")
             n_tok += len(toks)
         want = {"flash_attention": n_req * L, "paged_decode_attention": ticks * L,
-                "decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0}
+                "decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0,
+                "flash_attention_bwd": 0}
         require(counts == want, f"{arch} serve launches {counts}, expected {want}")
         require_variant(variants, "flash_attention", flash_kind, want["flash_attention"],
                         f"{arch} serve")
@@ -2887,7 +3091,8 @@ def _serve_dense_config(torch, arch: str) -> dict:
             peak = torch.cuda.max_memory_allocated() - base
             n_steps = sum(r.max_new_tokens for r in few)
             want = {"flash_attention": len(few) * L, "decode_attention": n_steps * L,
-                    "paged_decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0}
+                    "paged_decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0,
+                    "flash_attention_bwd": 0}
             require(serial == want, f"{arch} serial launches {serial}, expected {want}")
             require_variant(serial_variants, "flash_attention", "simt", want["flash_attention"],
                             f"{arch} serial")
@@ -3213,7 +3418,8 @@ def phase_serve_fleet(torch, serve_tokens: dict, serve_tok_s: float) -> dict:
     require(len(settled) == 2 and min(settled.values()) >= 1,
             f"both workers must settle work: {settled}")
     want = {"flash_attention": n_req * L, "paged_decode_attention": sum(ticks) * L,
-            "decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0}
+            "decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0,
+            "flash_attention_bwd": 0}
     require(counts == want, f"fleet launches {counts}, expected {want}")
     require_variant(variants, "flash_attention", "wgmma", want["flash_attention"], "fleet")
     require_variant(variants, "paged_decode_attention", "mma", want["paged_decode_attention"],
@@ -3535,7 +3741,8 @@ def _serve_moe_config(torch, arch: str) -> dict:
                 n_tok += len(toks)
             decode = "paged_decode_attention" if kv_mode == "paged" else "decode_attention"
             want = {"flash_attention": n_req * L, "paged_decode_attention": 0,
-                    "decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0}
+                    "decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0,
+                "flash_attention_bwd": 0}
             want[decode] = ticks * L
             require(counts == want, f"{path} launches {counts}, expected {want}")
             require_variant(variants, "flash_attention", flash_kind, want["flash_attention"], path)
@@ -3731,7 +3938,8 @@ def phase_generate_bundle(torch, arch: str) -> dict:
     else:  # encoder, decoder self and cross at prefill, cross every step
         want_flash = cfg.encoder_layers + 2 * L + (steps - 1) * L
     want = {"flash_attention": want_flash, "decode_attention": (steps - 1) * L,
-            "paged_decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0}
+            "paged_decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0,
+            "flash_attention_bwd": 0}
     require(counts == want, f"{arch} launches {counts}, expected {want}")
     require_variant(variants, "flash_attention", "wgmma", want_flash, arch)
     require_variant(variants, "decode_attention", "mma", want["decode_attention"], arch)
@@ -3747,6 +3955,246 @@ def phase_generate_bundle(torch, arch: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# 29-31. training: REDUCED card = CPU, full-width gemma3-1b, resume
+# ---------------------------------------------------------------------------
+
+#: the CPU test's optimizer (tests/test_torch_train.py: the reference's
+#: `TestMicrobatching` AdamW) and tolerances of one step, card against CPU
+TRAIN_OPT = dict(name="adamw", learning_rate=1e-3)
+TRAIN_TOL = {"metrics": dict(rtol=1e-5, atol=0.0), "grads": dict(rtol=1e-4, atol=1e-6),
+             "params": dict(rtol=1e-4, atol=1e-5)}
+RESUME_TOL = dict(rtol=1e-6, atol=1e-7)
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _paths(v, f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in _paths(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def _tree_misfit(torch, a, b, *, rtol, atol) -> tuple:
+    """(largest |a - b| beyond atol + rtol |b| over two trees' leaves, 0 if
+    none; the largest |a - b|)."""
+    worst = misfit = 0.0
+    for (path, x), (_, y) in zip(_paths(a), _paths(b), strict=True):
+        x, y = x.detach().cpu().float(), y.detach().cpu().float()
+        d = (x - y).abs()
+        worst = max(worst, float(d.max()))
+        misfit = max(misfit, float((d - atol - rtol * y.abs()).clamp_min(0).max()))
+    return misfit, worst
+
+
+def _one_train_step(torch, cfg, params, batch, device):
+    """One AdamW step of `cfg` from `params` (CPU tensors) on `device`:
+    (new params, gradients, metrics), back on the CPU."""
+    from repro_torch.models import build
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+
+    ocfg = topt.OptimizerConfig(**TRAIN_OPT)
+    seen = []
+    step = tts.make_train_step(build(cfg), ocfg, grads_hook=seen.append)
+    p = _to_device(params, device)
+    new, _, _, metrics = step(p, topt.init(ocfg, p), None, batch)
+    return (_to_device(new, "cpu"), _to_device(seen[0], "cpu"),
+            {k: float(v) for k, v in metrics.items()})
+
+
+def phase_reduced_train(torch) -> None:
+    """One AdamW step of REDUCED gemma3-1b in fp32 (TF32 off) on the card
+    against the same step on the CPU, within the CPU test's tolerances;
+    every attention's forward and backward on the kernels."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.train.data import SyntheticTokenStream
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("gemma3-1b", reduced=True)
+    require(cfg.compute_dtype == "float32", "REDUCED gemma3-1b computes in fp32")
+    params = build(cfg).init(seed=0, device="cpu")
+    batch = SyntheticTokenStream(cfg, ShapeConfig("t", 32, 4, "train")).next_batch()
+    ops.reset_launch_counts()
+    card = _one_train_step(torch, cfg, params, batch, "cuda")
+    counts = ops.launch_counts()
+    cpu = _one_train_step(torch, cfg, params, batch, "cpu")
+    keys = ("loss", "ce_loss", "grad_norm", "lr")
+    metric_err = max(abs(card[2][k] - cpu[2][k]) / max(abs(cpu[2][k]), 1e-30) for k in keys)
+    grad_misfit, grad_err = _tree_misfit(torch, card[1], cpu[1], **TRAIN_TOL["grads"])
+    param_misfit, param_err = _tree_misfit(torch, card[0], cpu[0], **TRAIN_TOL["params"])
+    log(f"[reduced-train] gemma3-1b REDUCED fp32, one AdamW step (B=4 x 32 tokens): loss card "
+        f"{card[2]['loss']:.6f}, cpu {cpu[2]['loss']:.6f}; metrics max rel err {metric_err:.3e} "
+        f"(rtol {TRAIN_TOL['metrics']['rtol']}); gradients max |card - cpu| {grad_err:.3e} "
+        f"({TRAIN_TOL['grads']}); updated params {param_err:.3e} ({TRAIN_TOL['params']}); "
+        f"launches {counts}")
+    require(metric_err <= TRAIN_TOL["metrics"]["rtol"], f"metrics differ by {metric_err:.3e}")
+    require(grad_misfit == 0.0, f"gradients differ beyond tolerance by {grad_misfit:.3e}")
+    require(param_misfit == 0.0, f"updated params differ beyond tolerance by {param_misfit:.3e}")
+    require(counts["flash_attention"] == cfg.num_layers
+            and counts["flash_attention_bwd"] == cfg.num_layers,
+            f"the step did not run every attention through the kernels: {counts}")
+
+
+def _device_breakdown(torch, prof, wall_s: float) -> dict:
+    """Device time by kernel name in a profiler trace: busy seconds, idle
+    share of `wall_s`, and the ten largest names with their totals."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    busy = sum(by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    groups = {"flash backward": ("flash_bwd",), "flash forward": ("flash_attention",),
+              "products (cuBLAS)": ("gemm", "nvjet", "cutlass", "sm90_xmma", "Kernel2")}
+    split = {g: sum(t for n, t in by_name.items() if any(m in n for m in marks)) / 1e6
+             for g, marks in groups.items()}
+    split["other"] = busy - sum(split.values())
+    return {"busy_s": busy, "wall_s": wall_s, "idle_share": 1 - busy / wall_s,
+            "by_group_s": split, "top": [(n[:90], t / 1e6) for n, t in top]}
+
+
+def phase_train(torch) -> dict:
+    """gemma3-1b at full width (26 layers, d_model 1152, 4 query heads over 1
+    at hd 256, window 512 on 22 layers, tied vocab 262144): fp32 masters,
+    bf16 compute, AdamW, B=4 x S=1024, 6 steps through the launcher
+    (`launch/train.py::train`). Requires finite losses, every parameter's
+    gradient finite and non-zero after step 1 (wq, wk, wv of every layer
+    included: their gradient comes only through the flash backward kernel),
+    the step-0 loss within 1e-2 relative of the same weights' loss through
+    the plain attention, and exactly 26 flash forward (wgmma) and 26
+    backward launches a step. Then one more step under the profiler, for
+    where its time goes. Returns the 6 steps' launch counts."""
+    import math
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+    from repro_torch.train.data import SyntheticTokenStream
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma3-1b")
+    B, S, steps = 4, 1024, 6
+    model = build(cfg)
+    stream = SyntheticTokenStream(cfg, ShapeConfig("train", S, B, "train"))
+    batch0 = tts.batch_to(stream.next_batch(), "cuda")
+    with torch.no_grad():  # the launcher's weights (seed 0), plain attention
+        params = model.init(seed=0, device="cuda")
+        n_params = sum(t.numel() for _, t in _paths(params))
+        kernel_attention = ops.attention
+        ops.attention = ref.attention
+        try:
+            plain_loss = float(model.loss(params, batch0)[0])
+        finally:
+            ops.attention = kernel_attention
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    first = {}
+
+    def hook(grads):
+        if not first:
+            leaves = _paths(grads)
+            first["n"] = len(leaves)
+            first["bad"] = [p for p, g in leaves
+                            if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()))]
+
+    args = train_cli.parse_args(["--arch", "gemma3-1b", "--steps", str(steps), "--batch", str(B),
+                                 "--seq", str(S), "--log-every", "1"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    params, opt_state, history = train_cli.train(args, grads_hook=hook)
+    counts = ops.launch_counts()
+    variants = ops.variant_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    state_bytes = sum(t.nbytes for _, t in _paths(params) + _paths(opt_state))
+
+    losses = [h["loss"] for h in history]
+    warm = history[1:]
+    ms = [h["seconds"] * 1e3 for h in history]
+    mean_ms = sum(h["seconds"] for h in warm) / len(warm) * 1e3
+    tok_s = B * S / (mean_ms / 1e3)
+    L = cfg.num_layers
+    log(f"[train] gemma3-1b full width ({n_params} parameters, fp32 masters, bf16 compute, "
+        f"AdamW), B={B} x S={S} = {B * S} tokens a step, {steps} steps through the launcher: "
+        f"losses {[round(x, 5) for x in losses]}, grad_norm "
+        f"{[round(h['grad_norm'], 4) for h in history]}, lr "
+        f"{[round(h['lr'], 8) for h in history]}")
+    log(f"[train] ms a step {[round(x, 2) for x in ms]}: steps 2-{steps} {mean_ms:.2f} ms "
+        f"= {tok_s:.0f} training tok/s (step 1, with the first calls' set-up, {ms[0]:.2f} ms); "
+        f"peak device memory above the baseline {peak / 2**30:.2f} GiB (params + AdamW state "
+        f"{state_bytes / 2**30:.2f} GiB); step-0 loss {losses[0]:.6f} against {plain_loss:.6f} "
+        f"through the plain attention (ln V = {math.log(cfg.vocab_size):.4f}); launches "
+        f"{counts}, flash by variant {variants['flash_attention']}")
+    require(all(math.isfinite(x) for x in losses), f"a loss is not finite: {losses}")
+    require(first.get("n") == len(_paths(params)) and not first["bad"],
+            f"parameters whose step-1 gradient is zero or not finite: {first.get('bad')}")
+    require(abs(losses[0] - plain_loss) <= 1e-2 * abs(plain_loss),
+            f"step-0 loss {losses[0]} against the plain attention's {plain_loss}")
+    require(counts["flash_attention"] == L * steps and counts["flash_attention_bwd"] == L * steps
+            and sum(counts.values()) == 2 * L * steps,
+            f"expected {L} flash forward and {L} backward launches a step: {counts}")
+    require_variant(variants, "flash_attention", "wgmma", L * steps, "train")
+
+    # one more step under the profiler: where a step's time goes
+    ocfg = topt.OptimizerConfig(name="adamw", learning_rate=args.lr, warmup_steps=20,
+                                decay_steps=100)
+    step = tts.make_train_step(model, ocfg)
+    batch = stream._batch_for(steps)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = step(params, opt_state, None, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del out
+    br = _device_breakdown(torch, prof, wall)
+    log(f"[train] one traced step: wall {br['wall_s'] * 1e3:.2f} ms, device busy "
+        f"{br['busy_s'] * 1e3:.2f} ms, idle share {br['idle_share']:.3f}; device ms by group "
+        + ", ".join(f"{g} {t * 1e3:.2f}" for g, t in br["by_group_s"].items())
+        + "; top kernels " + "; ".join(f"{n} {t * 1e3:.2f} ms" for n, t in br["top"]))
+    del params, opt_state, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_resume(torch) -> None:
+    """REDUCED gemma3-1b in fp32 on the card through the launcher: 4 steps,
+    against 2 steps with a checkpoint, then a second launch that resumes
+    from it (data stream state included) for 2 more; the parameters agree
+    within rtol 1e-6 / atol 1e-7."""
+    import tempfile
+
+    from repro_torch.launch import train as train_cli
+
+    base = ["--arch", "gemma3-1b", "--reduced", "--batch", "4", "--seq", "32",
+            "--log-every", "1"]
+    straight, _, _ = train_cli.train(train_cli.parse_args(base + ["--steps", "4"]))
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        resume = base + ["--ckpt-dir", ckpt_dir, "--ckpt-every", "2"]
+        train_cli.train(train_cli.parse_args(resume + ["--steps", "2"]))
+        resumed, opt_state, history = train_cli.train(train_cli.parse_args(
+            resume + ["--steps", "4"]))
+    misfit, worst = _tree_misfit(torch, resumed, straight, **RESUME_TOL)
+    log(f"[train-resume] REDUCED gemma3-1b on the card: 4 steps against 2 + checkpoint + "
+        f"resume + 2: max |param difference| {worst:.3e} ({RESUME_TOL}); the resumed run's "
+        f"steps {[h['step'] for h in history]}, optimizer count {int(opt_state['count'])}")
+    require([h["step"] for h in history] == [3, 4] and int(opt_state["count"]) == 4,
+            "the second launch did not resume from step 2")
+    require(misfit == 0.0, f"the resumed parameters differ beyond tolerance by {misfit:.3e}")
 
 
 def _leaves(tree):
@@ -3820,6 +4268,9 @@ def main() -> int:
         run_phase("reduced-whisper", phase_reduced_whisper, torch)
         whisper_counts = run_phase("generate-whisper", phase_generate_bundle, torch,
                                    "whisper-small")
+        run_phase("reduced-train", phase_reduced_train, torch)
+        train_counts = run_phase("train", phase_train, torch)
+        run_phase("train-resume", phase_train_resume, torch)
         log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
@@ -3834,7 +4285,8 @@ def main() -> int:
                    "serve-prefix": prefix_counts, "serve-zamba2": zamba2_counts,
                    "serve-zamba2 serial": zamba2_serial_counts, **family_counts,
                    "serve-fleet": fleet_counts, **moe_counts,
-                   "generate-paligemma": paligemma_counts, "generate-whisper": whisper_counts}
+                   "generate-paligemma": paligemma_counts, "generate-whisper": whisper_counts,
+                   "train": train_counts}
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]] for path, c in path_counts.items()
                                  if c[k["name"]]}

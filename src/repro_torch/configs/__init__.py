@@ -1,5 +1,5 @@
 """Architecture configs: the port's own copy of the reference's
-`ArchConfig` and `get_config`.
+`ArchConfig`, `ShapeConfig` and `get_config`.
 
 Every architecture id of the reference has its config module here, and the
 port runs each one's model family. Each config module defines ``CONFIG``
@@ -87,6 +87,22 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape (the reference's): sequence length, global batch and
+    kind (train | prefill | decode). The training stream and launcher read
+    `seq_len` and `global_batch`."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
 
 
 ARCH_IDS: Sequence[str] = (

@@ -43,6 +43,11 @@
 //   multiple of 8 instantiates; those of the repo's configs do (16, 32, 64,
 //   112, 128, 160, 256), hd 160 asking for 65,920 bytes of shared memory.
 //
+// Either variant also writes each query row's log-sum-exp (fp32, (B, H,
+// Sq), natural log of the scaled scores) when the caller passes a buffer for
+// it: the training path's forward, whose gradient comes from
+// `flash_attention_bwd.cu`. Serving passes none, and nothing else changes.
+//
 // Both walk only the key tiles a block's rows can attend to (causal upper
 // bound, window lower bound), which is exact whenever every row has at least
 // one valid key (checked per block; blocks with a row that has none visit
@@ -101,8 +106,8 @@ __device__ __forceinline__ void key_range(int qp_lo, int qp_hi, int Skv, int cau
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Skv, int H, int KV, float scale, int causal,
-    int window, int prefix_len, int q_offset) {
+    T* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H, int KV, float scale,
+    int causal, int window, int prefix_len, int q_offset) {
   static_assert(HD % DG == 0, "head_dim must be a multiple of 8");
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -211,7 +216,13 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
   __syncthreads();
   if (lane == 0) {
 #pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) row_s[warp + NW * r] = l_r[r];
+    for (int r = 0; r < ROWS_PER_WARP; ++r) {
+      const int i = warp + NW * r;
+      row_s[i] = l_r[r];
+      // log-sum-exp of the row's scaled scores, (B, H, Sq), for the backward
+      if (lse != nullptr && i < nq)
+        lse[(size_t(b) * H + h) * Sq + q0 + i] = m_r[r] + logf(fmaxf(l_r[r], 1e-30f));
+    }
   }
   __syncthreads();
   if (pr < nq) {
@@ -223,8 +234,8 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                   int Skv, int H, int KV, float scale, int causal, int window,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Sq, int Skv, int H, int KV, float scale, int causal, int window,
                    int prefix_len, int q_offset, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<HD>();
   auto kernel = flash_attention_kernel<T, HD>;
@@ -235,30 +246,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   }
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, NT, bytes, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H,
-                                      KV, scale, causal, window, prefix_len, q_offset);
+                                      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv,
+                                      H, KV, scale, causal, window, prefix_len, q_offset);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, int B,
-                        int Sq, int Skv, int H, int KV, float scale, int causal, int window,
-                        int prefix_len, int q_offset, cudaStream_t stream) {
+cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
+                        float* lse, int B, int Sq, int Skv, int H, int KV, float scale,
+                        int causal, int window, int prefix_len, int q_offset,
+                        cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
+      return launch<T, 16>(q, k, v, o, lse, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
+      return launch<T, 32>(q, k, v, o, lse, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
+      return launch<T, 64>(q, k, v, o, lse, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
     case 112:  // zamba2-7b, kimi-k2
-      return launch<T, 112>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
+      return launch<T, 112>(q, k, v, o, lse, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
+      return launch<T, 128>(q, k, v, o, lse, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
     case 160:  // stablelm-12b
-      return launch<T, 160>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
+      return launch<T, 160>(q, k, v, o, lse, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
+      return launch<T, 256>(q, k, v, o, lse, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -284,8 +296,9 @@ constexpr size_t smem_bytes() {  // Q tiles, K / V ring, barriers, alignment sla
 template <int HD, int NC>
 __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o, int Sq, int Skv,
-    int H, int G, float scale_log2, int causal, int window, int prefix_len, int q_offset) {
+    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int Sq, int Skv, int H, int G, float scale_log2, int causal,
+    int window, int prefix_len, int q_offset) {
   using namespace repro::sm90;
   constexpr int CH = HD / 64;
   constexpr int TILE = CH * fa::CHUNK;  // one 64-row tile: Q of a warpgroup, or K, or V
@@ -483,6 +496,11 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_attention_wgmma_kerne
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
       if (pos[h] >= Sq) continue;
+      // log-sum-exp in natural units (m is in log2 units of the scaled
+      // scores), at (b, head, pos) of the (B, H, Sq) output
+      if (lse != nullptr && t == 0)
+        lse[(size_t(blockIdx.z) * H + head[h]) * Sq + pos[h]] =
+            (m[h] + log2f(fmaxf(l[h], 1e-30f))) * 0.6931471805599453f;
       const float denom = fmaxf(l[h], 1e-30f);
       __nv_bfloat16* orow = o + (size_t(blockIdx.z) * Sq + pos[h]) * size_t(H) * HD +
                             size_t(head[h]) * HD;
@@ -496,7 +514,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_attention_wgmma_kerne
 
 template <int HD, int NC>
 cudaError_t launch_wgmma_nc(const CUtensorMap& q_map, const CUtensorMap& k_map,
-                            const CUtensorMap& v_map, void* o, int B, int Sq, int Skv, int H,
+                            const CUtensorMap& v_map, void* o, float* lse, int B, int Sq,
+                            int Skv, int H,
                             int KV, float scale, int causal, int window, int prefix_len,
                             int q_offset, cudaStream_t stream) {
   constexpr size_t bytes = fa::smem_bytes<HD, NC>();
@@ -508,15 +527,17 @@ cudaError_t launch_wgmma_nc(const CUtensorMap& q_map, const CUtensorMap& k_map,
   const dim3 grid((Sq + NC * P - 1) / (NC * P), KV, B);
   const float scale_log2 = scale * 1.4426950408889634f;  // softmax in exp2
   kernel<<<grid, 128 * (NC + 1), bytes, stream>>>(q_map, k_map, v_map,
-                                                 static_cast<__nv_bfloat16*>(o), Sq, Skv, H,
+                                                 static_cast<__nv_bfloat16*>(o), lse, Sq, Skv,
+                                                 H,
                                                  H / KV, scale_log2, causal, window, prefix_len,
                                                  q_offset);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                         int Skv, int H, int KV, float scale, int causal, int window,
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                         int B, int Sq, int Skv, int H, int KV, float scale, int causal,
+                         int window,
                          int prefix_len, int q_offset, int consumers, cudaStream_t stream) {
   const int G = H / KV;
   const int P = fa::ROWS / G;
@@ -535,10 +556,10 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
       !repro::sm90::encode_bf16_map(&v_map, v, 4, kv_sizes, kv_strides, kv_box))
     return cudaErrorInvalidValue;
   return consumers == 1
-             ? launch_wgmma_nc<HD, 1>(q_map, k_map, v_map, o, B, Sq, Skv, H, KV, scale, causal,
-                                      window, prefix_len, q_offset, stream)
-             : launch_wgmma_nc<HD, 2>(q_map, k_map, v_map, o, B, Sq, Skv, H, KV, scale, causal,
-                                      window, prefix_len, q_offset, stream);
+             ? launch_wgmma_nc<HD, 1>(q_map, k_map, v_map, o, lse, B, Sq, Skv, H, KV, scale,
+                                      causal, window, prefix_len, q_offset, stream)
+             : launch_wgmma_nc<HD, 2>(q_map, k_map, v_map, o, lse, B, Sq, Skv, H, KV, scale,
+                                      causal, window, prefix_len, q_offset, stream);
 }
 
 }  // namespace
@@ -547,9 +568,12 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
 // one dtype (0 fp32, 1 bf16); variant 0 simt, 1 wgmma (bf16; hd 64 / 128 /
 // 256; H / KV divides 64; q, k, v 16-byte aligned) with `consumers` (1 or 2)
 // consumer warpgroups a block, which the wrapper picks by the grid's size.
+// `lse`: null, or fp32 (B, H, Sq) that receives each query row's
+// log-sum-exp of its scaled, masked scores (the backward's input).
 // Returns the cudaError_t of the launch.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int Sq, int Skv, int H, int KV, int hd, int dtype,
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   float* lse, int B, int Sq, int Skv, int H, int KV, int hd,
+                                   int dtype,
                                    float scale, int causal, int window, int prefix_len,
                                    int q_offset, int variant, int consumers, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0) return int(cudaErrorInvalidValue);
@@ -562,16 +586,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     if ((hd != 64 && hd != 128 && hd != 256) || (consumers != 1 && consumers != 2))
       return int(cudaErrorInvalidValue);
     auto fn = hd == 64 ? launch_wgmma<64> : hd == 128 ? launch_wgmma<128> : launch_wgmma<256>;
-    return int(fn(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, prefix_len, q_offset,
-                  consumers, s));
+    return int(fn(q, k, v, o, lse, B, Sq, Skv, H, KV, scale, causal, window, prefix_len,
+                  q_offset, consumers, s));
   }
   if (variant != 0) return int(cudaErrorInvalidValue);
   if (dtype == repro::kFloat32)
-    return int(dispatch_hd<float>(hd, q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
-                                  prefix_len, q_offset, s));
+    return int(dispatch_hd<float>(hd, q, k, v, o, lse, B, Sq, Skv, H, KV, scale, causal,
+                                  window, prefix_len, q_offset, s));
   if (dtype == repro::kBFloat16)
-    return int(dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
-                                          window, prefix_len, q_offset, s));
+    return int(dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, Sq, Skv, H, KV, scale,
+                                          causal, window, prefix_len, q_offset, s));
   return int(cudaErrorInvalidValue);
 }
 

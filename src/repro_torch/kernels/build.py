@@ -121,14 +121,39 @@ def load(*, verbose: bool = False) -> ctypes.CDLL:
         return _lib
 
 
-def count_launch(module_name: str, kind: str) -> None:
-    """Count one launch of variant `kind` in the wrapper module
-    `module_name`'s `launches` and `variant_launches`, atomically: a bare
-    `+=` on a module global can lose an increment between threads."""
-    mod = sys.modules[module_name]
+class LaunchCounter:
+    """`launches` and `variant_launches` of a kernel whose wrapper shares a
+    module with another's (the flash backward beside its forward)."""
+
+    def __init__(self, kinds):
+        self.launches = 0
+        self.variant_launches = {k: 0 for k in kinds}
+
+
+def count_launch(target, kind: str) -> None:
+    """Count one launch of variant `kind` in `launches` and
+    `variant_launches` of `target` (a wrapper module's name, or a
+    `LaunchCounter`), atomically: a bare `+=` on a module global can lose an
+    increment between threads."""
+    counter = sys.modules[target] if isinstance(target, str) else target
     with COUNT_LOCK:
-        mod.launches += 1
-        mod.variant_launches[kind] += 1
+        counter.launches += 1
+        counter.variant_launches[kind] += 1
+
+
+NO_BACKWARD = ("this kernel has no backward: call it under torch.no_grad() (or on detached "
+               "inputs)")
+
+
+def refuse_grad(what: str, *tensors, remedy: str = NO_BACKWARD) -> None:
+    """Raise where a kernel would cut autograd off: under grad mode with an
+    input that requires grad, a kernel whose output has no `grad_fn` would
+    give every parameter upstream of it no gradient, and say nothing."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: an input requires grad and {remedy}")
 
 
 def build_log() -> str:

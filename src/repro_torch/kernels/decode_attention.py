@@ -54,6 +54,7 @@ def decode_attention(
     """q: (B, H, hd); k/v_cache: (B, S, KV, hd); pos: int32 scalar or (B,),
     each >= 0 (positions past S - 1 see the whole cache). Returns
     (B, H, hd), on CUDA."""
+    build.refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError("decode_attention: q must be (B, H, hd), caches (B, S, KV, hd)")
     B, H, hd = q.shape

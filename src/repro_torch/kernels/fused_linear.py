@@ -87,6 +87,7 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                  act: str = "none") -> torch.Tensor:
     """x: (M, K); w: (K, N); b: (N,) -> act(x @ w + b) (M, N) in x's dtype,
     on CUDA."""
+    build.refuse_grad("fused_linear", x, w, b)
     if act not in ACTS:
         raise ValueError(f"fused_linear: act {act!r} not in {sorted(ACTS)}")
     if x.dim() != 2 or w.dim() != 2 or b.dim() != 1:

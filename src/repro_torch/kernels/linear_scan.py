@@ -137,6 +137,7 @@ def gated_linear_scan(
     (B, H, dk, dv) fp32), on CUDA. With ``normaliser=True`` (and an optional
     contiguous fp32 `initial_normaliser` (B, H, dk, 1)) also the scan of
     v = ones: (y, state, nrm (B, H, S, 1) in q's dtype, n (B, H, dk, 1) fp32)."""
+    build.refuse_grad("gated_linear_scan", q, k, v, log_a, initial_state, initial_normaliser)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or log_a.dim() != 3:
         raise ValueError("gated_linear_scan: q, k, v must be (B, H, S, d), log_a (B, H, S)")
     B, H, S, dk = q.shape

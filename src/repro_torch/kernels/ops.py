@@ -32,16 +32,19 @@ def _on_cuda(t: torch.Tensor, what: str) -> bool:
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0, prefix_len: int = 0,
               q_offset: int = 0, scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) -> (B, Sq, H, hd)."""
+    """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) -> (B, Sq, H, hd). On CUDA
+    under grad mode with an input that requires grad (training), the flash
+    forward with its log-sum-exp and, for the gradient, the backward kernel
+    (`FlashAttentionFn`); otherwise the forward alone. On the CPU the plain
+    version, which autograd differentiates."""
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len, q_offset=q_offset,
+              scale=scale)
     if _on_cuda(q, "attention"):
-        return _flash.flash_attention(
-            q, k, v, causal=causal, window=window, prefix_len=prefix_len,
-            q_offset=q_offset, scale=scale,
-        )
-    return ref.attention(
-        q, k, v, causal=causal, window=window, prefix_len=prefix_len,
-        q_offset=q_offset, scale=scale,
-    )
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            return _flash.FlashAttentionFn.apply(q, k, v, _flash.flash_attention_with_lse,
+                                                 _flash.flash_attention_backward, kw)
+        return _flash.flash_attention(q, k, v, **kw)
+    return ref.attention(q, k, v, **kw)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
@@ -103,6 +106,7 @@ def gated_linear_scan(q, k, v, log_a, *, chunk: int = 128, initial_state=None,
 
 _KERNELS = {
     "flash_attention": _flash,
+    "flash_attention_bwd": _flash.backward,
     "paged_decode_attention": _paged,
     "decode_attention": _decode,
     "fused_linear": _linear,

@@ -55,6 +55,7 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """q: (B, H, hd); k/v_pool: (P, page, KV, hd); page_table: (B, n_pages)
     int32; pos: (B,) int32, each >= 0. Returns (B, H, hd), on CUDA."""
+    build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     if q.dim() != 3 or k_pool.dim() != 4:
         raise ValueError("paged_decode_attention: q must be (B, H, hd), pools (P, page, KV, hd)")
     B, H, hd = q.shape

@@ -82,6 +82,66 @@ def attention(
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def attention_with_lse(q, k, v, *, causal: bool = True, window: int = 0, prefix_len: int = 0,
+                       q_offset: int = 0, scale: Optional[float] = None):
+    """(`attention`, each query row's log-sum-exp of its scaled, masked
+    scores, fp32 (B, H, Sq)): the plain version of the flash forward with
+    ``return_lse=True`` (`FlashAttentionFn`'s forward on the CPU). A row
+    with no key it may attend gets the reference's all-masked softmax, the
+    mean of every key, and a log-sum-exp of about `NEG_INF`."""
+    B, Sq, H, hd = q.shape
+    scale = scale if scale is not None else 1.0 / (hd**0.5)
+    scores = _scores(q, k, scale).masked_fill(
+        ~_build_mask(Sq, k.shape[1], causal=causal, window=window, prefix_len=prefix_len,
+                     q_offset=q_offset, device=q.device), NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float()).reshape(B, Sq, H, hd)
+    return out.to(q.dtype), torch.logsumexp(scores, dim=-1).reshape(B, H, Sq)
+
+
+def _scores(q, k, scale):
+    """Scaled fp32 scores (B, KV, g, Sq, Skv), query head h = KV head
+    h // g, group member h % g."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = (q.float() * scale).reshape(B, Sq, KV, H // KV, hd)
+    return torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+
+
+def attention_backward(q, k, v, out, lse, d_out, *, causal: bool = True, window: int = 0,
+                       prefix_len: int = 0, q_offset: int = 0,
+                       scale: Optional[float] = None):
+    """The gradient of `attention` from the flash backward's formulas: with
+    P = exp(scale q k^T - lse) on the keys a row may attend and D =
+    rowsum(d_out * out), dV = P^T dO, dS = P * (dO V^T - D), dQ = scale dS
+    K, dK = scale dS^T Q; a row with no key it may attend spreads P = 1 / Skv
+    over every key and passes no gradient to q or k, as autograd through
+    `attention`'s all-masked softmax does. q, out, d_out (B, Sq, H, hd); k,
+    v (B, Skv, KV, hd); lse fp32 (B, H, Sq). Returns (dq, dk, dv) in the
+    inputs' dtypes, from fp32 sums. The plain version of
+    `flash_attention_backward`: the tests and `chip_smoke.py` hold the
+    kernel against it."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = scale if scale is not None else 1.0 / (hd**0.5)
+    mask = _build_mask(Sq, Skv, causal=causal, window=window, prefix_len=prefix_len,
+                       q_offset=q_offset, device=q.device)
+    empty = ~mask.any(dim=-1)  # (Sq,)
+    lse_g = lse.float().reshape(B, KV, g, Sq, 1)
+    p = torch.where(mask, torch.exp(_scores(q, k, scale) - lse_g), torch.zeros((), device=q.device))
+    p = torch.where(empty[:, None], torch.full((), 1.0 / Skv, device=q.device), p)
+    do = d_out.float().reshape(B, Sq, KV, g, hd)
+    delta = (d_out.float() * out.float()).sum(-1).reshape(B, Sq, KV, g)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    ds = torch.where((mask & ~empty[:, None]), ds, torch.zeros((), device=q.device))
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()).reshape(B, Sq, H, hd) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, q.float().reshape(B, Sq, KV, g, hd)) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _masked_decode(q, k_cache, v_cache, pos, *, window: int, scale: Optional[float]):
     """Single-token GQA decode: slot-validity masking (slot <= pos), plus an
     optional position-window mask (slot > pos - window)."""

@@ -26,29 +26,30 @@ lists.
 
 Leaves may also be CPU tensors (the checkpoint reader's); bf16 crosses bit
 for bit (`as_tensor`).
+
+Optimizer state (`opt_state_from_jax`): AdamW's ``mu`` and ``nu`` mirror
+the parameter tree and cross through the same unstacking; Adafactor's
+``v`` keeps the reference's layer stacks, the layout the port's Adafactor
+steps on (`stack_params` / `unstack_params`, see `train/optimizer.py`). A
+reference checkpoint of ``{"params", "opt"}`` then resumes in the port.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Mapping, Optional
+from typing import Any, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.train.tree import tree_map
 from .common import resolve_device
 from .hybrid import group_structure
-from .transformer import unit_structure
+from .transformer import has_units, unit_structure
 
 #: leaves kept in fp32 whatever the matrices' storage dtype (rms_norm reads
 #: the norm weights as fp32, Mamba2 its decay parameters, the MoE its router)
 NORM_KEYS = frozenset({"ln1", "ln2", "ln_x", "final_norm", "enc_norm", "norm", "out_norm",
                        "A_log", "dt_bias", "router"})
-
-
-def _map(fn: Callable, tree):
-    if isinstance(tree, Mapping):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def as_tensor(a) -> torch.Tensor:
@@ -74,13 +75,13 @@ def unstack_layers(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
     layers: List[dict] = []
     if "layers" in tree:
         for i in range(cfg.num_layers):
-            layers.append(_map(lambda a, i=i: a[i], tree["layers"]))
+            layers.append(tree_map(lambda a, i=i: a[i], tree["layers"]))
     else:
         for u in range(n_units):
             for j in range(unit_len):
-                layers.append(_map(lambda a, u=u, j=j: a[u, j], tree["units"]))
+                layers.append(tree_map(lambda a, u=u, j=j: a[u, j], tree["units"]))
         for t in range(n_tail):
-            layers.append(_map(lambda a, t=t: a[t], tree["tail"]))
+            layers.append(tree_map(lambda a, t=t: a[t], tree["tail"]))
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config has {cfg.num_layers}")
     out = {k: v for k, v in tree.items() if k not in ("layers", "units", "tail")}
@@ -93,9 +94,9 @@ def unstack_encdec(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
     """Reference encoder-decoder tree -> the port's: the ``encoder`` and
     ``decoder`` stacks as per-layer lists (views, no copy), the rest as is."""
     out = dict(tree)
-    out["encoder"] = [_map(lambda a, i=i: a[i], tree["encoder"])
+    out["encoder"] = [tree_map(lambda a, i=i: a[i], tree["encoder"])
                       for i in range(cfg.encoder_layers)]
-    out["decoder"] = [_map(lambda a, i=i: a[i], tree["decoder"]) for i in range(cfg.num_layers)]
+    out["decoder"] = [tree_map(lambda a, i=i: a[i], tree["decoder"]) for i in range(cfg.num_layers)]
     return out
 
 
@@ -104,9 +105,9 @@ def unstack_hybrid(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
     stacks as per-layer lists (views, no copy), the rest as is."""
     g, n_groups, n_tail = group_structure(cfg)
     out = {k: v for k, v in tree.items() if k not in ("mamba", "mamba_tail")}
-    out["mamba"] = [_map(lambda a, i=i: a[i], tree["mamba"]) for i in range(n_groups * g)]
+    out["mamba"] = [tree_map(lambda a, i=i: a[i], tree["mamba"]) for i in range(n_groups * g)]
     if n_tail:
-        out["mamba_tail"] = [_map(lambda a, i=i: a[i], tree["mamba_tail"]) for i in range(n_tail)]
+        out["mamba_tail"] = [tree_map(lambda a, i=i: a[i], tree["mamba_tail"]) for i in range(n_tail)]
     return out
 
 
@@ -144,3 +145,51 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any], *, device=None,
         return convert(key)(node)
 
     return walk(flat)
+
+
+def stack_params(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
+    """The port's transformer tree with its per-layer list stacked as the
+    reference stacks it (``units`` (n_units, unit_len, ...) and ``tail``, or
+    ``layers`` (num_layers, ...)): the inverse of `unstack_layers`, by
+    copy. xlstm's tree (``blocks``) is the reference's already."""
+    if "blocks" in tree:
+        return dict(tree)
+    if "layers" not in tree:
+        raise NotImplementedError(f"stack_params: the {cfg.family} family's tree is not ported "
+                                  f"for training yet")
+    stack = lambda *leaves: torch.stack(leaves)  # noqa: E731
+    layers = tree["layers"]
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    if not has_units(cfg):
+        out["layers"] = tree_map(stack, *layers)
+        return out
+    unit_len, n_units, n_tail = unit_structure(cfg)
+    units = [tree_map(stack, *layers[u * unit_len:(u + 1) * unit_len]) for u in range(n_units)]
+    out["units"] = tree_map(stack, *units)
+    if n_tail:
+        out["tail"] = tree_map(stack, *layers[n_units * unit_len:])
+    return out
+
+
+def unstack_params(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
+    """The inverse of `stack_params`: per-layer views of the stacks."""
+    if "blocks" in tree:
+        return dict(tree)
+    return unstack_layers(cfg, tree)
+
+
+def opt_state_from_jax(cfg: ArchConfig, opt: Mapping[str, Any], *, device=None) -> dict:
+    """The reference's optimizer state (its `train/optimizer.py::init`
+    tree, numpy leaves or the checkpoint reader's tensors) as the port's on
+    `device`: AdamW's moments unstacked like the parameters, Adafactor's
+    factored statistics in the reference's stacked layout, the step count
+    an int32 0-d tensor."""
+    device = resolve_device(device)
+    count = as_tensor(opt["count"]).to(torch.int32).reshape(()).to(device)
+    if "mu" in opt:
+        return {"mu": params_from_jax(cfg, opt["mu"], device=device),
+                "nu": params_from_jax(cfg, opt["nu"], device=device), "count": count}
+    if "v" in opt:
+        return {"v": tree_map(lambda a: as_tensor(a).float().to(device), opt["v"]),
+                "count": count}
+    raise KeyError(f"optimizer state with keys {sorted(opt)}: neither AdamW's nor Adafactor's")

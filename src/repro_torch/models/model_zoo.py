@@ -1,6 +1,7 @@
 """Model zoo: one bundle of functions per architecture family, with the
-serving protocol of the reference's `repro/models/model_zoo.py`:
+batch protocol of the reference's `repro/models/model_zoo.py`:
 
+    train batch:   {"tokens": (B,S), "labels": (B,S)}
     prefill batch: {"tokens": (B,S)[, "patches" | "frames"]}
     decode batch:  {"tokens": (B,1), "pos": scalar or (B,)[, "per_slot": True]}
 
@@ -9,7 +10,8 @@ the ``vlm`` (paligemma: a vision prefix), ``audio`` (whisper: an
 encoder-decoder), the recurrent ``ssm`` (xlstm) and the ``hybrid`` (zamba2:
 Mamba2 + a shared attention block). The slot decoder marks its steps
 ``per_slot`` (every row its own request; MoE layers then never drop, as the
-reference's vmapped B=1 step). The losses of all but xlstm wait for the
+reference's vmapped B=1 step). The transformers' and xlstm's losses are
+ported; the VLM's, the encoder-decoder's and the hybrid's wait for the next
 training slice."""
 from __future__ import annotations
 
@@ -83,7 +85,7 @@ def build(cfg: ArchConfig) -> ModelBundle:
 
 def _build_transformer(cfg: ArchConfig) -> ModelBundle:
     def loss(params, batch):
-        raise NotImplementedError("the transformer loss is not ported yet (training slice)")
+        return transformer.lm_loss(cfg, params, batch["tokens"], batch["labels"])
 
     def make_prefill(max_len=None):
         def prefill(params, batch):
@@ -119,7 +121,9 @@ def _build_vlm(cfg: ArchConfig) -> ModelBundle:
     P = cfg.vision_tokens
 
     def loss(params, batch):
-        raise NotImplementedError("the VLM loss is not ported yet (training slice)")
+        raise NotImplementedError(
+            "the VLM loss is not ported yet: it comes with the next training slice "
+            "(the VLM, encoder-decoder and hybrid losses and a gated_linear_scan backward)")
 
     def make_prefill(max_len=None):
         def prefill(params, batch):
@@ -145,7 +149,9 @@ def _build_vlm(cfg: ArchConfig) -> ModelBundle:
 
 def _build_encdec(cfg: ArchConfig) -> ModelBundle:
     def loss(params, batch):
-        raise NotImplementedError("the encoder-decoder loss is not ported yet (training slice)")
+        raise NotImplementedError(
+            "the encoder-decoder loss is not ported yet: it comes with the next training slice "
+            "(the VLM, encoder-decoder and hybrid losses and a gated_linear_scan backward)")
 
     def make_prefill(max_len=None):
         def prefill(params, batch):
@@ -197,7 +203,9 @@ def _build_xlstm(cfg: ArchConfig) -> ModelBundle:
 
 def _build_hybrid(cfg: ArchConfig) -> ModelBundle:
     def loss(params, batch):
-        raise NotImplementedError("the hybrid loss is not ported yet (training slice)")
+        raise NotImplementedError(
+            "the hybrid loss is not ported yet: it comes with the next training slice "
+            "(the VLM, encoder-decoder and hybrid losses and a gated_linear_scan backward)")
 
     def make_prefill(max_len=None):
         def prefill(params, batch):

@@ -11,8 +11,9 @@ the reference computes them outside any Pallas kernel.
 
 The reference pins the dispatch intermediates to mesh axes with
 `repro.sharding.ambient.constrain`; on one device those calls do nothing,
-so the port leaves them out (they return with multi-device serving). The
-load-balance loss is training and waits for the training slice.
+so the port leaves them out (they return with multi-device serving).
+Training adds the reference's Switch-style load-balance loss
+(`moe_load_balance_loss`) over the router statistics `moe_ffn` returns.
 """
 from __future__ import annotations
 
@@ -111,3 +112,16 @@ def moe_ffn(cfg: ArchConfig, p, x: torch.Tensor, *,
 
     aux = {"router_probs": probs, "expert_indices": idx, "dropped": ~kept.reshape(N, k)}
     return y.reshape(B, S, d).to(cd), aux
+
+
+def moe_load_balance_loss(router_probs: torch.Tensor, expert_indices: torch.Tensor,
+                          num_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary loss, ``num_experts * sum(f_e * p_e)``: f_e the
+    mean count of picks of expert e a token, p_e its mean router probability
+    (the reference's `repro/models/common.py::moe_load_balance_loss`).
+    router_probs: (..., E); expert_indices: (..., k)."""
+    one_hot = torch.nn.functional.one_hot(expert_indices.long(), num_experts).float()
+    lead = tuple(range(one_hot.dim() - 2))
+    tokens_per_expert = torch.mean(one_hot.sum(dim=-2), dim=lead)
+    router_mean = torch.mean(router_probs, dim=tuple(range(router_probs.dim() - 1)))
+    return num_experts * torch.sum(tokens_per_expert * router_mean)

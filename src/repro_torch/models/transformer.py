@@ -1,6 +1,7 @@
-"""Decoder-only LM for serving: dense and MoE transformers with
-sliding-window / global interleaving (gemma3) and prefix-LM attention (the
-VLM's backbone). Port of the serving half of `repro/models/transformer.py`.
+"""Decoder-only LM: dense and MoE transformers with sliding-window / global
+interleaving (gemma3) and prefix-LM attention (the VLM's backbone). Port of
+`repro/models/transformer.py`: the training forward and loss
+(`lm_forward`, `lm_loss`) and the serving paths.
 
 The reference stacks layers for `jax.lax.scan`, grouped in repeating units
 (gemma3: 5 local layers + 1 global) plus a tail. PyTorch runs eagerly, so
@@ -30,6 +31,7 @@ from .attention import (
     init_paged_kv_pool,
     paged_decode_self_attention,
     prefill_attention,
+    self_attention,
     slot_positions,
     tail_prefill_attention,
 )
@@ -40,6 +42,7 @@ from .common import (
     init_embedding,
     resolve_device,
     rms_norm,
+    softmax_cross_entropy,
     unembed,
 )
 from . import moe
@@ -106,6 +109,57 @@ def _mlp(cfg: ArchConfig, p_l, x: torch.Tensor, *, dropless: bool = False) -> to
     if cfg.is_moe:
         return moe.moe_ffn(cfg, p_l["moe"], x, dropless=dropless)[0]
     return ffn(cfg, p_l["ffn"], x)
+
+
+# ---------------------------------------------------------------------------
+# forward (training): full sequence, loss-ready hidden states
+# ---------------------------------------------------------------------------
+
+
+def _layer_body(cfg: ArchConfig, p_l, h: torch.Tensor, *, window: int, prefix_len: int = 0):
+    """One transformer layer. Returns (h, aux_loss): the MoE load-balance
+    loss of the layer's router, 0 for a dense layer."""
+    attn_in = rms_norm(h, p_l["ln1"], eps=cfg.norm_eps)
+    h = h + self_attention(cfg, p_l["attn"], attn_in, window=window, prefix_len=prefix_len)
+    ffn_in = rms_norm(h, p_l["ln2"], eps=cfg.norm_eps)
+    if cfg.is_moe:
+        y, aux = moe.moe_ffn(cfg, p_l["moe"], ffn_in)
+        aux_loss = moe.moe_load_balance_loss(aux["router_probs"], aux["expert_indices"],
+                                             cfg.num_experts)
+    else:
+        y = ffn(cfg, p_l["ffn"], ffn_in)
+        aux_loss = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + y, aux_loss
+
+
+def backbone_forward(cfg: ArchConfig, params, h: torch.Tensor, *, prefix_len: int = 0):
+    """Run embedded inputs h: (B,S,d) through every layer (windows from
+    `layer_windows`, as the reference's scan over units and tail gives them)
+    and the final norm. Returns (h, aux_loss summed over the layers). The
+    reference's `remat_policy` (activation rematerialisation) is not ported:
+    autograd keeps every layer's activations, which changes no number."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for p_l, w in zip(params["layers"], layer_windows(cfg)):
+        h, aux_l = _layer_body(cfg, p_l, h, window=w, prefix_len=prefix_len)
+        aux = aux + aux_l
+    return rms_norm(h, params["final_norm"], eps=cfg.norm_eps), aux
+
+
+def lm_forward(cfg: ArchConfig, params, tokens: torch.Tensor, *, prefix_len: int = 0):
+    """tokens: (B, S) -> (logits (B,S,V) in the compute dtype, aux_loss)."""
+    cd = dtype_of(cfg.compute_dtype)
+    h = embed(params["embed"], tokens, compute_dtype=cd)
+    h, aux = backbone_forward(cfg, params, h, prefix_len=prefix_len)
+    return unembed(params["embed"], h, tie=cfg.tie_embeddings), aux
+
+
+def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor, labels: torch.Tensor, *,
+            prefix_len: int = 0, z_loss: float = 1e-4, moe_aux_weight: float = 1e-2):
+    """Mean cross-entropy with the z-loss, plus `moe_aux_weight` times the
+    MoE load-balance loss. Returns (loss, {"ce_loss", "moe_aux"})."""
+    logits, aux = lm_forward(cfg, params, tokens, prefix_len=prefix_len)
+    loss = softmax_cross_entropy(logits, labels, z_loss=z_loss)
+    return loss + moe_aux_weight * aux, {"ce_loss": loss, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

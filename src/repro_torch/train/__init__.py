@@ -1,3 +1,4 @@
-"""Training side of the port. Only the checkpoint reader so far
-(`checkpoint`); the writer, the optimizer and the train step come with the
-training slice."""
+"""Training side of the port: the optimizers (`optimizer`), the train step
+(`train_step`), the data stream and its prefetcher (`data`), int8
+error-feedback compression (`compression`) and the checkpoint reader and
+writer (`checkpoint`)."""

@@ -1,9 +1,18 @@
-"""Reader of the reference's checkpoint layout (`repro/train/checkpoint.py`),
-without JAX or `ml_dtypes`:
+"""Reader and writer of the reference's checkpoint layout
+(`repro/train/checkpoint.py`), without JAX or `ml_dtypes`:
 
-    <root>/step_00000123/
+    <root>/step_00000123.tmp/   # staged writes
+    <root>/step_00000123/       # committed: renamed from .tmp
         manifest.json     # step, leaf paths, dtypes, shapes, shard index
         shard_00000.npz   # leaves by flat index
+
+`save` writes a tree of tensors atomically: leaves go to `.tmp`,
+`manifest.json` last, then the directory is renamed, so a crash mid-write
+never corrupts the latest committed step. Leaves are grouped into shards
+of about `shard_bytes`; a bf16 leaf is stored as its int16 bits with
+``bfloat16`` in the manifest. `publish_checkpoint` / `fetch_checkpoint`
+move a committed step's files between instances as HiCR DataObjects (the
+distributed restore path).
 
 A committed step is a directory without the ``.tmp`` suffix that holds a
 manifest (`latest_step`). Leaf paths are JAX key paths joined by "/", e.g.
@@ -19,7 +28,8 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Optional, Tuple
+import shutil
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,13 +51,15 @@ def latest_step(root: str) -> Optional[int]:
 
 
 def _leaf(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    # (`np.ascontiguousarray` makes a 0-d leaf, a step count, 1-d: reshape back)
+    contiguous = np.ascontiguousarray(arr).reshape(arr.shape)
     if dtype == "bfloat16":
         if arr.dtype.itemsize != 2:
             raise ValueError(f"a bfloat16 leaf loaded as {arr.dtype}")
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(contiguous.view(np.int16)).view(torch.bfloat16)
     if arr.dtype.kind == "V":
         raise ValueError(f"leaf of dtype {dtype} loaded as {arr.dtype}: not readable")
-    return torch.from_numpy(np.ascontiguousarray(arr))
+    return torch.from_numpy(contiguous)
 
 
 def _keys(path: str) -> list:
@@ -99,3 +111,105 @@ def restore(root: str, *, step: Optional[int] = None) -> Tuple[Any, dict]:
             node = node.setdefault(k, {})
         node[last] = t
     return _lists(tree), manifest["extra"]
+
+
+def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(key path, leaf) pairs in the reference's key-path syntax: a dict
+    entry ``['key']``, a list index ``[0]``, joined by "/". None is an empty
+    subtree, as in JAX."""
+    if isinstance(tree, dict):
+        items = [(f"['{k}']", v) for k, v in tree.items()]
+    elif isinstance(tree, (list, tuple)):
+        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
+    elif tree is None:
+        return []
+    else:
+        return [(prefix, tree)]
+    out = []
+    for key, v in items:
+        out += _flatten_with_paths(v, f"{prefix}/{key}" if prefix else key)
+    return out
+
+
+def _array(leaf) -> Tuple[np.ndarray, str]:
+    """(numpy array to store, manifest dtype) of a leaf."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def save(root: str, step: int, tree: Any, *, extra: Optional[dict] = None,
+         shard_bytes: int = 256 << 20) -> str:
+    """Atomically save a tree of tensors (dicts, lists, tensors or numpy
+    leaves) as step `step` under `root`. Returns the committed path."""
+    name = f"step_{step:08d}"
+    tmp = os.path.join(root, name + ".tmp")
+    final = os.path.join(root, name)
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp, exist_ok=True)
+
+    flat = _flatten_with_paths(tree)
+    arrays, dtypes = zip(*(_array(leaf) for _, leaf in flat)) if flat else ((), ())
+    shards, current, current_bytes = [], [], 0
+    for i, arr in enumerate(arrays):
+        current.append(i)
+        current_bytes += arr.nbytes
+        if current_bytes >= shard_bytes:
+            shards.append(current)
+            current, current_bytes = [], 0
+    if current:
+        shards.append(current)
+
+    shard_index = {}
+    for si, idxs in enumerate(shards):
+        fname = f"shard_{si:05d}.npz"
+        np.savez(os.path.join(tmp, fname), **{str(i): arrays[i] for i in idxs})
+        for i in idxs:
+            shard_index[str(i)] = fname
+
+    manifest = {
+        "step": step,
+        "paths": [path for path, _ in flat],
+        "dtypes": list(dtypes),
+        "shapes": [list(a.shape) for a in arrays],
+        "shard_index": shard_index,
+        "extra": extra or {},
+    }
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)  # commit point
+    return final
+
+
+def publish_checkpoint(engine, mem, path: str):
+    """Publish each file of a committed checkpoint as an HiCR DataObject
+    through `engine` (`frontends/dataobject.py::DataObjectEngine`), staged in
+    slots of `mem`'s first memory space. Returns {fname: (DataObjectId,
+    size)}."""
+    ids = {}
+    space = mem.memory_spaces()[0]
+    for fname in sorted(os.listdir(path)):
+        with open(os.path.join(path, fname), "rb") as f:
+            blob = f.read()
+        slot = mem.allocate_local_memory_slot(space, max(len(blob), 1))
+        slot.handle[: len(blob)] = bytearray(blob)
+        ids[fname] = (engine.publish(slot), len(blob))
+    return ids
+
+
+def fetch_checkpoint(engine, ids: dict, dst_dir: str) -> str:
+    """Restore side: fetch published files into `dst_dir`."""
+    os.makedirs(dst_dir, exist_ok=True)
+    for fname, (ident, size) in ids.items():
+        slot = engine.fetch(ident)
+        with open(os.path.join(dst_dir, fname), "wb") as f:
+            f.write(bytes(slot.handle[:size]))
+    return dst_dir
