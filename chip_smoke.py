@@ -70,8 +70,13 @@ nothing of JAX or of the JAX package. Phases:
    S=1024, 4 query heads over 1 at hd 256, bf16, a global and a local
    layer), a group of 4 at hd 128, hd 112 and 160, a prefix-LM mask, fp32
    at hd 16 and rows with no key (max |d| / max |plain| within 2e-2 bf16,
-   1e-4 fp32; the forward's log-sum-exp within 1e-3), timed warm and cold
-   at the training shape beside its plain version and SDPA's backward;
+   1e-4 fp32; the forward's log-sum-exp within 1e-3), each case on the
+   variant `backward_variant` names (wgmma: bf16 at hd 64 / 128 / 256 with
+   query heads per KV head dividing 64; simt: the rest), with whisper-small's
+   encoder (1500 frames) and cross-attention (64 against 1500 keys) and
+   bf16 rows with no key among them; at the training shape the wgmma
+   variant timed warm (twice) and cold beside the simt variant on the same
+   operands, its plain version and SDPA's backward, all in one call;
 4. reduced: REDUCED gemma3-1b in fp32 (TF32 off): prefill plus 16
    teacher-forced paged decode ticks on the card against the same functions
    on the CPU;
@@ -181,9 +186,10 @@ nothing of JAX or of the JAX package. Phases:
 30. train: full-width gemma3-1b (fp32 masters, bf16 compute, AdamW), B=4 x
    S=1024, 6 steps through `launch/train.py`: finite losses, every
    parameter's step-1 gradient finite and non-zero, the step-0 loss within
-   1e-2 relative of the plain attention's, 26 flash forward (wgmma) and 26
-   backward launches a step; ms a step, training tok/s, peak memory; then
-   one traced step (device time by kernel group, idle share);
+   1e-2 relative of the plain attention's, 26 flash forward and 26
+   backward launches a step, all on wgmma; ms a step, training tok/s, peak
+   memory; then one traced step (device time by kernel group, idle share,
+   the backward's share);
 31. train-resume: REDUCED gemma3-1b on the card through the launcher, 4
    steps against 2, a checkpoint and a resumed launch of 2 more (rtol 1e-6,
    atol 1e-7).
@@ -637,8 +643,10 @@ LSE_ATOL = 1e-3
 
 #: (label, shape) of the backward's checked cases: gemma3-1b's training shape
 #: (a global and a local layer), a GQA group of 4 at hd 128, the simt head
-#: dims 112 and 160, a prefix-LM mask, fp32 at REDUCED's hd 16, and rows with
-#: no key (a window past the last key, q_offset)
+#: dims 112 and 160, a prefix-LM mask (8 query heads over 1: wgmma), fp32 at
+#: REDUCED's hd 16, rows with no key (a window past the last key, q_offset)
+#: in fp32 and in bf16, and whisper-small's encoder (1500 frames: a ragged
+#: last key tile) and cross-attention (64 queries against 1500 keys)
 BWD_CASES = (
     ("gemma3-1b train, global", dict(B=4, Sq=1024, H=4, KV=1, hd=256, dtype="bfloat16")),
     ("gemma3-1b train, local", dict(B=4, Sq=1024, H=4, KV=1, hd=256, dtype="bfloat16",
@@ -650,6 +658,12 @@ BWD_CASES = (
     ("REDUCED fp32 hd 16", dict(B=4, Sq=45, H=4, KV=1, hd=16, dtype="float32", window=16)),
     ("fp32, empty rows", dict(B=1, Sq=40, Skv=50, H=4, KV=1, hd=32, dtype="float32",
                               q_offset=30, window=8)),
+    ("bf16, empty rows", dict(B=1, Sq=40, Skv=50, H=4, KV=1, hd=64, dtype="bfloat16",
+                              q_offset=30, window=8)),
+    ("whisper-small encoder", dict(B=2, Sq=1500, H=12, KV=12, hd=64, dtype="bfloat16",
+                                   causal=False)),
+    ("whisper-small cross-attention", dict(B=2, Sq=64, Skv=1500, H=12, KV=12, hd=64,
+                                           dtype="bfloat16", causal=False)),
 )
 
 
@@ -670,6 +684,26 @@ def _bwd_case(torch, gen, *, B, Sq, H, KV, hd, dtype, Skv=None, causal=True, win
     return q, k, v, out, lse, do, kw
 
 
+def _bwd_simt(torch, q, k, v, out, lse, do, **kw):
+    """The `simt` backward at operands the rule gives to `wgmma`: its C entry
+    point with the simt code, for the before-and-after timing only (no
+    launch is counted: no path runs it)."""
+    from repro_torch.kernels import build, flash_attention
+
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = flash_attention._backward_entry()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None,
+        B, Sq, Skv, H, KV, hd, flash_attention._DTYPE_CODES[q.dtype], 1.0 / hd**0.5,
+        int(kw["causal"]), kw["window"], kw["prefix_len"], kw["q_offset"],
+        flash_attention._VARIANT_CODES["simt"], 0, 0, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "flash_attention_backward (simt, timing)")
+    return dq, dk, dv
+
+
 def _bwd_bound_ms(q, k, lse, kw) -> tuple:
     """(bound ms, bound_by, bytes, FLOP) of one backward call: q, k, v, o,
     dO and lse read once, dq, dk, dv written once; five products over the
@@ -688,12 +722,13 @@ def _bwd_bound_ms(q, k, lse, kw) -> tuple:
 
 def check_flash_bwd(torch, gen) -> dict:
     """The backward kernel against `ref.attention_backward` at `BWD_CASES`
-    (and the forward's log-sum-exp against the plain one), then timed at
-    gemma3-1b's training shape: warm and cold device time, the plain
-    version's, and SDPA's backward (one library call computing the same
-    gradient: the flash backend at the global layer's causal mask, K/V shared
-    by the query heads through ``enable_gqa``; at the local layer's window,
-    SDPA with that boolean mask)."""
+    (and the forward's log-sum-exp against the plain one), each case on the
+    variant `backward_variant` names; then, at gemma3-1b's training shape,
+    the `wgmma` variant (warm, twice, and cold), the `simt` variant on the
+    same operands, the plain version and SDPA's backward (one library call
+    computing the same gradient: the flash backend at the global layer's
+    causal mask, K/V shared by the query heads through ``enable_gqa``; at the
+    local layer's window, SDPA with that boolean mask), all in this call."""
     from repro_torch.kernels import flash_attention, ref
 
     worst_abs, worst_rel, worst_tol = 0.0, 0.0, None
@@ -702,12 +737,21 @@ def check_flash_bwd(torch, gen) -> dict:
         _, lse_plain = ref.attention_with_lse(q, k, v, **kw)
         live = lse_plain > -1e29  # rows with a key
         lse_err = float((lse - lse_plain)[live].abs().max().item())
-        before = flash_attention.backward.launches
-        got = flash_attention.flash_attention_backward(q, k, v, out, lse, do, **kw)
+        kind = flash_attention.backward_variant(q, k, v)
+        tc = (case["dtype"] == "bfloat16" and case["hd"] in flash_attention.WGMMA_HEAD_DIMS
+              and flash_attention.WGMMA_ROWS % (case["H"] // case["KV"]) == 0)
+        require(kind == ("wgmma" if tc else "simt"), f"backward ({label}) takes {kind}")
+        plan = ""
+        if kind == "wgmma":
+            chunk, splits = flash_attention.backward_plan(q, k, **kw)
+            plan = f", chunk {chunk}, splits {splits}"
+        results = []
+        ran = launched_variant(flash_attention.backward, lambda: results.append(
+            flash_attention.flash_attention_backward(q, k, v, out, lse, do, **kw)))
+        require(ran == kind, f"flash_attention_backward ({label}) launched {ran}, not {kind}")
+        got = results[0]
         want = ref.attention_backward(q, k, v, out, lse, do, **kw)
         torch.cuda.synchronize()
-        require(flash_attention.backward.launches == before + 1,
-                f"flash_attention_backward ({label}) did not count one launch")
         rel = {}
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             diff = float((a.float() - b.float()).abs().max().item())
@@ -717,27 +761,29 @@ def check_flash_bwd(torch, gen) -> dict:
         tol = BWD_REL_TOL[case["dtype"]]
         ok = max(rel.values()) <= tol and lse_err <= LSE_ATOL
         desc = ", ".join(f"{n}={x}" for n, x in case.items() if n != "dtype")
-        log(f"[kernels] flash_attention_bwd {case['dtype']} {label} ({desc}): max |d| / max |plain| "
-            + ", ".join(f"{n} {x:.3e}" for n, x in rel.items())
+        log(f"[kernels] flash_attention_bwd {case['dtype']} {label} ({desc}; {kind}{plan}): max "
+            f"|d| / max |plain| " + ", ".join(f"{n} {x:.3e}" for n, x in rel.items())
             + f" (tol {tol}); forward lse max err {lse_err:.3e} (tol {LSE_ATOL}) "
             + ("ok" if ok else "FAIL"))
         require(ok, f"flash_attention_bwd disagrees with its plain version ({label})")
         if max(rel.values()) > worst_rel:
             worst_rel, worst_tol = max(rel.values()), tol
-        del q, k, v, out, lse, do, got, want
+        del q, k, v, out, lse, do, got, want, results
 
     # timing at gemma3-1b's training shape: B=4, S=1024, 4 over 1, hd 256, bf16
-    shape = BWD_CASES[0][1]
     timings = {}
     for label, case in BWD_CASES[:2]:
         q, k, v, out, lse, do, kw = _bwd_case(torch, gen, **case)
+        require(flash_attention.backward_variant(q, k, v) == "wgmma",
+                f"the timed backward ({label}) does not take wgmma")
         call = lambda: flash_attention.flash_attention_backward(  # noqa: E731
             q, k, v, out, lse, do, **kw)
+        simt = lambda: _bwd_simt(torch, q, k, v, out, lse, do, **kw)  # noqa: E731
+        simt_dq = simt()[0]
+        want_dq = ref.attention_backward(q, k, v, out, lse, do, **kw)[0]
         bound, bound_by, n_bytes, flops = _bwd_bound_ms(q, k, lse, kw)
         t = dict(ms=time_ms(torch, call, iters=10), device_ms=device_ms(torch, call, iters=10))
-        t["cold_device_ms"] = cold_device_ms(
-            torch, lambda *xs: flash_attention.flash_attention_backward(*xs, **kw),
-            (q, k, v, out, lse, do), sum(x.nbytes for x in (q, k, v, out, lse, do)))
+        t["simt_device_ms"] = device_ms(torch, simt, iters=5)
         t["plain_ms"] = time_ms(torch, lambda: ref.attention_backward(
             q, k, v, out, lse, do, **kw), iters=3, warmup=1)
         t["plain_device_ms"] = device_ms(torch, lambda: ref.attention_backward(
@@ -760,22 +806,35 @@ def check_flash_bwd(torch, gen) -> dict:
         t["library_ms"] = time_ms(torch, lib_call, iters=10)
         t["library_device_ms"] = device_ms(torch, lib_call, iters=10)
         lib_dq = lib_call()[0].transpose(1, 2)
-        want_dq = ref.attention_backward(q, k, v, out, lse, do, **kw)[0]
         t["library_dq_err"] = float((lib_dq.float() - want_dq.float()).abs().max().item())
+        t["simt_dq_err"] = float((simt_dq.float() - want_dq.float()).abs().max().item())
+        simt_rel = t["simt_dq_err"] / max(float(want_dq.float().abs().max().item()), 1e-30)
+        require(simt_rel <= BWD_REL_TOL["bfloat16"],
+                f"the simt backward's dq at {label} is off its plain version by {simt_rel:.3e}")
+        # the wgmma variant again, after the others (kernel, simt, plain, library, kernel)
+        t["device_ms_again"] = device_ms(torch, call, iters=10)
+        t["cold_device_ms"] = cold_device_ms(
+            torch, lambda *xs: flash_attention.flash_attention_backward(*xs, **kw),
+            (q, k, v, out, lse, do), sum(x.nbytes for x in (q, k, v, out, lse, do)))
         t.update(bound_ms=bound, bound_by=bound_by, bytes=n_bytes, flops=flops,
-                 tflops=flops / (t["device_ms"] * 1e-3) / 1e12)
+                 tflops=flops / (t["device_ms"] * 1e-3) / 1e12,
+                 plan=flash_attention.backward_plan(q, k, **kw))
         log(f"[kernels] flash_attention_bwd timing {label} (B=4 S=1024 H=4 KV=1 hd=256 bf16"
-            f"{', window 512' if kw['window'] else ', causal'}): kernel {t['ms']:.4f} ms, "
-            f"device {t['device_ms']:.4f} ms ({t['cold_device_ms']:.4f} ms with the inputs cold "
-            f"in L2); plain {t['plain_ms']:.4f} ms, device {t['plain_device_ms']:.4f}; SDPA "
-            f"backward {t['library_ms']:.4f} ms, device {t['library_device_ms']:.4f} (its dq "
-            f"max err vs plain {t['library_dq_err']:.3e}); bound {bound * 1e3:.2f} us "
-            f"({bound_by}: {n_bytes} B, {flops} FLOP); {t['tflops']:.2f} TFLOP/s on the "
-            f"device time")
+            f"{', window 512' if kw['window'] else ', causal'}): wgmma {t['ms']:.4f} ms, "
+            f"device {t['device_ms']:.4f} / {t['device_ms_again']:.4f} ms ({t['cold_device_ms']:.4f}"
+            f" ms with the inputs cold in L2; chunk, splits {t['plan']}); simt device "
+            f"{t['simt_device_ms']:.4f} ms (its dq max err vs plain {t['simt_dq_err']:.3e}); plain "
+            f"{t['plain_ms']:.4f} ms, device {t['plain_device_ms']:.4f}; SDPA backward "
+            f"{t['library_ms']:.4f} ms, device {t['library_device_ms']:.4f} (its dq max err vs "
+            f"plain {t['library_dq_err']:.3e}); bound {bound * 1e3:.2f} us ({bound_by}: "
+            f"{n_bytes} B, {flops} FLOP); {t['tflops']:.2f} TFLOP/s on the wgmma device time")
         timings[label] = t
         del q, k, v, out, lse, do, qt, kt, vt, lib_out
     g = timings[BWD_CASES[0][0]]
     local = timings[BWD_CASES[1][0]]
+    keys = ("ms", "device_ms", "device_ms_again", "cold_device_ms", "simt_device_ms", "plain_ms",
+            "plain_device_ms", "library_ms", "library_device_ms", "bound_ms", "bound_by",
+            "tflops")
     return {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -789,7 +848,9 @@ def check_flash_bwd(torch, gen) -> dict:
         "ms": g["ms"],
         "plain_ms": g["plain_ms"],
         "device_ms": g["device_ms"],
+        "device_ms_again": g["device_ms_again"],
         "cold_device_ms": g["cold_device_ms"],
+        "simt_device_ms": g["simt_device_ms"],
         "plain_device_ms": g["plain_device_ms"],
         "bound_ms": g["bound_ms"],
         "bound_us": g["bound_ms"] * 1e3,
@@ -797,13 +858,11 @@ def check_flash_bwd(torch, gen) -> dict:
         "library_ms": g["library_ms"],
         "library_device_ms": g["library_device_ms"],
         "tflops": g["tflops"],
-        "variant": "simt",
+        "variant": "wgmma",
         "timed_shape": "B=4 Sq=Skv=1024 H=4 KV=1 hd=256 bf16 causal window=0 (gemma3-1b "
                        "training, a global layer)",
-        "other_timings": [dict(shape="the same, window=512 (a local layer)", **{
-            n: local[n] for n in ("ms", "device_ms", "cold_device_ms", "plain_ms",
-                                  "plain_device_ms", "library_ms", "library_device_ms",
-                                  "bound_ms", "bound_by", "tflops")})],
+        "other_timings": [dict(shape="the same, window=512 (a local layer)",
+                               **{n: local[n] for n in keys})],
     }
 
 
@@ -4067,9 +4126,10 @@ def phase_train(torch) -> dict:
     gradient finite and non-zero after step 1 (wq, wk, wv of every layer
     included: their gradient comes only through the flash backward kernel),
     the step-0 loss within 1e-2 relative of the same weights' loss through
-    the plain attention, and exactly 26 flash forward (wgmma) and 26
-    backward launches a step. Then one more step under the profiler, for
-    where its time goes. Returns the 6 steps' launch counts."""
+    the plain attention, and exactly 26 flash forward and 26 backward
+    launches a step, all on wgmma. Then one more step under the profiler, for
+    where its time goes and the backward's share of it. Returns the 6 steps'
+    launch counts and their counts by variant."""
     import math
 
     from repro_torch.configs import ShapeConfig, get_config
@@ -4137,7 +4197,8 @@ def phase_train(torch) -> dict:
         f"peak device memory above the baseline {peak / 2**30:.2f} GiB (params + AdamW state "
         f"{state_bytes / 2**30:.2f} GiB); step-0 loss {losses[0]:.6f} against {plain_loss:.6f} "
         f"through the plain attention (ln V = {math.log(cfg.vocab_size):.4f}); launches "
-        f"{counts}, flash by variant {variants['flash_attention']}")
+        f"{counts}, flash by variant {variants['flash_attention']}, its backward by variant "
+        f"{variants['flash_attention_bwd']}")
     require(all(math.isfinite(x) for x in losses), f"a loss is not finite: {losses}")
     require(first.get("n") == len(_paths(params)) and not first["bad"],
             f"parameters whose step-1 gradient is zero or not finite: {first.get('bad')}")
@@ -4147,6 +4208,7 @@ def phase_train(torch) -> dict:
             and sum(counts.values()) == 2 * L * steps,
             f"expected {L} flash forward and {L} backward launches a step: {counts}")
     require_variant(variants, "flash_attention", "wgmma", L * steps, "train")
+    require_variant(variants, "flash_attention_bwd", "wgmma", L * steps, "train")
 
     # one more step under the profiler: where a step's time goes
     ocfg = topt.OptimizerConfig(name="adamw", learning_rate=args.lr, warmup_steps=20,
@@ -4165,10 +4227,14 @@ def phase_train(torch) -> dict:
         f"{br['busy_s'] * 1e3:.2f} ms, idle share {br['idle_share']:.3f}; device ms by group "
         + ", ".join(f"{g} {t * 1e3:.2f}" for g, t in br["by_group_s"].items())
         + "; top kernels " + "; ".join(f"{n} {t * 1e3:.2f} ms" for n, t in br["top"]))
+    bwd_s = br["by_group_s"]["flash backward"]
+    log(f"[train] the flash backward's share of the traced step's device time: "
+        f"{bwd_s * 1e3:.2f} of {br['busy_s'] * 1e3:.2f} ms ({bwd_s / br['busy_s']:.4f}), "
+        f"{L} calls on wgmma")
     del params, opt_state, prof
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, variants
 
 
 def phase_train_resume(torch) -> None:
@@ -4269,7 +4335,7 @@ def main() -> int:
         whisper_counts = run_phase("generate-whisper", phase_generate_bundle, torch,
                                    "whisper-small")
         run_phase("reduced-train", phase_reduced_train, torch)
-        train_counts = run_phase("train", phase_train, torch)
+        train_counts, train_variants = run_phase("train", phase_train, torch)
         run_phase("train-resume", phase_train_resume, torch)
         log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
@@ -4291,6 +4357,8 @@ def main() -> int:
         k["launches_by_path"] = {path: c[k["name"]] for path, c in path_counts.items()
                                  if c[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
+        if k["name"] == "flash_attention_bwd":  # the train path is its only caller
+            k["launches_by_variant"] = train_variants["flash_attention_bwd"]
         log(f"[kernels] {k['name']}: {k['device_ms']:.4f} ms device, {k['tflops']:.3f} TFLOP/s "
             f"at {k['timed_shape']}; library device ms {k['library_device_ms']}; "
             f"{k['launches']} launches on the paths, by path {k['launches_by_path']}")

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: shared
-// memory addresses, mbarriers, TMA tile loads, wgmma matrix descriptors and
+// memory addresses, mbarriers, TMA tile loads and bulk copies, named
+// barriers between warpgroups, wgmma matrix descriptors and
 // synchronisation, register rebalancing, and the host-side encoding of a
 // TMA tensor map.
 //
@@ -93,6 +94,28 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(c4)
       : "memory");
+}
+
+// Bulk copy without a tensor map, global -> shared: `bytes` a multiple of
+// 16, both addresses 16-byte aligned, completing `bytes` on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Named barriers between warpgroups (ids 1..15; 0 is __syncthreads):
+// `count` threads in all, a multiple of 32. `named_arrive` does not wait;
+// writes to shared memory before it are visible to the threads that pass
+// the matching `named_sync`.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 // wgmma shared-memory matrix descriptor for a tile written by TMA with the

@@ -1,7 +1,7 @@
-"""Wrapper of the hand-written CUDA flash-attention kernel
-(`csrc/flash_attention.cu`).
+"""Wrappers of the hand-written CUDA flash-attention kernels: the forward
+(`csrc/flash_attention.cu`) and its gradient (`csrc/flash_attention_bwd.cu`).
 
-Replaces the reference's Pallas TPU kernel
+The forward replaces the reference's Pallas TPU kernel
 `repro/kernels/flash_attention.py::flash_attention`. The source holds two
 variants, and `variant` picks one by an explicit rule (nothing is caught and
 retried):
@@ -21,19 +21,36 @@ tiles a block's rows can attend to. See the source for the block layouts.
 With ``return_lse=True`` either variant also writes each query row's
 log-sum-exp (fp32, (B, H, Sq)), the backward's input.
 
-The gradient is `flash_attention_backward`, the hand-written kernel of
-`csrc/flash_attention_bwd.cu` (the reference's Pallas kernel has no VJP; it
-trains through its oracle, whose gradient this reproduces), wired into
-autograd by `FlashAttentionFn`. `kernels/ops.py::attention` takes that
-Function on CUDA whenever grad mode is on and an input requires grad; called
-directly under grad mode with such an input, `flash_attention` raises rather
-than return an output that autograd would silently cut off.
+The gradient, `flash_attention_backward`, stands for the gradient of that
+Pallas kernel, which has no VJP (the reference trains through its oracle,
+whose gradient this reproduces). `FlashAttentionFn` wires it into autograd;
+`kernels/ops.py::attention` takes that Function on CUDA whenever grad mode
+is on and an input requires grad; called directly under grad mode with such
+an input, `flash_attention` raises rather than return an output that
+autograd would silently cut off. `backward_variant` picks its variant by
+the forward's rule:
+
+* ``wgmma``: every product on the tensor cores (S and dP by `wgmma` from
+  TMA-fed shared memory, dV, dK and dQ with P or dS as the bf16 A operand in
+  registers); at gemma3-1b's training shape its bound is the tensor cores'
+  rate, and it runs at about 5x that bound (PERF.md, section 6). The dK/dV
+  walk of one key tile over its query tiles may be split
+  over several blocks (`backward_plan`, from the mask geometry and the
+  card's SM count) whose fp32 partials a second pass adds in a fixed order;
+  the wrapper allocates that scratch and the row stats' (`backward_scratch`).
+* ``simt``: scalar fp32 FMA, tiles of 32 (fp32, which must stay exact for
+  the REDUCED parity and the resume test; hd 16, 32, 112, 160; granite's 48
+  query heads over 1).
+
+Both are deterministic (no atomics) and both take rows with no key (the
+reference's uniform average, no gradient to q or k).
 
 The wrappers check device, dtype, shape and contiguity, allocate outputs
-with `torch.empty`, launch on the current stream without synchronising, and
-count their launches: the forward in `launches` and, by variant, in
-`variant_launches`; the backward (one count a call, for its three launches)
-in `backward.launches`.
+and scratch with `torch.empty`, launch on the current stream without
+synchronising, and count their launches: the forward in `launches` and, by
+variant, in `variant_launches`; the backward (one count a call, for its
+three or four launches) in `backward.launches` and, by variant, in
+`backward.variant_launches`.
 """
 from __future__ import annotations
 
@@ -58,8 +75,13 @@ WGMMA_ROWS = 64
 launches = 0
 #: The same launches by variant.
 variant_launches = {name: 0 for name in _VARIANT_CODES}
-#: Calls of `flash_attention_backward` (its one variant: scalar fp32 FMA).
-backward = build.LaunchCounter(("simt",))
+#: Calls of `flash_attention_backward`, and the same calls by variant.
+backward = build.LaunchCounter(tuple(_VARIANT_CODES))
+#: Keys of a dK/dV block's tile in the backward's wgmma variant.
+WGMMA_KEYS = 64
+#: A dK/dV block's fixed cost in query-tile visits: its K / V load, its
+#: partial's fp32 write and the second pass's read of it.
+SPLIT_OVERHEAD = 2
 
 
 @functools.cache
@@ -74,21 +96,106 @@ def _entry():
 @functools.cache
 def _backward_entry():
     fn = build.load().flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float] + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float] + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _tensor_core_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    hd, groups = q.shape[3], q.shape[2] // k.shape[2]
+    return (q.dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS and WGMMA_ROWS % groups == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 
 def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel variant `flash_attention` launches for these operands (see
     the module note); a rule on dtype, head_dim, group size and alignment
     only."""
-    hd, groups = q.shape[3], q.shape[2] // k.shape[2]
-    if (q.dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS and WGMMA_ROWS % groups == 0
-            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
-        return "wgmma"
-    return "simt"
+    return "wgmma" if _tensor_core_operands(q, k, v) else "simt"
+
+
+def backward_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The variant `flash_attention_backward` launches for these operands:
+    ``wgmma`` for bf16 at head_dim 64 / 128 / 256 with query heads per KV
+    head dividing 64 and q, k, v 16-byte aligned, ``simt`` otherwise (fp32
+    among them). A rule on dtype, head_dim, group size and alignment only:
+    both variants take every mask, rows with no key included."""
+    return "wgmma" if _tensor_core_operands(q, k, v) else "simt"
+
+
+def _query_tiles_seen(Sq: int, Skv: int, P: int, causal: bool, window: int, prefix_len: int,
+                      q_offset: int) -> list:
+    """For each key tile of `WGMMA_KEYS`, the query tiles [lo, hi) of P
+    positions whose rows can see one of its keys: the host's copy of the
+    kernel's `query_tiles` (which decides on the card), used to size the
+    split."""
+    has_empty_rows = window > 0 and q_offset + Sq - 1 >= Skv + window - 1
+    ranges = []
+    for k0 in range(0, Skv, WGMMA_KEYS):
+        khi = min(k0 + WGMMA_KEYS - 1, Skv - 1)
+        pos_lo = max(0, k0 - q_offset) if causal and not (0 < prefix_len and k0 < prefix_len) \
+            else 0
+        pos_hi = min(Sq, khi + window - q_offset) if window > 0 and not has_empty_rows else Sq
+        lo = pos_lo // P
+        ranges.append((lo, -(-pos_hi // P) if pos_hi > pos_lo else lo))
+    return ranges
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(B: int, Sq: int, Skv: int, KV: int, G: int, causal: bool, window: int,
+          prefix_len: int, q_offset: int, sms: int):
+    n_qt = -(-Sq // (WGMMA_ROWS // G))
+    walks = [hi - lo for lo, hi in _query_tiles_seen(Sq, Skv, WGMMA_ROWS // G, causal, window,
+                                                     prefix_len, q_offset)]
+    longest = max(walks)
+    if len(walks) * KV * B >= sms or longest <= 1:
+        return n_qt, 1
+    best_cost, chunk = None, longest
+    for c in range(1, longest + 1):  # ties go to the larger chunk: fewer partials
+        blocks = KV * B * sum(max(1, -(-n // c)) for n in walks)
+        cost = -(-blocks // sms) * (c + SPLIT_OVERHEAD)
+        if best_cost is None or cost <= best_cost:
+            best_cost, chunk = cost, c
+    if chunk >= longest:
+        return n_qt, 1
+    return chunk, -(-n_qt // chunk)
+
+
+def backward_plan(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True, window: int = 0,
+                  prefix_len: int = 0, q_offset: int = 0):
+    """(chunk, splits) of the wgmma backward's dK/dV launch: a block walks at
+    most `chunk` query tiles (64 packed rows each) of its key tile, and the
+    grid has `splits` blocks a key tile (those past a walk's end exit). A key
+    tile's walk is split only when the unsplit grid (key tiles x KV heads x
+    batch) fills less than one wave of q's card's SMs, with the chunk that
+    minimises waves x (chunk + `SPLIT_OVERHEAD`), the makespan in tile
+    visits at one block an SM (ties to the larger chunk); otherwise (n_qt,
+    1), no split."""
+    B, Sq, H, _ = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    return _plan(B, Sq, Skv, KV, H // KV, bool(causal), int(window or 0), int(prefix_len),
+                 int(q_offset), build.sm_count(q.device))
+
+
+def backward_scratch(q: torch.Tensor, k: torch.Tensor, chunk: int, splits: int):
+    """fp32 scratch of the wgmma backward, on q's device: (the row stats:
+    each query tile's 64 lse and 64 D, B * KV * n_qt * 128 floats; the
+    partial dK / dV of split walks, (splits, B * KV, key tiles * 64, 2, hd),
+    or None when no walk is split), as the C entry point requires."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    n_qt = -(-Sq // (WGMMA_ROWS // (H // KV)))
+    if chunk < 1 or splits < 1 or splits * chunk < n_qt:
+        raise ValueError(f"flash_attention_backward: chunk {chunk} x splits {splits} does not "
+                         f"cover {n_qt} query tiles")
+    stat = torch.empty(B * KV * n_qt * 2 * WGMMA_ROWS, dtype=torch.float32, device=q.device)
+    partial = None
+    if splits > 1:
+        n_keys = -(-Skv // WGMMA_KEYS) * WGMMA_KEYS
+        partial = torch.empty((splits, B * KV, n_keys, 2, hd), dtype=torch.float32,
+                              device=q.device)
+    return stat, partial
 
 
 def consumer_warpgroups(q: torch.Tensor, k: torch.Tensor) -> int:
@@ -195,17 +302,29 @@ def flash_attention_backward(
     if q_offset < 0:
         raise ValueError(f"flash_attention_backward: q_offset {q_offset} < 0")
     scale = scale if scale is not None else 1.0 / (hd**0.5)
+    kind = backward_variant(q, k, v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if kind == "wgmma":
+        for name, t in (("out", out), ("d_out", d_out)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention_backward: {name} must be 16-byte aligned "
+                                 "for the wgmma variant")
+        chunk, splits = backward_plan(q, k, causal=causal, window=window,
+                                      prefix_len=prefix_len, q_offset=q_offset)
+        delta, partial = backward_scratch(q, k, chunk, splits)
+    else:
+        chunk, splits, partial = 0, 0, None
+        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     err = _backward_entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        partial.data_ptr() if partial is not None else None,
         B, Sq, Skv, H, KV, hd, _DTYPE_CODES[q.dtype], float(scale),
         int(bool(causal)), int(window or 0), int(prefix_len), int(q_offset),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _VARIANT_CODES[kind], chunk, splits, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    build.check(err, "flash_attention_backward")
-    build.count_launch(backward, "simt")
+    build.check(err, f"flash_attention_backward ({kind})")
+    build.count_launch(backward, kind)
     return dq, dk, dv
 
 

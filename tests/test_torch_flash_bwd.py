@@ -8,9 +8,11 @@ through `ref.attention` and against `jax.grad` of the reference's oracle
 flash has no VJP), in fp32 within 1e-5, over causal, window, prefix-LM and
 q_offset masks (rows with no key included) and G in {1, 4}.
 `FlashAttentionFn` runs with the plain forward and backward, so the wiring
-is tested where no kernel runs. Tests marked ``gpu`` hold the backward
-kernel against the plain version on the card and check that the four
-wrappers without a backward raise under grad mode there.
+is tested where no kernel runs; so are the backward's variant rule, the
+split of its dK/dV walks and its scratch, which decide on the host. Tests
+marked ``gpu`` hold both backward variants against the plain version on the
+card and check that the four wrappers without a backward raise under grad
+mode there.
 """
 import threading
 
@@ -214,11 +216,162 @@ def test_backward_counts_add_up_across_threads():
         t.join(timeout=60)
     try:
         assert tops.launch_counts()["flash_attention_bwd"] == 2000
-        assert tops.variant_counts()["flash_attention_bwd"] == {"simt": 2000}
+        assert tops.variant_counts()["flash_attention_bwd"] == {"simt": 2000, "wgmma": 0}
         assert tops.launch_counts()["flash_attention"] == 0
     finally:
         tops.reset_launch_counts()
     assert tflash.backward.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the backward's variant rule, walk split and scratch (decided on the host)
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+
+
+def _unaligned(shape, dtype):
+    """A contiguous tensor of `shape` whose data starts 2 bytes past a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.empty(n + 8, dtype=dtype)[1:n + 1].view(shape)
+
+
+@pytest.mark.parametrize("dtype,H,KV,hd,layout,want", [
+    # each config's attention at its training width (bf16 compute) ...
+    ("bfloat16", 4, 1, 256, "aligned", "wgmma"),     # gemma3-1b
+    ("bfloat16", 8, 1, 256, "aligned", "wgmma"),     # paligemma-3b
+    ("bfloat16", 12, 12, 64, "aligned", "wgmma"),    # whisper-small
+    ("bfloat16", 32, 8, 128, "aligned", "wgmma"),    # minitron-8b
+    ("bfloat16", 48, 1, 128, "aligned", "simt"),     # granite-20b: 48 heads a group
+    ("bfloat16", 48, 8, 128, "aligned", "simt"),     # grok-1-314b: 6 heads a group
+    ("bfloat16", 32, 8, 160, "aligned", "simt"),     # stablelm-12b: hd 160
+    ("bfloat16", 64, 8, 112, "aligned", "simt"),     # kimi-k2: hd 112
+    ("bfloat16", 32, 32, 112, "aligned", "simt"),    # zamba2-7b: hd 112
+    # ... REDUCED (fp32, hd 16), fp32 at a tensor-core shape, and alignment
+    ("float32", 4, 1, 16, "aligned", "simt"),
+    ("float32", 4, 1, 256, "aligned", "simt"),
+    ("bfloat16", 64, 1, 64, "aligned", "wgmma"),     # 64 heads: one position a tile
+    ("bfloat16", 4, 1, 256, "unaligned-q", "simt"),
+    ("bfloat16", 4, 1, 256, "unaligned-k", "simt"),
+])
+def test_backward_variant_rule(dtype, H, KV, hd, layout, want):
+    dt = getattr(torch, dtype)
+    q = _unaligned((1, 9, H, hd), dt) if layout == "unaligned-q" else torch.empty(
+        (1, 9, H, hd), dtype=dt)
+    k = _unaligned((1, 9, KV, hd), dt) if layout == "unaligned-k" else torch.empty(
+        (1, 9, KV, hd), dtype=dt)
+    v = torch.empty((1, 9, KV, hd), dtype=dt)
+    assert tflash.backward_variant(q, k, v) == want
+    assert tflash.backward_variant(q, k, v) == tflash.variant(q, k, v)  # the forward's rule
+
+
+def test_backward_counter_counts_by_variant():
+    tops.reset_launch_counts()
+    try:
+        assert set(tflash.backward.variant_launches) == {"simt", "wgmma"}
+        tbuild.count_launch(tflash.backward, "wgmma")
+        tbuild.count_launch(tflash.backward, "wgmma")
+        tbuild.count_launch(tflash.backward, "simt")
+        assert tops.launch_counts()["flash_attention_bwd"] == 3
+        assert tops.variant_counts()["flash_attention_bwd"] == {"simt": 1, "wgmma": 2}
+    finally:
+        tops.reset_launch_counts()
+    assert tops.variant_counts()["flash_attention_bwd"] == {"simt": 0, "wgmma": 0}
+
+
+MASKS = [
+    pytest.param(dict(causal=True), id="causal"),
+    pytest.param(dict(causal=True, window=512), id="window"),
+    pytest.param(dict(causal=True, window=100), id="window-100"),
+    pytest.param(dict(causal=True, prefix_len=256), id="prefix"),
+    pytest.param(dict(causal=False), id="bidirectional"),
+    pytest.param(dict(causal=False, window=70), id="bidirectional-window"),
+    pytest.param(dict(causal=True, q_offset=30, window=8), id="q-offset-empty-rows"),
+    pytest.param(dict(causal=True, q_offset=200), id="q-offset"),
+]
+
+
+@pytest.mark.parametrize("kw", MASKS)
+@pytest.mark.parametrize("Sq,Skv,G", [(1024, 1024, 4), (288, 288, 8), (40, 50, 4),
+                                      (64, 1500, 1), (300, 300, 64)])
+def test_backward_walks_cover_the_mask(kw, Sq, Skv, G):
+    """Every query tile with a row that may attend a key of a key tile, or
+    with a row that attends no key at all (it spreads over every key), lies
+    in that key tile's walk: the host's copy of the kernel's rule, checked
+    against the plain version's mask."""
+    P = 64 // G
+    full = dict(causal=True, window=0, prefix_len=0, q_offset=0)
+    full.update(kw)
+    mask = tref._build_mask(Sq, Skv, **full)
+    empty = ~mask.any(dim=1)
+    walks = tflash._query_tiles_seen(Sq, Skv, P, full["causal"], full["window"],
+                                     full["prefix_len"], full["q_offset"])
+    assert len(walks) == -(-Skv // 64)
+    for j, (lo, hi) in enumerate(walks):
+        seen = mask[:, 64 * j:64 * (j + 1)].any(dim=1) | empty
+        tiles = {int(p) // P for p in torch.nonzero(seen).flatten()}
+        assert all(lo <= t < hi for t in tiles), (j, lo, hi, sorted(tiles))
+        assert 0 <= lo <= hi and (lo == hi or hi <= -(-Sq // P))  # an empty walk loads nothing
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,kw,sms,want", [
+    # gemma3-1b training: 16 key tiles x 4 batches = 64 blocks unsplit
+    (4, 1024, 1024, 4, 1, {}, H100_SMS, (22, 3)),
+    (4, 1024, 1024, 4, 1, {"window": 512}, H100_SMS, (18, 4)),
+    # whisper-small's encoder and cross-attention: a wave or more unsplit
+    (8, 1500, 1500, 12, 12, {"causal": False}, H100_SMS, (24, 1)),
+    (8, 64, 1500, 12, 12, {"causal": False}, H100_SMS, (1, 1)),
+    # paligemma-3b's prefix-LM at B=2: 10 blocks unsplit
+    (2, 288, 288, 8, 1, {"prefix_len": 256}, H100_SMS, (3, 12)),
+    # a card of 1000 SMs splits more; one of 64 does not split gemma3's 64 blocks
+    (4, 1024, 1024, 4, 1, {}, 1000, (3, 22)),
+    (4, 1024, 1024, 4, 1, {}, 64, (64, 1)),
+])
+def test_backward_plan_rule(monkeypatch, B, Sq, Skv, H, KV, kw, sms, want):
+    monkeypatch.setattr(tbuild, "sm_count", lambda device: sms)
+    q = torch.empty((B, Sq, H, 256), dtype=torch.bfloat16)
+    k = torch.empty((B, Skv, KV, 256), dtype=torch.bfloat16)
+    chunk, splits = tflash.backward_plan(q, k, **kw)
+    assert (chunk, splits) == want
+    n_qt = -(-Sq // (64 // (H // KV)))
+    assert chunk * splits >= n_qt  # the grid covers every walk the card may compute
+    walks = tflash._query_tiles_seen(Sq, Skv, 64 // (H // KV), kw.get("causal", True),
+                                     kw.get("window", 0), kw.get("prefix_len", 0), 0)
+    if splits > 1:  # some walk is split, and its blocks fit the card
+        assert max(hi - lo for lo, hi in walks) > chunk
+        blocks = B * KV * sum(max(1, -(-(hi - lo) // chunk)) for lo, hi in walks)
+        assert blocks <= 2 * sms
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,chunk,splits", [
+    (4, 1024, 1024, 4, 1, 256, 22, 3),
+    (2, 288, 288, 8, 1, 256, 3, 12),
+    (1, 40, 50, 4, 1, 64, 1, 3),
+    (2, 1500, 1500, 12, 12, 64, 24, 1),
+])
+def test_backward_scratch_matches_the_entry_points_contract(B, Sq, Skv, H, KV, hd, chunk,
+                                                            splits):
+    q = torch.empty((B, Sq, H, hd), dtype=torch.bfloat16)
+    k = torch.empty((B, Skv, KV, hd), dtype=torch.bfloat16)
+    stat, partial = tflash.backward_scratch(q, k, chunk, splits)
+    n_qt = -(-Sq // (64 // (H // KV)))
+    assert stat.dtype == torch.float32 and stat.numel() == B * KV * n_qt * 128
+    assert stat.data_ptr() % 16 == 0 and stat.device == q.device
+    if splits == 1:
+        assert partial is None
+    else:
+        assert partial.shape == (splits, B * KV, -(-Skv // 64) * 64, 2, hd)
+        assert partial.dtype == torch.float32 and partial.data_ptr() % 16 == 0
+
+
+def test_backward_scratch_refuses_a_split_that_misses_tiles():
+    q = torch.empty((4, 1024, 4, 256), dtype=torch.bfloat16)
+    k = torch.empty((4, 1024, 1, 256), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="does not cover 64 query tiles"):
+        tflash.backward_scratch(q, k, 21, 3)
+    with pytest.raises(ValueError, match="does not cover"):
+        tflash.backward_scratch(q, k, 0, 64)
 
 
 # ---------------------------------------------------------------------------
@@ -241,22 +394,52 @@ def cuda():
     (torch.bfloat16, 1, 100, 4, 4, 112, {}),
     (torch.float32, 2, 45, 4, 1, 16, {"window": 16}),
     (torch.float32, 1, 40, 4, 1, 32, {"q_offset": 30, "window": 8}),
+    # whisper-small's encoder (1500 frames: a ragged last key tile) and its
+    # cross-attention (64 queries against 1500 keys, no mask)
+    (torch.bfloat16, 2, 1500, 12, 12, 64, {"causal": False}),
+    (torch.bfloat16, 2, 64, 12, 12, 64, {"causal": False, "skv": 1500}),
+    # bf16 rows with no key (a window past the last key)
+    (torch.bfloat16, 1, 40, 4, 1, 64, {"q_offset": 30, "window": 8, "skv": 50}),
+    # gemma3-1b's training shape, one batch row
+    (torch.bfloat16, 1, 1024, 4, 1, 256, {"window": 512}),
 ])
 def test_backward_kernel_matches_plain_on_card(cuda, dtype, B, S, H, KV, hd, kw):
+    kw = dict(kw)
+    Skv = kw.pop("skv", S + kw.get("q_offset", 0) // 3)
     gen = torch.Generator(device=cuda).manual_seed(S + hd)
-    Skv = S + kw.get("q_offset", 0) // 3
     q = torch.randn((B, S, H, hd), generator=gen, device=cuda).to(dtype)
     k = torch.randn((B, Skv, KV, hd), generator=gen, device=cuda).to(dtype)
     v = torch.randn((B, Skv, KV, hd), generator=gen, device=cuda).to(dtype)
     do = torch.randn((B, S, H, hd), generator=gen, device=cuda).to(dtype)
     out, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
+    kind = tflash.backward_variant(q, k, v)
+    before = tflash.backward.variant_launches[kind]
     got = tflash.flash_attention_backward(q, k, v, out, lse, do, **kw)
     want = tref.attention_backward(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
+    assert tflash.backward.variant_launches[kind] == before + 1
+    assert kind == ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 256) else "simt")
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     for name, a, b in zip("qkv", got, want):
+        assert bool(torch.isfinite(a).all()), f"d{name} not finite"
         err = float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
         assert err <= tol, f"d{name}: {err}"
+
+
+@pytest.mark.gpu
+def test_backward_wgmma_gives_the_same_bits_every_run_on_card(cuda):
+    """No atomics: the split walks' partials are added in a fixed order."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, do = (torch.randn((2, 512, 4, 256), generator=gen, device=cuda).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((2, 512, 1, 256), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = tflash.flash_attention_with_lse(q, k, v)
+    assert tflash.backward_plan(q, k)[1] > 1  # the split path
+    first = tflash.flash_attention_backward(q, k, v, out, lse, do)
+    second = tflash.flash_attention_backward(q, k, v, out, lse, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

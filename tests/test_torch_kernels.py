@@ -726,7 +726,7 @@ def test_variant_counts_start_at_zero_and_reset():
     tops.reset_launch_counts()
     assert tops.variant_counts() == {
         "flash_attention": {"simt": 0, "wgmma": 0},
-        "flash_attention_bwd": {"simt": 0},
+        "flash_attention_bwd": {"simt": 0, "wgmma": 0},
         "paged_decode_attention": {"simt": 0, "mma": 0},
         "decode_attention": {"simt": 0, "mma": 0},
         "fused_linear": {"simt": 0, "simt_tiled": 0, "wgmma": 0},
