@@ -13,9 +13,10 @@ family (granite-20b, minitron-8b, stablelm-12b) at full width through the
 paged scheduler, full-width gemma3-1b through the router/worker serving
 fleet, the MoE family (grok-1-314b, kimi-k2-1t-a32b) at its published widths
 with the depth cut through the paged and dense schedulers, and full-width
-paligemma-3b and whisper-small through their model bundles, and full-width
-gemma3-1b trained through the launcher -- and fails (non-zero exit) if any
-phase fails. It imports
+paligemma-3b and whisper-small through their model bundles, full-width
+gemma3-1b and xlstm-125m trained through the launcher, and zamba2-7b (depth
+cut), paligemma-3b and whisper-small trained through the train step -- and
+fails (non-zero exit) if any phase fails. It imports
 nothing of JAX or of the JAX package. Phases:
 
 1. device: the card from `nvidia-smi` (name, power limit);
@@ -76,7 +77,15 @@ nothing of JAX or of the JAX package. Phases:
    encoder (1500 frames) and cross-attention (64 against 1500 keys) and
    bf16 rows with no key among them; at the training shape the wgmma
    variant timed warm (twice) and cold beside the simt variant on the same
-   operands, its plain version and SDPA's backward, all in one call;
+   operands, its plain version and SDPA's backward, all in one call; the
+   scan's backward kernel (`gated_linear_scan_bwd`) against
+   `ref.gated_linear_scan_backward` (max |d| / max |plain| of dq, dk, dv,
+   dlog_a and the initial states' gradients within 2e-2 bf16, 1e-4 fp32) at
+   xlstm-125m's training shape (B=4, H=4, S=2048, dk=dv=384, bf16, the
+   normaliser), Mamba2's at zamba2-7b's widths (B=2, H=32, S=1024, dk 64, dv
+   224, q broadcast over the heads), carried states with final-state
+   gradients at S = 777 and 45, and fp32 (REDUCED and xlstm's widths), and
+   at the two training shapes timed warm and cold beside its plain version;
 4. reduced: REDUCED gemma3-1b in fp32 (TF32 off): prefill plus 16
    teacher-forced paged decode ticks on the card against the same functions
    on the CPU;
@@ -182,17 +191,35 @@ nothing of JAX or of the JAX package. Phases:
 29. reduced-train: one AdamW step of REDUCED gemma3-1b in fp32 on the card
    against the CPU (metrics within rtol 1e-5, gradients rtol 1e-4 / atol
    1e-6, updated parameters rtol 1e-4 / atol 1e-5), every attention's
-   forward and backward on the kernels;
+   forward and backward on the kernels (the forward twice: `remat_policy`
+   "minimal" recomputes it in the backward);
 30. train: full-width gemma3-1b (fp32 masters, bf16 compute, AdamW), B=4 x
    S=1024, 6 steps through `launch/train.py`: finite losses, every
    parameter's step-1 gradient finite and non-zero, the step-0 loss within
-   1e-2 relative of the plain attention's, 26 flash forward and 26
-   backward launches a step, all on wgmma; ms a step, training tok/s, peak
-   memory; then one traced step (device time by kernel group, idle share,
-   the backward's share);
+   1e-2 relative of the plain attention's, 52 flash forward (26 and their
+   recompute) and 26 backward launches a step, all on wgmma; ms a step,
+   training tok/s, peak memory; then one traced step (device time by kernel
+   group, idle share, the backward's share);
 31. train-resume: REDUCED gemma3-1b on the card through the launcher, 4
    steps against 2, a checkpoint and a resumed launch of 2 more (rtol 1e-6,
-   atol 1e-7).
+   atol 1e-7);
+32. reduced-train-families: one AdamW step of every family REDUCED in fp32
+   on the card against the CPU (29's tolerances; xlstm's and zamba2's
+   gradients max |d| / max |cpu| <= 1e-4 per leaf), every attention and
+   scan forward and backward on the kernels;
+33. train-xlstm: full-width xlstm-125m, B=4 x S=2048, 6 steps through the
+   launcher: 29's and 30's checks (the step-0 loss against the plain scan's),
+   9 scan forward (`mma`) and 9 backward launches a step; ms a step,
+   training tok/s, peak memory, the sLSTM blocks' share of a step, one step
+   traced on the device (idle share, top kernels, the scan backward's share);
+34. train-zamba2: zamba2-7b at its published widths, depth cut to 13 layers
+   (two groups of 6 and a tail layer), B=2 x S=1024, 4 steps: the same
+   checks, flash `simt` forward and backward at hd 112 once per group (the
+   forward twice under "minimal"), the scan per layer; parameters and bytes,
+   flash's share of a traced step;
+35. train-bundles: full-width paligemma-3b (256 patch embeddings + 256
+   tokens) and whisper-small (1500 frames x 0.02 + 448 tokens), B=2, 3 steps
+   on `make_batch` batches: the same checks, every flash launch on wgmma.
 
 Each path's launch counts are zeroed just before it runs and read just
 after. The line before the last is one JSON object with every kernel's
@@ -1736,11 +1763,176 @@ def scan_ptxas() -> str:
     return "; ".join(out) + f"; scan_mma_kernel dynamic smem at dk = 384: {dyn}"
 
 
+SCAN_BWD_CASES = (
+    # xlstm-125m's training shape: the mLSTM's call (y and normaliser; the
+    # final states reach no loss), operands as `mlstm_forward` makes them
+    dict(tag="xlstm-train", B=4, H=4, S=2048, dk=384, dv=384, dtype="bfloat16", norm=True),
+    # zamba2-7b's Mamba2 at its published widths: q = C broadcast over 32 heads
+    dict(tag="mamba2-train", B=2, H=32, S=1024, dk=64, dv=224, dtype="bfloat16", mamba=True),
+    # a carried state with a final-state gradient, S not a multiple of 64
+    dict(tag="xlstm-777-state", B=1, H=4, S=777, dk=384, dv=384, dtype="bfloat16", norm=True,
+         init=True, d_state=True),
+    dict(tag="mamba2-45-state", B=2, H=32, S=45, dk=64, dv=224, dtype="bfloat16", mamba=True,
+         init=True, d_state=True),
+    # fp32: REDUCED xlstm (ragged), REDUCED Mamba2, xlstm's widths
+    dict(tag="fp32-reduced", B=2, H=4, S=45, dk=32, dv=32, dtype="float32", norm=True,
+         init=True, d_state=True),
+    dict(tag="fp32-reduced-mamba2", B=2, H=4, S=64, dk=16, dv=32, dtype="float32",
+         mamba=True),
+    dict(tag="fp32-512-state", B=2, H=4, S=512, dk=384, dv=384, dtype="float32", norm=True,
+         init=True, d_state=True),
+)
+
+
+def _scan_bwd_case(torch, gen, *, B, H, S, dk, dv, dtype, norm=False, mamba=False,
+                   init=False, d_state=False, **_):
+    """(q, k, v, log_a, dy, d_state, keyword arguments of the backward):
+    the forward operands as `_scan_case` lays them out and the gradients of
+    y (and nrm) in their dtype, of the final states in fp32."""
+    dt = getattr(torch, dtype)
+    q, k, v, log_a, kw = _scan_case(torch, gen, B=B, H=H, S=S, dk=dk, dv=dv, dtype=dt,
+                                    init=init, norm=norm, mamba=mamba, shared_qk=mamba)
+    kw.pop("normaliser", None)
+    dy = torch.randn((B, H, S, dv), generator=gen, device="cuda").to(dt)
+    ds = torch.randn((B, H, dk, dv), generator=gen, device="cuda") if d_state else None
+    if norm:
+        kw.update(normaliser=True, dnrm=torch.randn((B, H, S, 1), generator=gen,
+                                                   device="cuda").to(dt))
+        if d_state:
+            kw["dn"] = torch.randn((B, H, dk, 1), generator=gen, device="cuda")
+    return q, k, v, log_a, dy, ds, kw
+
+
+def _distinct_bytes(t) -> int:
+    """Bytes of the distinct elements of a view (a stride-0 axis counts once)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n * t.element_size()
+
+
+def _scan_bwd_bound_ms(q, k, v, log_a, dy, ds, kw, dtype_name) -> tuple:
+    """The least time of the gradient's work. Bytes: q, k, v, log_a, dy
+    (dnrm), the initial states and the final states' gradients read once;
+    dq, dk, dv, dlog_a and the initial states' gradients written once.
+    Operations: 8 S dk (dv + normaliser) per (b, h): the reverse state's
+    q_t^T dy_t, dq_t, dk_t and dv_t, 2 S dk dv' each."""
+    B, H, S, dk = q.shape
+    cols = v.shape[-1] + (1 if kw.get("normaliser") else 0)
+    reads = [q, k, v, log_a, dy, ds, kw.get("initial_state"), kw.get("initial_normaliser"),
+             kw.get("dnrm"), kw.get("dn")]
+    n_bytes = sum(_distinct_bytes(t) for t in reads if t is not None)
+    n_bytes += (2 * B * H * S * dk + B * H * S * v.shape[-1]) * q.element_size() + B * H * S * 4
+    n_bytes += sum(t.numel() * 4 for t in (kw.get("initial_state"), kw.get("initial_normaliser"))
+                   if t is not None)
+    flops = 8 * B * H * S * dk * cols
+    b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations"), n_bytes, flops
+
+
+def check_scan_bwd(torch, gen) -> dict:
+    """The scan's backward kernel against `ref.gated_linear_scan_backward`
+    (autograd through the plain chunked scan, at a chunk of at most 16 as
+    `check_scan` holds the forward) at `SCAN_BWD_CASES`: max |d| / max
+    |plain| of dq, dk, dv, dlog_a and the initial states' gradients within
+    2e-2 (bf16) and 1e-4 (fp32), finite, on its one variant. Then, at
+    xlstm's and Mamba2's training shapes, the kernel warm (CUDA events and
+    the profiler's device time) and with its inputs cold in L2, and the
+    plain version at the models' chunk; no single PyTorch call computes this
+    gradient."""
+    from repro_torch.kernels import linear_scan, ref
+    from repro_torch.models.ssm import _chunk_for
+
+    names = ("dq", "dk", "dv", "dlog_a", "d_initial_state", "d_initial_normaliser")
+    worst_abs, worst_rel, worst_tol, timings = 0.0, 0.0, None, {}
+    for case in SCAN_BWD_CASES:
+        q, k, v, log_a, dy, ds, kw = _scan_bwd_case(torch, gen, **case)
+        results = []
+        ran = launched_variant(linear_scan.backward, lambda: results.append(
+            linear_scan.gated_linear_scan_backward(q, k, v, log_a, dy, ds, **kw)))
+        want = ref.gated_linear_scan_backward(q, k, v, log_a, dy, ds,
+                                              chunk=scan_check_chunk(case["S"]), **kw)
+        torch.cuda.synchronize()
+        tol = BWD_REL_TOL[case["dtype"]]
+        rel = {}
+        for name, a, b in zip(names, results[0], want):
+            require((a is None) == (b is None), f"{case['tag']}: {name} given by one side only")
+            if b is None:
+                continue
+            require(a.dtype == b.dtype and a.shape == b.shape, f"{case['tag']}: {name} layout")
+            require(bool(torch.isfinite(a).all().item()), f"{case['tag']}: {name} not finite")
+            diff = float((a.float() - b.float()).abs().max().item())
+            rel[name] = diff / max(float(b.float().abs().max().item()), 1e-30)
+            worst_abs = max(worst_abs, diff)
+            if rel[name] > worst_rel:
+                worst_rel, worst_tol = rel[name], tol
+        ok = ran == "simt" and max(rel.values()) <= tol
+        desc = ", ".join(f"{k_}={v_}" for k_, v_ in case.items() if k_ != "tag")
+        log(f"[kernels] gated_linear_scan_bwd {case['tag']} ({desc}; {ran}): max |d| / max "
+            f"|plain| " + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
+            + f" (tol {tol}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"gated_linear_scan_bwd disagrees with its plain version ({case['tag']})")
+        del results, want
+        if case["tag"] in ("xlstm-train", "mamba2-train"):
+            chunk = _chunk_for(case["S"])
+            kern = lambda q_, k_, v_, la_, dy_: linear_scan.gated_linear_scan_backward(  # noqa
+                q_, k_, v_, la_, dy_, ds, **kw)
+            plain = lambda: ref.gated_linear_scan_backward(  # noqa: E731
+                q, k, v, log_a, dy, ds, chunk=chunk, **kw)
+            t = dict(ms=time_ms(torch, lambda: kern(q, k, v, log_a, dy), iters=5, warmup=1),
+                     plain_ms=time_ms(torch, plain, iters=3, warmup=1),
+                     device_ms=device_ms(torch, lambda: kern(q, k, v, log_a, dy), iters=5),
+                     plain_device_ms=device_ms(torch, plain, iters=3))
+            ins = (q, k, v, log_a, dy)
+            t["cold_device_ms"] = cold_device_ms(torch, kern, ins, sum(
+                x.untyped_storage().nbytes() for x in ins))
+            bound, by, n_bytes, flops = _scan_bwd_bound_ms(q, k, v, log_a, dy, ds, kw,
+                                                           case["dtype"])
+            t.update(bound_ms=bound, bound_by=by, tflops=flops / (t["device_ms"] * 1e-3) / 1e12,
+                     shape=f"{case['tag']}: {desc}")
+            log(f"[kernels] gated_linear_scan_bwd timing {case['tag']} ({desc}): kernel "
+                f"{t['ms']:.4f} ms, device {t['device_ms']:.4f} ms ({t['cold_device_ms']:.4f} ms "
+                f"with the inputs cold in L2); plain (chunk {chunk}) {t['plain_ms']:.4f} ms, "
+                f"device {t['plain_device_ms']:.4f}; bound {bound * 1e3:.2f} us ({by}: "
+                f"{n_bytes} B, {flops} FLOP; kernel at {t['device_ms'] / bound:.1f}x the bound); "
+                f"{t['tflops']:.3f} TFLOP/s on the device time")
+            timings[case["tag"]] = t
+        del q, k, v, log_a, dy, ds, kw
+    main, mamba = timings["xlstm-train"], timings["mamba2-train"]
+    return {
+        "name": "gated_linear_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/linear_scan_bwd.cu",
+        # the gradient of this Pallas kernel, which has no VJP of its own (the
+        # reference trains through jax.vjp of its oracle, src/repro/kernels/ref.py:174)
+        "replaces": "src/repro/kernels/linear_scan.py:76",
+        "launches": 0,
+        "max_abs_err": worst_abs,
+        "max_rel_err": worst_rel,
+        "tolerance": worst_tol,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "device_ms": main["device_ms"],
+        "plain_device_ms": main["plain_device_ms"],
+        "cold_device_ms": main["cold_device_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_us": main["bound_ms"] * 1e3,
+        "bound_by": main["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this gradient
+        "library_device_ms": None,
+        "tflops": main["tflops"],
+        "variant": "simt",
+        "timed_shape": main["shape"],
+        "other_timings": [mamba],
+    }
+
+
 def phase_kernels(torch) -> list:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     return [check_flash(torch, gen), check_flash_bwd(torch, gen), check_paged(torch, gen),
-            check_decode(torch, gen), check_fused_linear(torch, gen), check_scan(torch, gen)]
+            check_decode(torch, gen), check_fused_linear(torch, gen), check_scan(torch, gen),
+            check_scan_bwd(torch, gen)]
 
 
 # ---------------------------------------------------------------------------
@@ -2878,7 +3070,7 @@ def phase_serve_zamba2(torch) -> tuple:
         want = {"flash_attention": n_groups * n_req, "decode_attention": n_groups * ticks,
                 "gated_linear_scan": cfg.num_layers * (n_req + ticks),
                 "paged_decode_attention": 0, "fused_linear": 0,
-                "flash_attention_bwd": 0}
+                "flash_attention_bwd": 0, "gated_linear_scan_bwd": 0}
         require(counts == want, f"zamba2 serve launches {counts}, expected {want}")
         require_variant(variants, "flash_attention", "simt", want["flash_attention"],
                         "zamba2 serve")
@@ -2926,7 +3118,7 @@ def phase_serve_zamba2(torch) -> tuple:
     want = {"flash_attention": n_groups, "decode_attention": n_groups * steps,
             "gated_linear_scan": cfg.num_layers * (1 + steps), "paged_decode_attention": 0,
             "fused_linear": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "gated_linear_scan_bwd": 0}
     require(serial_counts == want, f"zamba2 serial launches {serial_counts}, expected {want}")
     require(serial_variants["gated_linear_scan"] == {
         "simt": 0, "mma": cfg.num_layers, "step": cfg.num_layers * steps},
@@ -3100,7 +3292,7 @@ def _serve_dense_config(torch, arch: str) -> dict:
             n_tok += len(toks)
         want = {"flash_attention": n_req * L, "paged_decode_attention": ticks * L,
                 "decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0,
-                "flash_attention_bwd": 0}
+                "flash_attention_bwd": 0, "gated_linear_scan_bwd": 0}
         require(counts == want, f"{arch} serve launches {counts}, expected {want}")
         require_variant(variants, "flash_attention", flash_kind, want["flash_attention"],
                         f"{arch} serve")
@@ -3151,7 +3343,7 @@ def _serve_dense_config(torch, arch: str) -> dict:
             n_steps = sum(r.max_new_tokens for r in few)
             want = {"flash_attention": len(few) * L, "decode_attention": n_steps * L,
                     "paged_decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0,
-                    "flash_attention_bwd": 0}
+                    "flash_attention_bwd": 0, "gated_linear_scan_bwd": 0}
             require(serial == want, f"{arch} serial launches {serial}, expected {want}")
             require_variant(serial_variants, "flash_attention", "simt", want["flash_attention"],
                             f"{arch} serial")
@@ -3478,7 +3670,7 @@ def phase_serve_fleet(torch, serve_tokens: dict, serve_tok_s: float) -> dict:
             f"both workers must settle work: {settled}")
     want = {"flash_attention": n_req * L, "paged_decode_attention": sum(ticks) * L,
             "decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "gated_linear_scan_bwd": 0}
     require(counts == want, f"fleet launches {counts}, expected {want}")
     require_variant(variants, "flash_attention", "wgmma", want["flash_attention"], "fleet")
     require_variant(variants, "paged_decode_attention", "mma", want["paged_decode_attention"],
@@ -3801,7 +3993,7 @@ def _serve_moe_config(torch, arch: str) -> dict:
             decode = "paged_decode_attention" if kv_mode == "paged" else "decode_attention"
             want = {"flash_attention": n_req * L, "paged_decode_attention": 0,
                     "decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0,
-                "flash_attention_bwd": 0}
+                "flash_attention_bwd": 0, "gated_linear_scan_bwd": 0}
             want[decode] = ticks * L
             require(counts == want, f"{path} launches {counts}, expected {want}")
             require_variant(variants, "flash_attention", flash_kind, want["flash_attention"], path)
@@ -3998,7 +4190,7 @@ def phase_generate_bundle(torch, arch: str) -> dict:
         want_flash = cfg.encoder_layers + 2 * L + (steps - 1) * L
     want = {"flash_attention": want_flash, "decode_attention": (steps - 1) * L,
             "paged_decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "gated_linear_scan_bwd": 0}
     require(counts == want, f"{arch} launches {counts}, expected {want}")
     require_variant(variants, "flash_attention", "wgmma", want_flash, arch)
     require_variant(variants, "decode_attention", "mma", want["decode_attention"], arch)
@@ -4095,9 +4287,59 @@ def phase_reduced_train(torch) -> None:
     require(metric_err <= TRAIN_TOL["metrics"]["rtol"], f"metrics differ by {metric_err:.3e}")
     require(grad_misfit == 0.0, f"gradients differ beyond tolerance by {grad_misfit:.3e}")
     require(param_misfit == 0.0, f"updated params differ beyond tolerance by {param_misfit:.3e}")
-    require(counts["flash_attention"] == cfg.num_layers
-            and counts["flash_attention_bwd"] == cfg.num_layers,
-            f"the step did not run every attention through the kernels: {counts}")
+    fwd, bwd, _, _ = expected_train_launches(cfg)
+    require(counts["flash_attention"] == fwd and counts["flash_attention_bwd"] == bwd,
+            f"the step did not run every attention through the kernels ({fwd} forward launches "
+            f"with remat_policy={cfg.remat_policy!r}'s recompute, {bwd} backward): {counts}")
+
+
+def expected_train_launches(cfg) -> tuple:
+    """(flash forward, flash backward, scan forward, scan backward) launches
+    of one training step of `cfg`. Under a `remat_policy` other than "none"
+    every forward inside a rematerialised region runs again in the backward
+    (the kernels launch outside the dispatcher, so no policy keeps their
+    outputs): the transformer's layers (or units), the encoder-decoder's
+    layers, the hybrid's groups; xlstm has no region, the hybrid's tail
+    layers none."""
+    r = 1 if cfg.remat_policy == "none" else 2
+    if cfg.family in ("dense", "moe", "vlm"):
+        return r * cfg.num_layers, cfg.num_layers, 0, 0
+    if cfg.family == "audio":
+        attn = cfg.encoder_layers + 2 * cfg.num_layers  # encoder, decoder self and cross
+        return r * attn, attn, 0, 0
+    if cfg.family == "ssm":
+        from repro_torch.models.xlstm_model import block_kinds
+
+        m = block_kinds(cfg).count("mlstm")
+        return 0, 0, m, m
+    g, n_groups = cfg.shared_attn_interval, cfg.num_layers // cfg.shared_attn_interval
+    return r * n_groups, n_groups, r * n_groups * g + cfg.num_layers % g, cfg.num_layers
+
+
+def _plain_scan(q, k, v, log_a, *, chunk: int = 128, initial_state=None, normaliser=False,
+                initial_normaliser=None):
+    """`ops.gated_linear_scan`'s plain version on any device."""
+    from repro_torch.kernels import ref
+
+    if normaliser:
+        return ref.gated_linear_scan_normalised(q, k, v, log_a, chunk=chunk,
+                                                initial_state=initial_state,
+                                                initial_normaliser=initial_normaliser)
+    return ref.gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=initial_state)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """`ops.attention` and `ops.gated_linear_scan` swapped for their plain
+    versions (the models call them through the module)."""
+    from repro_torch.kernels import ops, ref
+
+    saved = ops.attention, ops.gated_linear_scan
+    ops.attention, ops.gated_linear_scan = ref.attention, _plain_scan
+    try:
+        yield
+    finally:
+        ops.attention, ops.gated_linear_scan = saved
 
 
 def _device_breakdown(torch, prof, wall_s: float) -> dict:
@@ -4110,6 +4352,8 @@ def _device_breakdown(torch, prof, wall_s: float) -> dict:
     busy = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     groups = {"flash backward": ("flash_bwd",), "flash forward": ("flash_attention",),
+              "scan backward": ("scan_bwd",), "scan forward": ("scan_mma", "scan_simt",
+                                                                "scan_step"),
               "products (cuBLAS)": ("gemm", "nvjet", "cutlass", "sm90_xmma", "Kernel2")}
     split = {g: sum(t for n, t in by_name.items() if any(m in n for m in marks)) / 1e6
              for g, marks in groups.items()}
@@ -4126,14 +4370,15 @@ def phase_train(torch) -> dict:
     gradient finite and non-zero after step 1 (wq, wk, wv of every layer
     included: their gradient comes only through the flash backward kernel),
     the step-0 loss within 1e-2 relative of the same weights' loss through
-    the plain attention, and exactly 26 flash forward and 26 backward
-    launches a step, all on wgmma. Then one more step under the profiler, for
-    where its time goes and the backward's share of it. Returns the 6 steps'
-    launch counts and their counts by variant."""
+    the plain attention, and exactly 52 flash forward launches a step (26,
+    and 26 again in the backward: `remat_policy="minimal"` recomputes each
+    unit) and 26 backward launches, all on wgmma. Then one more step under the
+    profiler, for where its time goes and the backward's share of it. Returns
+    the 6 steps' launch counts and their counts by variant."""
     import math
 
     from repro_torch.configs import ShapeConfig, get_config
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.launch import train as train_cli
     from repro_torch.models import build
     from repro_torch.train import optimizer as topt
@@ -4147,28 +4392,15 @@ def phase_train(torch) -> dict:
     model = build(cfg)
     stream = SyntheticTokenStream(cfg, ShapeConfig("train", S, B, "train"))
     batch0 = tts.batch_to(stream.next_batch(), "cuda")
-    with torch.no_grad():  # the launcher's weights (seed 0), plain attention
+    with torch.no_grad(), plain_kernels():  # the launcher's weights (seed 0)
         params = model.init(seed=0, device="cuda")
         n_params = sum(t.numel() for _, t in _paths(params))
-        kernel_attention = ops.attention
-        ops.attention = ref.attention
-        try:
-            plain_loss = float(model.loss(params, batch0)[0])
-        finally:
-            ops.attention = kernel_attention
+        plain_loss = float(model.loss(params, batch0)[0])
     del params
     gc.collect()
     torch.cuda.empty_cache()
 
-    first = {}
-
-    def hook(grads):
-        if not first:
-            leaves = _paths(grads)
-            first["n"] = len(leaves)
-            first["bad"] = [p for p, g in leaves
-                            if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()))]
-
+    hook, first = _first_grads_hook(torch)
     args = train_cli.parse_args(["--arch", "gemma3-1b", "--steps", str(steps), "--batch", str(B),
                                  "--seq", str(S), "--log-every", "1"])
     torch.cuda.synchronize()
@@ -4199,15 +4431,14 @@ def phase_train(torch) -> dict:
         f"through the plain attention (ln V = {math.log(cfg.vocab_size):.4f}); launches "
         f"{counts}, flash by variant {variants['flash_attention']}, its backward by variant "
         f"{variants['flash_attention_bwd']}")
-    require(all(math.isfinite(x) for x in losses), f"a loss is not finite: {losses}")
-    require(first.get("n") == len(_paths(params)) and not first["bad"],
-            f"parameters whose step-1 gradient is zero or not finite: {first.get('bad')}")
-    require(abs(losses[0] - plain_loss) <= 1e-2 * abs(plain_loss),
-            f"step-0 loss {losses[0]} against the plain attention's {plain_loss}")
-    require(counts["flash_attention"] == L * steps and counts["flash_attention_bwd"] == L * steps
-            and sum(counts.values()) == 2 * L * steps,
-            f"expected {L} flash forward and {L} backward launches a step: {counts}")
-    require_variant(variants, "flash_attention", "wgmma", L * steps, "train")
+    _check_training("train", losses, plain_loss, first, len(_paths(params)))
+    fwd, bwd, _, _ = expected_train_launches(cfg)
+    require(counts["flash_attention"] == fwd * steps
+            and counts["flash_attention_bwd"] == bwd * steps
+            and sum(counts.values()) == (fwd + bwd) * steps,
+            f"expected {fwd} flash forward (remat_policy={cfg.remat_policy!r}) and {bwd} backward "
+            f"launches a step: {counts}")
+    require_variant(variants, "flash_attention", "wgmma", fwd * steps, "train")
     require_variant(variants, "flash_attention_bwd", "wgmma", L * steps, "train")
 
     # one more step under the profiler: where a step's time goes
@@ -4223,10 +4454,7 @@ def phase_train(torch) -> dict:
         wall = time.perf_counter() - t0
     del out
     br = _device_breakdown(torch, prof, wall)
-    log(f"[train] one traced step: wall {br['wall_s'] * 1e3:.2f} ms, device busy "
-        f"{br['busy_s'] * 1e3:.2f} ms, idle share {br['idle_share']:.3f}; device ms by group "
-        + ", ".join(f"{g} {t * 1e3:.2f}" for g, t in br["by_group_s"].items())
-        + "; top kernels " + "; ".join(f"{n} {t * 1e3:.2f} ms" for n, t in br["top"]))
+    _log_breakdown("train", br)
     bwd_s = br["by_group_s"]["flash backward"]
     log(f"[train] the flash backward's share of the traced step's device time: "
         f"{bwd_s * 1e3:.2f} of {br['busy_s'] * 1e3:.2f} ms ({bwd_s / br['busy_s']:.4f}), "
@@ -4261,6 +4489,395 @@ def phase_train_resume(torch) -> None:
     require([h["step"] for h in history] == [3, 4] and int(opt_state["count"]) == 4,
             "the second launch did not resume from step 2")
     require(misfit == 0.0, f"the resumed parameters differ beyond tolerance by {misfit:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# 32-35. training of every family: REDUCED card = CPU, xlstm-125m, zamba2-7b,
+# paligemma-3b and whisper-small on the card
+# ---------------------------------------------------------------------------
+
+#: families whose card gradients walk the scan position by position (the
+#: backward kernel) where the CPU sums chunks: held per leaf to max |d| /
+#: max |cpu| (the fp32 gradient of the chunked log decay cancels large terms;
+#: tests/test_torch_train_families.py)
+SCAN_FAMILIES = ("ssm", "hybrid")
+
+
+def _bad_grads(torch, grads) -> list:
+    """Paths of the leaves whose gradient is not finite or is zero."""
+    return [p for p, g in _paths(grads)
+            if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()))]
+
+
+def phase_reduced_train_families(torch) -> None:
+    """One AdamW step of every family REDUCED in fp32 (TF32 off) on the card
+    against the same step on the CPU, on a `make_batch` batch (B=2 x 64):
+    metrics within rtol 1e-5, gradients rtol 1e-4 / atol 1e-6 (xlstm and
+    zamba2: max |d| / max |cpu| <= 1e-4 per leaf), updated parameters rtol
+    1e-4 / atol 1e-5; every gradient finite and non-zero; every attention
+    and scan through the kernels, forward and backward
+    (`expected_train_launches`)."""
+    from repro_torch.configs import ARCH_IDS, ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, reduced=True)
+        require(cfg.compute_dtype == "float32", f"REDUCED {arch} computes in fp32")
+        model = build(cfg)
+        params = model.init(seed=0, device="cpu")
+        batch = model.make_batch(torch.Generator().manual_seed(1),
+                                 ShapeConfig("t", 64, 2, "train"))
+        ops.reset_launch_counts()
+        card = _one_train_step(torch, cfg, params, batch, "cuda")
+        counts = ops.launch_counts()
+        cpu = _one_train_step(torch, cfg, params, batch, "cpu")
+        keys = ("loss", "ce_loss", "grad_norm", "lr")
+        metric_err = max(abs(card[2][k] - cpu[2][k]) / max(abs(cpu[2][k]), 1e-30) for k in keys)
+        if cfg.family in SCAN_FAMILIES:
+            grad_rel = max(float((a.float() - b.float()).abs().max()
+                                 / b.float().abs().max().clamp_min(1e-30))
+                           for (_, a), (_, b) in zip(_paths(card[1]), _paths(cpu[1])))
+            grad_ok, grad_note = grad_rel <= 1e-4, f"max |d| / max |cpu| {grad_rel:.3e} (1e-4)"
+        else:
+            misfit, worst = _tree_misfit(torch, card[1], cpu[1], **TRAIN_TOL["grads"])
+            grad_ok, grad_note = misfit == 0.0, f"max |d| {worst:.3e} ({TRAIN_TOL['grads']})"
+        param_misfit, param_err = _tree_misfit(torch, card[0], cpu[0], **TRAIN_TOL["params"])
+        bad = _bad_grads(torch, card[1])
+        want = expected_train_launches(cfg)
+        got = tuple(counts[k] for k in ("flash_attention", "flash_attention_bwd",
+                                        "gated_linear_scan", "gated_linear_scan_bwd"))
+        log(f"[reduced-train-families] {arch} REDUCED fp32, one AdamW step (B=2 x 64): loss card "
+            f"{card[2]['loss']:.6f}, cpu {cpu[2]['loss']:.6f}; metrics max rel err "
+            f"{metric_err:.3e}; gradients {grad_note}; updated params {param_err:.3e}; launches "
+            f"(flash fwd, flash bwd, scan fwd, scan bwd) {got}, expected {want}")
+        require(metric_err <= TRAIN_TOL["metrics"]["rtol"], f"{arch}: metrics differ")
+        require(grad_ok, f"{arch}: gradients differ beyond tolerance")
+        require(param_misfit == 0.0, f"{arch}: updated params differ by {param_misfit:.3e}")
+        require(not bad, f"{arch}: zero or non-finite gradients: {bad}")
+        require(got == want and sum(counts.values()) == sum(want),
+                f"{arch}: launches {counts}, expected {want}")
+
+
+def _first_grads_hook(torch):
+    """(hook, first): a `grads_hook` that records the first step's gradient
+    tree in `first` ({"n": leaves, "bad": zero or non-finite paths})."""
+    first = {}
+
+    def hook(grads):
+        if not first:
+            first["n"] = len(_paths(grads))
+            first["bad"] = _bad_grads(torch, grads)
+
+    return hook, first
+
+
+def _train_loop(torch, model, params, batches, *, lr: float = 1e-3):
+    """AdamW steps of `model` (the launcher's schedule: warmup 20) from
+    `params`, one a batch: (params, opt_state, history of {"loss",
+    "grad_norm", "seconds"}, the first step's gradient check (leaves, bad
+    paths)), each step timed on the host clock to its end on the device."""
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+
+    ocfg = topt.OptimizerConfig(name="adamw", learning_rate=lr, warmup_steps=20,
+                                decay_steps=100)
+    hook, first = _first_grads_hook(torch)
+    step = tts.make_train_step(model, ocfg, grads_hook=hook)
+    opt_state = topt.init(ocfg, params)
+    history = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, _, m = step(params, opt_state, None, batch)
+        loss = float(m["loss"])
+        history.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
+                        "seconds": time.perf_counter() - t0})
+    return params, opt_state, history, first
+
+
+def _traced_step(torch, model, params, batch, *, cuda_only: bool = False) -> dict:
+    """One AdamW step under the profiler: `_device_breakdown` of it.
+    `cuda_only` records the device's activity alone (a step of hundreds of
+    thousands of launches traces faster without the host's)."""
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+
+    ocfg = topt.OptimizerConfig(name="adamw", learning_rate=1e-3)
+    step = tts.make_train_step(model, ocfg)
+    opt_state = topt.init(ocfg, params)
+    step(params, opt_state, None, batch)  # the optimizer's first-call allocations
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if not cuda_only:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = step(params, opt_state, None, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del out, opt_state
+    return _device_breakdown(torch, prof, wall)
+
+
+def _log_breakdown(tag: str, br: dict) -> None:
+    log(f"[{tag}] one traced step: wall {br['wall_s'] * 1e3:.2f} ms, device busy "
+        f"{br['busy_s'] * 1e3:.2f} ms, idle share {br['idle_share']:.3f}; device ms by group "
+        + ", ".join(f"{g} {t * 1e3:.2f}" for g, t in br["by_group_s"].items())
+        + "; top kernels " + "; ".join(f"{n} {t * 1e3:.2f} ms" for n, t in br["top"]))
+
+
+def _check_training(tag, losses, plain_loss, first, n_leaves) -> None:
+    """What every training phase requires: finite losses, every parameter's
+    step-1 gradient finite and non-zero, the step-0 loss within 1e-2
+    relative of the same weights' loss through the plain attention and scan."""
+    require(all(math.isfinite(x) for x in losses), f"{tag}: a loss is not finite: {losses}")
+    require(first.get("n") == n_leaves and not first["bad"],
+            f"{tag}: parameters whose step-1 gradient is zero or not finite: {first.get('bad')}")
+    require(abs(losses[0] - plain_loss) <= 1e-2 * abs(plain_loss),
+            f"{tag}: step-0 loss {losses[0]} against the plain kernels' {plain_loss}")
+
+
+def phase_train_xlstm(torch) -> tuple:
+    """xlstm-125m at its published widths and depth (12 blocks: 9 mLSTM, 3
+    sLSTM, d_model 768, 4 heads of 384, vocab 50304): fp32 masters, bf16
+    compute, AdamW, B=4 x S=2048, 6 steps through the launcher. Requires
+    the training checks (`_check_training`) and exactly 9 scan forward
+    launches a step (`mma`) and 9 backward launches (the kernel). Then the
+    sLSTM blocks' forward and backward alone on the step's shape (their share
+    of a step) and one step traced on the device. Returns the 6 steps'
+    launch counts and their counts by variant."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build
+    from repro_torch.models import xlstm_model as xm
+    from repro_torch.models.ssm import slstm_forward
+    from repro_torch.train import train_step as tts
+    from repro_torch.train.data import SyntheticTokenStream
+    from repro_torch.train.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("xlstm-125m")
+    B, S, steps = 4, 2048, 6
+    model = build(cfg)
+    stream = SyntheticTokenStream(cfg, ShapeConfig("train", S, B, "train"))
+    batch0 = tts.batch_to(stream.next_batch(), "cuda")
+    with torch.no_grad(), plain_kernels():  # the launcher's weights (seed 0)
+        params = model.init(seed=0, device="cuda")
+        n_params = sum(t.numel() for _, t in _paths(params))
+        plain_loss = float(model.loss(params, batch0)[0])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hook, first = _first_grads_hook(torch)
+    args = train_cli.parse_args(["--arch", "xlstm-125m", "--steps", str(steps), "--batch",
+                                 str(B), "--seq", str(S), "--log-every", "1"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    params, opt_state, history = train_cli.train(args, grads_hook=hook)
+    counts = ops.launch_counts()
+    variants = ops.variant_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [h["loss"] for h in history]
+    ms = [h["seconds"] * 1e3 for h in history]
+    mean_ms = sum(ms[1:]) / (steps - 1)
+    m = xm.block_kinds(cfg).count("mlstm")
+    log(f"[train-xlstm] xlstm-125m full width ({n_params} parameters, fp32 masters, bf16 "
+        f"compute, AdamW), B={B} x S={S} = {B * S} tokens a step, {steps} steps through the "
+        f"launcher: losses {[round(x, 5) for x in losses]}, grad_norm "
+        f"{[round(h['grad_norm'], 4) for h in history]}")
+    log(f"[train-xlstm] ms a step {[round(x, 2) for x in ms]}: steps 2-{steps} {mean_ms:.2f} ms "
+        f"= {B * S / (mean_ms / 1e3):.0f} training tok/s; peak device memory above the baseline "
+        f"{peak / 2**30:.2f} GiB; step-0 loss {losses[0]:.6f} against {plain_loss:.6f} through "
+        f"the plain scan (ln V = {math.log(cfg.vocab_size):.4f}); launches {counts}, scan by "
+        f"variant {variants['gated_linear_scan']}, its backward "
+        f"{variants['gated_linear_scan_bwd']}")
+    _check_training("train-xlstm", losses, plain_loss, first, len(_paths(params)))
+    require(counts["gated_linear_scan"] == m * steps
+            and counts["gated_linear_scan_bwd"] == m * steps
+            and sum(counts.values()) == 2 * m * steps,
+            f"expected {m} scan forward and {m} backward launches a step: {counts}")
+    require_variant(variants, "gated_linear_scan", "mma", m * steps, "train-xlstm")
+    require_variant(variants, "gated_linear_scan_bwd", "simt", m * steps, "train-xlstm")
+
+    # the sLSTM blocks alone, forward and backward, on the step's shape
+    batch = tts.batch_to(stream._batch_for(steps), "cuda")
+    kinds = xm.block_kinds(cfg)
+    blocks = [p for p, kind in zip(params["blocks"], kinds) if kind == "slstm"]
+    live = [[t.detach().requires_grad_() for t in tree_leaves(p)] for p in blocks]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    x.requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = x
+    for p, leaves in zip(blocks, live):
+        h, _ = slstm_forward(cfg, dict(zip(p.keys(), leaves)), h)
+    torch.autograd.grad(h.float().square().mean(), [x] + [t for ls in live for t in ls])
+    torch.cuda.synchronize()
+    slstm_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[train-xlstm] the {len(blocks)} sLSTM blocks' forward and backward alone (B={B} x "
+        f"S={S}, a position at a time): {slstm_ms:.2f} ms, {slstm_ms / mean_ms:.3f} of a step")
+    del live, x, h
+    br = _traced_step(torch, model, params, batch, cuda_only=True)
+    _log_breakdown("train-xlstm", br)
+    bwd_s = br["by_group_s"]["scan backward"]
+    log(f"[train-xlstm] the scan backward's share of the traced step's device time: "
+        f"{bwd_s * 1e3:.2f} of {br['busy_s'] * 1e3:.2f} ms ({bwd_s / br['busy_s']:.4f}), {m} calls")
+    del params, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, variants
+
+
+#: zamba2-7b's depth cut for one card: two groups of 6 Mamba2 layers (the
+#: shared block after each) and one tail layer, at the published widths
+ZAMBA2_TRAIN_LAYERS = 13
+
+
+def phase_train_zamba2(torch) -> dict:
+    """zamba2-7b at its published widths (d_model 3584, 32 heads of 112,
+    Mamba2 state 64, vocab 32000), depth cut to `ZAMBA2_TRAIN_LAYERS`
+    (`cfg.replace(num_layers=13)`): fp32 masters, bf16 compute, AdamW, B=2 x
+    S=1024, 4 steps. Requires the training checks and the launches
+    `expected_train_launches` names (the groups rematerialised: their scan
+    and flash forwards run twice), flash's forward and backward on `simt`
+    (hd 112), the scan's forward on `mma`. Prints the parameter count and
+    the bytes, and the flash kernels' share of a traced step."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models.model_zoo import param_count
+    from repro_torch.train import train_step as tts
+    from repro_torch.train.data import SyntheticTokenStream
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("zamba2-7b").replace(num_layers=ZAMBA2_TRAIN_LAYERS)
+    B, S, steps = 2, 1024, 4
+    model = build(cfg)
+    stream = SyntheticTokenStream(cfg, ShapeConfig("train", S, B, "train"))
+    batches = [tts.batch_to(stream.next_batch(), "cuda") for _ in range(steps + 1)]
+    with torch.no_grad():
+        params = model.init(seed=0, device="cuda")
+        with plain_kernels():
+            plain_loss = float(model.loss(params, batches[0])[0])
+    n_params = param_count(params)
+    n_bytes = sum(t.nbytes for _, t in _paths(params))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    params, opt_state, history, first = _train_loop(torch, model, params, batches[:steps])
+    counts = ops.launch_counts()
+    variants = ops.variant_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [h["loss"] for h in history]
+    ms = [h["seconds"] * 1e3 for h in history]
+    mean_ms = sum(ms[1:]) / (steps - 1)
+    log(f"[train-zamba2] zamba2-7b at its published widths, {cfg.num_layers} of 81 layers "
+        f"({n_params} parameters, {n_bytes / 2**30:.2f} GiB of fp32 masters; bf16 compute, "
+        f"AdamW), B={B} x S={S}, {steps} steps: losses {[round(x, 5) for x in losses]}; ms a "
+        f"step {[round(x, 2) for x in ms]}: steps 2-{steps} {mean_ms:.2f} ms = "
+        f"{B * S / (mean_ms / 1e3):.0f} training tok/s; peak above the baseline "
+        f"{peak / 2**30:.2f} GiB; step-0 loss {losses[0]:.6f} against {plain_loss:.6f} through "
+        f"the plain attention and scan; launches {counts}, by variant "
+        f"{ {k: v for k, v in variants.items() if sum(v.values())} }")
+    _check_training("train-zamba2", losses, plain_loss, first, len(_paths(params)))
+    fwd, bwd, sfwd, sbwd = expected_train_launches(cfg)
+    require(counts["flash_attention"] == fwd * steps
+            and counts["flash_attention_bwd"] == bwd * steps
+            and counts["gated_linear_scan"] == sfwd * steps
+            and counts["gated_linear_scan_bwd"] == sbwd * steps
+            and sum(counts.values()) == (fwd + bwd + sfwd + sbwd) * steps,
+            f"launches {counts}, expected {(fwd, bwd, sfwd, sbwd)} a step")
+    require_variant(variants, "flash_attention", "simt", fwd * steps, "train-zamba2")
+    require_variant(variants, "flash_attention_bwd", "simt", bwd * steps, "train-zamba2")
+    require_variant(variants, "gated_linear_scan", "mma", sfwd * steps, "train-zamba2")
+    br = _traced_step(torch, model, params, batches[steps])
+    _log_breakdown("train-zamba2", br)
+    flash_s = br["by_group_s"]["flash forward"] + br["by_group_s"]["flash backward"]
+    log(f"[train-zamba2] the shared attention's flash simt forward and backward: "
+        f"{flash_s * 1e3:.2f} of {br['busy_s'] * 1e3:.2f} ms of the traced step's device time "
+        f"({flash_s / br['busy_s']:.4f}); the scan backward "
+        f"{br['by_group_s']['scan backward'] * 1e3:.2f} ms")
+    del params, opt_state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+#: the bundles' training shapes: B=2; paligemma 256 patch embeddings + 256
+#: text tokens, whisper 1500 frames + 448 text tokens (its decoder's context)
+BUNDLE_TRAIN = {"paligemma-3b": 512, "whisper-small": 448}
+
+
+def phase_train_bundles(torch) -> dict:
+    """paligemma-3b and whisper-small at full width (fp32 masters, bf16
+    compute, AdamW), B=2, 3 steps on `make_batch` batches (patches; frames
+    x 0.02) through `make_train_step`: the training checks and the launches
+    `expected_train_launches` names, every flash forward and backward on
+    `wgmma` (hd 256 with 8 query heads a KV head; hd 64). Returns the launch
+    counts by config."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models.model_zoo import param_count
+
+    out = {}
+    steps = 3
+    for arch, seq in BUNDLE_TRAIN.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        model = build(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        batches = [model.make_batch(gen, ShapeConfig("train", seq, 2, "train"))
+                   for _ in range(steps)]
+        with torch.no_grad():
+            params = model.init(seed=0, device="cuda")
+            with plain_kernels():
+                plain_loss = float(model.loss(params, batches[0])[0])
+        n_params = param_count(params)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        params, opt_state, history, first = _train_loop(torch, model, params, batches)
+        counts = ops.launch_counts()
+        variants = ops.variant_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        losses = [h["loss"] for h in history]
+        ms = [h["seconds"] * 1e3 for h in history]
+        tokens = 2 * batches[0]["tokens"].shape[1]
+        mean_ms = sum(ms[1:]) / (steps - 1)
+        log(f"[train-bundles] {arch} full width ({n_params} parameters), B=2 x {seq} "
+            f"({tokens} text tokens a step), {steps} steps: losses "
+            f"{[round(x, 5) for x in losses]}; ms a step {[round(x, 2) for x in ms]} (steps "
+            f"2-{steps} {mean_ms:.2f} ms, {tokens / (mean_ms / 1e3):.0f} text tok/s); peak "
+            f"above the baseline {peak / 2**30:.2f} GiB; step-0 loss {losses[0]:.6f} against "
+            f"{plain_loss:.6f} through the plain attention; launches {counts}, flash by variant "
+            f"{variants['flash_attention']}, backward {variants['flash_attention_bwd']}")
+        _check_training(f"train-bundles {arch}", losses, plain_loss, first, len(_paths(params)))
+        fwd, bwd, _, _ = expected_train_launches(cfg)
+        require(counts["flash_attention"] == fwd * steps
+                and counts["flash_attention_bwd"] == bwd * steps
+                and sum(counts.values()) == (fwd + bwd) * steps,
+                f"{arch}: launches {counts}, expected {fwd} forward and {bwd} backward a step")
+        require_variant(variants, "flash_attention", "wgmma", fwd * steps, arch)
+        require_variant(variants, "flash_attention_bwd", "wgmma", bwd * steps, arch)
+        out[f"train-{arch}"] = counts
+        del params, opt_state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _leaves(tree):
@@ -4337,6 +4954,11 @@ def main() -> int:
         run_phase("reduced-train", phase_reduced_train, torch)
         train_counts, train_variants = run_phase("train", phase_train, torch)
         run_phase("train-resume", phase_train_resume, torch)
+        run_phase("reduced-train-families", phase_reduced_train_families, torch)
+        xlstm_train_counts, xlstm_train_variants = run_phase("train-xlstm", phase_train_xlstm,
+                                                             torch)
+        zamba2_train_counts = run_phase("train-zamba2", phase_train_zamba2, torch)
+        bundle_train_counts = run_phase("train-bundles", phase_train_bundles, torch)
         log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
@@ -4352,13 +4974,16 @@ def main() -> int:
                    "serve-zamba2 serial": zamba2_serial_counts, **family_counts,
                    "serve-fleet": fleet_counts, **moe_counts,
                    "generate-paligemma": paligemma_counts, "generate-whisper": whisper_counts,
-                   "train": train_counts}
+                   "train": train_counts, "train-xlstm": xlstm_train_counts,
+                   "train-zamba2": zamba2_train_counts, **bundle_train_counts}
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]] for path, c in path_counts.items()
                                  if c[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
-        if k["name"] == "flash_attention_bwd":  # the train path is its only caller
+        if k["name"] == "flash_attention_bwd":  # the gemma3 train path's launches by variant
             k["launches_by_variant"] = train_variants["flash_attention_bwd"]
+        if k["name"] == "gated_linear_scan_bwd":
+            k["launches_by_variant"] = xlstm_train_variants["gated_linear_scan_bwd"]
         log(f"[kernels] {k['name']}: {k['device_ms']:.4f} ms device, {k['tflops']:.3f} TFLOP/s "
             f"at {k['timed_shape']}; library device ms {k['library_device_ms']}; "
             f"{k['launches']} launches on the paths, by path {k['launches_by_path']}")

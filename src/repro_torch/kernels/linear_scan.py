@@ -40,6 +40,20 @@ The wrapper checks device, dtype and shape, passes q, k, v and log_a by
 their strides (head-split views of a projection need no copy), allocates
 the outputs with `torch.empty`, launches on the current stream without
 synchronising, and counts its launches.
+
+The gradient, `gated_linear_scan_backward` (`csrc/linear_scan_bwd.cu`),
+stands for the gradient of that Pallas kernel, which has no VJP (the
+reference trains through `jax.vjp` of its jnp oracle): dq, dk, dv, dlog_a
+and the initial states' gradients from the forward's inputs and the
+gradients of y, the final state and, with the normaliser, of nrm and n
+(any of them None: zeros). It recomputes the forward states itself, so
+nothing but the inputs is saved. `GatedLinearScanFn` wires it into
+autograd; `kernels/ops.py::gated_linear_scan` takes that Function on CUDA
+whenever grad mode is on and an input requires grad; called directly under
+grad mode with such an input, `gated_linear_scan` raises rather than return
+an output that autograd would silently cut off. One variant, ``simt``
+(exact fp32 FMA on CUDA cores, fp32 and bf16 inputs); its three launches a
+call count once in `backward.launches` and `backward.variant_launches`.
 """
 from __future__ import annotations
 
@@ -57,11 +71,15 @@ STEP_MAX_S = 16  # the step kernel's positions
 MMA_TILES = (16, 32, 64)  # state columns a block of the tensor-core kernel owns
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANT_CODES = {"simt": 0, "mma": 1, "step": 2}
+BWD_TILE = 32  # extended state columns a block of the backward's walk owns
 
 #: Kernel launches made by this process (one per call of `gated_linear_scan`).
 launches = 0
 #: The same launches by variant.
 variant_launches = {kind: 0 for kind in VARIANT_CODES}
+#: Calls of `gated_linear_scan_backward` (three launches a call, counted
+#: once), and the same calls by variant.
+backward = build.LaunchCounter(("simt",))
 
 
 @functools.cache
@@ -137,7 +155,9 @@ def gated_linear_scan(
     (B, H, dk, dv) fp32), on CUDA. With ``normaliser=True`` (and an optional
     contiguous fp32 `initial_normaliser` (B, H, dk, 1)) also the scan of
     v = ones: (y, state, nrm (B, H, S, 1) in q's dtype, n (B, H, dk, 1) fp32)."""
-    build.refuse_grad("gated_linear_scan", q, k, v, log_a, initial_state, initial_normaliser)
+    build.refuse_grad("gated_linear_scan", q, k, v, log_a, initial_state, initial_normaliser,
+                      remedy="its output would carry no gradient: call ops.gated_linear_scan "
+                             "(GatedLinearScanFn), whose gradient is the backward kernel")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or log_a.dim() != 3:
         raise ValueError("gated_linear_scan: q, k, v must be (B, H, S, d), log_a (B, H, S)")
     B, H, S, dk = q.shape
@@ -196,3 +216,155 @@ def gated_linear_scan(
     build.check(err, f"gated_linear_scan ({kind})")
     build.count_launch(__name__, kind)
     return (y, state, nrm, n) if normaliser else (y, state)
+
+
+@functools.cache
+def _backward_entry():
+    fn = build.load().gated_linear_scan_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 22
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def backward_scratch_elements(B: int, H: int, S: int, dk: int, dv: int, normaliser: bool) -> int:
+    """fp32 scratch of `gated_linear_scan_backward`, as the C entry point
+    requires: every 32-column tile's dq and dk partials (tiles, B, H, S, dk),
+    the tiles' final-state dots (tiles, B, H) and dA (B, H, S)."""
+    tiles = -(-(dv + int(normaliser)) // BWD_TILE)
+    return 2 * tiles * B * H * S * dk + tiles * B * H + B * H * S
+
+
+def gated_linear_scan_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    log_a: torch.Tensor,
+    dy: Optional[torch.Tensor],
+    d_state: Optional[torch.Tensor],
+    *,
+    chunk: int = 128,
+    initial_state: Optional[torch.Tensor] = None,
+    normaliser: bool = False,
+    initial_normaliser: Optional[torch.Tensor] = None,
+    dnrm: Optional[torch.Tensor] = None,
+    dn: Optional[torch.Tensor] = None,
+):
+    """The gradient of `gated_linear_scan` called on the same q, k, v,
+    log_a and initial states: dy (B, H, S, dv) in q's dtype, any strides,
+    and d_state contiguous fp32 (B, H, dk, dv), the gradients of y and of
+    the final state; with ``normaliser=True`` also dnrm (B, H, S, 1) and dn
+    contiguous fp32 (B, H, dk, 1); any of them None (zeros). Returns (dq,
+    dk (B, H, S, dk) and dv in q's dtype, dlog_a (B, H, S) fp32, d(initial
+    state) fp32 or None, d(initial normaliser) fp32 or None: where they were
+    given), on CUDA. `chunk` shapes the plain version only."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or log_a.dim() != 3:
+        raise ValueError("gated_linear_scan_backward: q, k, v must be (B, H, S, d), "
+                         "log_a (B, H, S)")
+    B, H, S, dk = q.shape
+    dv = v.shape[-1]
+    if k.shape != q.shape or v.shape[:3] != (B, H, S) or log_a.shape != (B, H, S):
+        raise ValueError(f"gated_linear_scan_backward: shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} log_a{tuple(log_a.shape)}")
+    if min(B, H, S, dv) < 1 or not 1 <= dk <= MAX_DK:
+        raise ValueError(f"gated_linear_scan_backward: need B, H, S, dv >= 1 and "
+                         f"1 <= dk <= {MAX_DK}")
+    if not normaliser and (initial_normaliser is not None or dnrm is not None or dn is not None):
+        raise ValueError("gated_linear_scan_backward: initial_normaliser, dnrm and dn need "
+                         "normaliser=True")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"gated_linear_scan_backward: dtype {q.dtype}; need fp32 or bf16")
+    if log_a.dtype != torch.float32:
+        raise ValueError(f"gated_linear_scan_backward: log_a dtype {log_a.dtype}; need fp32")
+    grads = [("dy", dy, (B, H, S, dv)), ("dnrm", dnrm, (B, H, S, 1))]
+    states = [("initial_state", initial_state, (B, H, dk, dv)),
+              ("initial_normaliser", initial_normaliser, (B, H, dk, 1)),
+              ("d_state", d_state, (B, H, dk, dv)), ("dn", dn, (B, H, dk, 1))]
+    for name, t in [("q", q), ("k", k), ("v", v), ("log_a", log_a)] + [
+            (name, t) for name, t, _ in grads + states if t is not None]:
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"gated_linear_scan_backward: {name} must be on q's CUDA device, "
+                             f"got {t.device}")
+    for name, t in [("k", k), ("v", v)] + [(name, t) for name, t, _ in grads if t is not None]:
+        if t.dtype != q.dtype:
+            raise ValueError(f"gated_linear_scan_backward: {name} dtype {t.dtype} != q's "
+                             f"{q.dtype}")
+    for name, t, shape in grads:
+        if t is not None and t.shape != shape:
+            raise ValueError(f"gated_linear_scan_backward: {name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+    for name, t, shape in states:
+        if t is None:
+            continue
+        if t.shape != shape or t.dtype != torch.float32:
+            raise ValueError(f"gated_linear_scan_backward: {name} must be fp32 {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"gated_linear_scan_backward: {name} must be contiguous")
+    dev = q.device
+    dq = torch.empty((B, H, S, dk), dtype=q.dtype, device=dev)
+    dk_ = torch.empty((B, H, S, dk), dtype=q.dtype, device=dev)
+    dv_ = torch.empty((B, H, S, dv), dtype=q.dtype, device=dev)
+    dla = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    d_init = (torch.empty((B, H, dk, dv), dtype=torch.float32, device=dev)
+              if initial_state is not None else None)
+    d_init_n = (torch.empty((B, H, dk, 1), dtype=torch.float32, device=dev)
+                if initial_normaliser is not None else None)
+    scratch = torch.empty(backward_scratch_elements(B, H, S, dk, dv, normaliser),
+                          dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    def strides(t, n):
+        return t.stride()[:n] if t is not None else (0,) * n
+
+    err = _backward_entry()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(), ptr(initial_state),
+        ptr(initial_normaliser), ptr(dy), ptr(d_state), ptr(dnrm), ptr(dn), dq.data_ptr(),
+        dk_.data_ptr(), dv_.data_ptr(), dla.data_ptr(), ptr(d_init), ptr(d_init_n),
+        scratch.data_ptr(), B, H, S, dk, dv, int(bool(normaliser)), *q.stride(), *k.stride(),
+        *v.stride(), *log_a.stride(), *strides(dy, 4), *strides(dnrm, 3),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(err, "gated_linear_scan_backward (simt)")
+    build.count_launch(backward, "simt")
+    return dq, dk_, dv_, dla, d_init, d_init_n
+
+
+class GatedLinearScanFn(torch.autograd.Function):
+    """The scan with a gradient: ``forward(q, k, v, log_a, initial_state,
+    initial_normaliser, fwd, bwd, kw)`` runs ``fwd(q, k, v, log_a,
+    initial_state=, initial_normaliser=, **kw)`` (kw: ``chunk``,
+    ``normaliser``) and saves its inputs; the backward runs ``bwd(q, k, v,
+    log_a, dy, d_state, initial_state=, initial_normaliser=, dnrm=, dn=,
+    **kw)`` with the outputs' gradients as autograd gives
+    them (None for an output that reached no loss). On the card `fwd` and
+    `bwd` are `gated_linear_scan` and `gated_linear_scan_backward`
+    (`kernels/ops.py::gated_linear_scan`); a CPU test passes the plain
+    versions. dq comes back dense (B, H, S, dk) whatever q's strides: for
+    Mamba2's q, broadcast over the heads, autograd sums it back."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_a, initial_state, initial_normaliser, fwd, bwd, kw):
+        outs = fwd(q, k, v, log_a, initial_state=initial_state,
+                   initial_normaliser=initial_normaliser, **kw)
+        ctx.save_for_backward(q, k, v, log_a, initial_state, initial_normaliser)
+        ctx.bwd, ctx.kw = bwd, kw
+        ctx.set_materialize_grads(False)
+        return outs
+
+    @staticmethod
+    def backward(ctx, dy, d_state, dnrm=None, dn=None):
+        q, k, v, log_a, s0, n0 = ctx.saved_tensors
+
+        def dense(t):
+            return t.contiguous() if t is not None else None
+
+        if ctx.kw.get("normaliser"):
+            extra = dict(dnrm=dnrm, dn=dense(dn), initial_normaliser=n0)
+        else:
+            extra = {}
+        dq, dk, dv, dla, ds0, dn0 = ctx.bwd(q, k, v, log_a, dy, dense(d_state),
+                                            initial_state=s0, **extra, **ctx.kw)
+        return dq, dk, dv, dla, ds0, dn0, None, None, None

@@ -90,8 +90,18 @@ def gated_linear_scan(q, k, v, log_a, *, chunk: int = 128, initial_state=None,
     the reference's ``S % chunk == 0``. ``normaliser=True`` adds the scan of
     v = ones from `initial_normaliser` (None or fp32 (B, H, dk, 1)):
     (y, state, nrm (B, H, S, 1), n (B, H, dk, 1)), in the kernel's one
-    launch; the plain version makes the reference's two calls."""
+    launch; the plain version makes the reference's two calls. On CUDA
+    under grad mode with an input that requires grad (training), the
+    forward kernel under `GatedLinearScanFn`, whose gradient is the
+    backward kernel; on the CPU the plain version, which autograd
+    differentiates."""
     if _on_cuda(q, "gated_linear_scan"):
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (q, k, v, log_a, initial_state, initial_normaliser)):
+            return _scan.GatedLinearScanFn.apply(
+                q, k, v, log_a, initial_state, initial_normaliser, _scan.gated_linear_scan,
+                _scan.gated_linear_scan_backward, dict(chunk=chunk, normaliser=normaliser))
         return _scan.gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=initial_state,
                                        normaliser=normaliser,
                                        initial_normaliser=initial_normaliser)
@@ -111,6 +121,7 @@ _KERNELS = {
     "decode_attention": _decode,
     "fused_linear": _linear,
     "gated_linear_scan": _scan,
+    "gated_linear_scan_bwd": _scan.backward,
 }
 
 

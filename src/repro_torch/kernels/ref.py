@@ -239,10 +239,12 @@ def gated_linear_scan(
     A = torch.cumsum(la, dim=-1)  # (B,H,C,L)
     A_total = A[..., -1]  # (B,H,C)
 
-    # intra-chunk: y_intra[i] = sum_{j<=i} exp(A_i - A_j) (q_i.k_j) v_j
+    # intra-chunk: y_intra[i] = sum_{j<=i} exp(A_i - A_j) (q_i.k_j) v_j; the
+    # exponent is masked before exp (for j > i it is >= 0 and may overflow,
+    # whose inf would turn the masked gate's zero gradient into NaN)
     decay = A[..., :, None] - A[..., None, :]  # (B,H,C,L,L)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
-    gates = torch.where(tri, torch.exp(decay), torch.zeros((), device=q.device))
+    gates = torch.exp(decay.masked_fill(~tri, float("-inf")))
     scores = torch.einsum("bhcid,bhcjd->bhcij", qf, kf) * gates
     y_intra = torch.einsum("bhcij,bhcjv->bhciv", scores, vf)
 
@@ -288,6 +290,45 @@ def gated_linear_scan_normalised(
     ones = torch.ones((*q.shape[:3], 1), dtype=q.dtype, device=q.device)
     nrm, n = gated_linear_scan(q, k, ones, log_a, chunk=chunk, initial_state=initial_normaliser)
     return y, state, nrm, n
+
+
+def gated_linear_scan_backward(q, k, v, log_a, dy, d_state, *, chunk: int = 128,
+                               initial_state: Optional[torch.Tensor] = None,
+                               normaliser: bool = False,
+                               initial_normaliser: Optional[torch.Tensor] = None,
+                               dnrm: Optional[torch.Tensor] = None,
+                               dn: Optional[torch.Tensor] = None):
+    """The gradient of `gated_linear_scan` (``normaliser=True``:
+    `gated_linear_scan_normalised`) by autograd through it, on detached
+    copies of the inputs: the plain version of the backward kernel
+    (`linear_scan.gated_linear_scan_backward`, same arguments and returns:
+    dq, dk, dv in q's dtype, dlog_a fp32, and the initial states' fp32
+    gradients where they were given, else None). dy,
+    d_state, dnrm, dn: the gradients of y, the final state, nrm and n, any
+    of them None (zeros)."""
+    inputs = [t.detach().requires_grad_() for t in (q, k, v, log_a)]
+    starts = [None if t is None else t.detach().requires_grad_()
+              for t in (initial_state, initial_normaliser)]
+    with torch.enable_grad():
+        if normaliser:
+            outs = gated_linear_scan_normalised(*inputs, chunk=chunk, initial_state=starts[0],
+                                                initial_normaliser=starts[1])
+            grads = (dy, d_state, dnrm, dn)
+        else:
+            if initial_normaliser is not None or dnrm is not None or dn is not None:
+                raise ValueError("gated_linear_scan_backward: initial_normaliser, dnrm and dn "
+                                 "need normaliser=True")
+            outs = gated_linear_scan(*inputs, chunk=chunk, initial_state=starts[0])
+            grads = (dy, d_state)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        wrt = inputs + [t for t in starts if t is not None]
+        got = (torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                   allow_unused=True) if pairs else [None] * len(wrt))
+    got = [torch.zeros_like(t) if g is None else g for t, g in zip(wrt, got)]
+    dq, dk, dv, dla = got[:4]
+    rest = iter(got[4:])
+    d0 = [next(rest) if t is not None else None for t in starts]
+    return dq, dk, dv, dla, d0[0], d0[1]
 
 
 def gated_linear_step(q_t, k_t, v_t, log_a_t, state):

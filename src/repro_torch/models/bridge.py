@@ -155,8 +155,8 @@ def stack_params(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
     if "blocks" in tree:
         return dict(tree)
     if "layers" not in tree:
-        raise NotImplementedError(f"stack_params: the {cfg.family} family's tree is not ported "
-                                  f"for training yet")
+        raise NotImplementedError(f"stack_params: the {cfg.family} family's stacked layout "
+                                  f"(Adafactor, int8 compression) is not ported yet")
     stack = lambda *leaves: torch.stack(leaves)  # noqa: E731
     layers = tree["layers"]
     out = {k: v for k, v in tree.items() if k != "layers"}

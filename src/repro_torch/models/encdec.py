@@ -1,5 +1,4 @@
-"""Whisper-style encoder-decoder for serving. Port of the serving half of
-`repro/models/encdec.py`.
+"""Whisper-style encoder-decoder. Port of `repro/models/encdec.py`.
 
 The audio frontend (the mel conv stack) is a stub: inputs are precomputed
 frame embeddings (B, encoder_context, d_model). The encoder is
@@ -12,8 +11,12 @@ keeps one dict a layer in ``encoder`` and ``decoder`` lists. The decoder
 state is ``{"k", "v", "cross_k", "cross_v"}``, each a list of one batch-first
 tensor a layer: the reference broadcasts one zero cache to every layer,
 which is harmless where arrays are values, but the port writes caches in
-place, so every layer has tensors of its own. The forward/loss waits for the
-training slice.
+place, so every layer has tensors of its own.
+
+Training (`lm_forward`, `lm_loss`): the teacher-forced decoder over the
+whole token sequence, each encoder and decoder layer under the config's
+`remat_policy` (`transformer._remat`), as the reference remats its scan
+bodies; the cross K/V are computed once for every layer, outside them.
 """
 from __future__ import annotations
 
@@ -31,8 +34,18 @@ from .attention import (
     self_attention,
     slot_positions,
 )
-from .common import ParamInit, dtype_of, embed, init_embedding, resolve_device, rms_norm, unembed
+from .common import (
+    ParamInit,
+    dtype_of,
+    embed,
+    init_embedding,
+    resolve_device,
+    rms_norm,
+    softmax_cross_entropy,
+    unembed,
+)
 from .ffn import ffn, init_ffn
+from .transformer import _remat
 
 
 def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None, dtype=None):
@@ -63,21 +76,58 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None, dtype=None):
     }
 
 
+def _encoder_layer(cfg: ArchConfig, p_l, h: torch.Tensor) -> torch.Tensor:
+    attn_in = rms_norm(h, p_l["ln1"], eps=cfg.norm_eps)
+    h = h + self_attention(cfg, p_l["attn"], attn_in, causal=False)
+    ffn_in = rms_norm(h, p_l["ln2"], eps=cfg.norm_eps)
+    return h + ffn(cfg, p_l["ffn"], ffn_in)
+
+
 def encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tensor:
-    """frames: (B, T, d) stub frame embeddings -> (B, T, d)."""
+    """frames: (B, T, d) stub frame embeddings -> (B, T, d); each layer
+    under `remat_policy` (which does nothing with grad mode off: serving)."""
     cd = dtype_of(cfg.compute_dtype)
     h = frames.to(cd) + params["enc_pos"].to(cd)[None]
     for p_l in params["encoder"]:
-        attn_in = rms_norm(h, p_l["ln1"], eps=cfg.norm_eps)
-        h = h + self_attention(cfg, p_l["attn"], attn_in, causal=False)
-        ffn_in = rms_norm(h, p_l["ln2"], eps=cfg.norm_eps)
-        h = h + ffn(cfg, p_l["ffn"], ffn_in)
+        h = _remat(cfg, lambda x, p_l=p_l: _encoder_layer(cfg, p_l, x))(h)
     return rms_norm(h, params["enc_norm"], eps=cfg.norm_eps)
 
 
 def _decoder_cross_kv(cfg: ArchConfig, params, enc_out: torch.Tensor):
     """Each decoder layer's cross K/V: a list of (k, v), each (B, T, KV, hd)."""
     return [cross_attention_kv(cfg, p_l["cross"], enc_out) for p_l in params["decoder"]]
+
+
+def _decoder_layer(cfg: ArchConfig, p_l, h: torch.Tensor, ck: torch.Tensor,
+                   cv: torch.Tensor) -> torch.Tensor:
+    attn_in = rms_norm(h, p_l["ln1"], eps=cfg.norm_eps)
+    h = h + self_attention(cfg, p_l["attn"], attn_in, causal=True)
+    x_in = rms_norm(h, p_l["ln_x"], eps=cfg.norm_eps)
+    h = h + cross_attention(cfg, p_l["cross"], x_in, (ck, cv))
+    ffn_in = rms_norm(h, p_l["ln2"], eps=cfg.norm_eps)
+    return h + ffn(cfg, p_l["ffn"], ffn_in)
+
+
+def lm_forward(cfg: ArchConfig, params, tokens: torch.Tensor, frames: torch.Tensor):
+    """Teacher-forced decode over the full token sequence. tokens: (B, S);
+    frames: (B, T, d). Returns (logits (B, S, V), aux 0)."""
+    cd = dtype_of(cfg.compute_dtype)
+    enc_out = encode(cfg, params, frames)
+    cross_kv = _decoder_cross_kv(cfg, params, enc_out)
+    h = embed(params["embed"], tokens, compute_dtype=cd)
+    for p_l, (ck, cv) in zip(params["decoder"], cross_kv):
+        h = _remat(cfg, lambda x, k_, v_, p_l=p_l: _decoder_layer(cfg, p_l, x, k_, v_))(h, ck, cv)
+    h = rms_norm(h, params["final_norm"], eps=cfg.norm_eps)
+    logits = unembed(params["embed"], h, tie=cfg.tie_embeddings)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor, labels: torch.Tensor,
+            frames: torch.Tensor, *, z_loss: float = 1e-4, **_):
+    """Mean cross-entropy with the z-loss: (loss, {"ce_loss", "moe_aux"})."""
+    logits, _ = lm_forward(cfg, params, tokens, frames)
+    loss = softmax_cross_entropy(logits, labels, z_loss=z_loss)
+    return loss, {"ce_loss": loss, "moe_aux": torch.zeros_like(loss)}
 
 
 def init_states(cfg: ArchConfig, batch: int, max_len: int, *, device=None):

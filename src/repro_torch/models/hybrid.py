@@ -1,6 +1,6 @@
 """zamba2-style hybrid LM: a Mamba2 backbone and one SHARED attention block
 (attention + SwiGLU FFN) applied after every `shared_attn_interval` Mamba2
-layers. Port of the serving half of `repro/models/hybrid.py`.
+layers. Port of `repro/models/hybrid.py`.
 
 The reference stacks the Mamba2 layers for `jax.lax.scan` in groups of
 `shared_attn_interval`; the port keeps one parameter dict per layer in plain
@@ -13,8 +13,13 @@ weights, a different hidden stream), with no window.
 Serving state, every leaf batch-first (the slot decoders pack slot s of
 each leaf): ``{"mamba": [{"S", "conv"} per layer], "attn": [(k, v) per
 group], "mamba_tail": [...]}``. Mamba2 states are replaced by each prefill
-and decode step; the KV caches are written in place. The stateless
-forward and loss are training-side and come with the training slice.
+and decode step; the KV caches are written in place.
+
+Training (`lm_forward`, `lm_loss`) runs each group (its Mamba2 layers and
+the shared block, `_shared_attn_train`) under the config's `remat_policy`
+(`transformer._remat`), as the reference remats its group body: without it
+the backward keeps every Mamba2 layer's d_inner-wide intermediates. The
+tail layers run after, without.
 """
 from __future__ import annotations
 
@@ -28,11 +33,22 @@ from .attention import (
     init_attention,
     init_kv_cache,
     prefill_attention,
+    self_attention,
     slot_positions,
 )
-from .common import ParamInit, dtype_of, embed, init_embedding, resolve_device, rms_norm, unembed
+from .common import (
+    ParamInit,
+    dtype_of,
+    embed,
+    init_embedding,
+    resolve_device,
+    rms_norm,
+    softmax_cross_entropy,
+    unembed,
+)
 from .ffn import ffn, init_ffn
 from .ssm import init_mamba_block, mamba_forward, mamba_init_state
+from .transformer import _remat
 
 
 def group_structure(cfg: ArchConfig) -> Tuple[int, int, int]:
@@ -63,6 +79,43 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None, dtype=None):
     if n_tail:
         params["mamba_tail"] = [init_mamba_block(pi, cfg) for _ in range(n_tail)]
     return params
+
+
+def _shared_attn_train(cfg: ArchConfig, p, h: torch.Tensor) -> torch.Tensor:
+    """The shared block on a full sequence (causal, no cache)."""
+    attn_in = rms_norm(h, p["ln1"], eps=cfg.norm_eps)
+    h = h + self_attention(cfg, p["attn"], attn_in)
+    ffn_in = rms_norm(h, p["ln2"], eps=cfg.norm_eps)
+    return h + ffn(cfg, p["ffn"], ffn_in)
+
+
+def lm_forward(cfg: ArchConfig, params, tokens: torch.Tensor):
+    """Stateless forward: (logits (B, S, V) in the compute dtype, aux 0)."""
+    cd = dtype_of(cfg.compute_dtype)
+    g, n_groups, n_tail = group_structure(cfg)
+    shared = params["shared_attn"]
+    h = embed(params["embed"], tokens, compute_dtype=cd)
+
+    def group_body(grp, x):
+        for i in range(g):
+            x, _ = mamba_forward(cfg, params["mamba"][grp * g + i], x)
+        return _shared_attn_train(cfg, shared, x)
+
+    for grp in range(n_groups):
+        h = _remat(cfg, lambda x, grp=grp: group_body(grp, x))(h)
+    for p_l in params.get("mamba_tail", []):
+        h, _ = mamba_forward(cfg, p_l, h)
+    h = rms_norm(h, params["final_norm"], eps=cfg.norm_eps)
+    logits = unembed(params["embed"], h, tie=cfg.tie_embeddings)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor, labels: torch.Tensor, *,
+            z_loss: float = 1e-4, **_):
+    """Mean cross-entropy with the z-loss: (loss, {"ce_loss", "moe_aux"})."""
+    logits, _ = lm_forward(cfg, params, tokens)
+    loss = softmax_cross_entropy(logits, labels, z_loss=z_loss)
+    return loss, {"ce_loss": loss, "moe_aux": torch.zeros_like(loss)}
 
 
 def init_states(cfg: ArchConfig, batch: int, max_len: int, *, device=None):

@@ -1,7 +1,7 @@
 """Model zoo: one bundle of functions per architecture family, with the
 batch protocol of the reference's `repro/models/model_zoo.py`:
 
-    train batch:   {"tokens": (B,S), "labels": (B,S)}
+    train batch:   {"tokens": (B,S), "labels": (B,S)[, "patches" | "frames"]}
     prefill batch: {"tokens": (B,S)[, "patches" | "frames"]}
     decode batch:  {"tokens": (B,1), "pos": scalar or (B,)[, "per_slot": True]}
 
@@ -10,18 +10,21 @@ the ``vlm`` (paligemma: a vision prefix), ``audio`` (whisper: an
 encoder-decoder), the recurrent ``ssm`` (xlstm) and the ``hybrid`` (zamba2:
 Mamba2 + a shared attention block). The slot decoder marks its steps
 ``per_slot`` (every row its own request; MoE layers then never drop, as the
-reference's vmapped B=1 step). The transformers' and xlstm's losses are
-ported; the VLM's, the encoder-decoder's and the hybrid's wait for the next
-training slice."""
+reference's vmapped B=1 step). Every family's loss is ported, and
+`make_batch` draws a batch of any kind with the extra inputs the VLM and the
+encoder-decoder need (their token streams carry no patches or frames)."""
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
-from repro_torch.configs import ArchConfig
+import torch
+
+from repro_torch.configs import ArchConfig, ShapeConfig
 from . import encdec, hybrid, transformer, vlm, xlstm_model
 from .attention import paged_layout
+from .common import dtype_of, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,10 +66,70 @@ class ModelBundle:
     #: -> (logits (B,V), state): dense caches updated in place, recurrent
     #: states replaced
     decode_step: Callable
+    #: (seed or torch.Generator, ShapeConfig, device=None) -> batch of the
+    #: shape's kind (`make_batch` below)
+    make_batch: Callable = None
     #: paged KV-cache ops, or None for families without a paged decode path
     #: (recurrent states are O(1); the VLM and the encoder-decoder need
     #: prefill inputs the scheduler does not carry, as in the reference)
     paged_ops: PagedOps = None
+
+
+def _generator(key, device) -> torch.Generator:
+    """`key` as a generator: a `torch.Generator` as given, an int as the
+    seed of a new one on `device` (None: the current CUDA device)."""
+    if isinstance(key, torch.Generator):
+        return key
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed(int(key))
+    return gen
+
+
+def make_batch(cfg: ArchConfig, key, shape: ShapeConfig, *, device=None) -> dict:
+    """A random batch of `shape`'s kind, as the reference's `make_batch`
+    draws one (`repro/models/model_zoo.py`; torch's generator gives other
+    numbers than JAX's): tokens and labels uniform over the vocabulary, or
+    for decode one token and ``pos`` = seq_len - 1; the VLM's patches
+    (B, vision_tokens, vision_embed_dim) standard normal, its text the
+    seq_len less the vision prefix (train and prefill); the audio model's
+    frames (B, encoder_context, d_model) standard normal x 0.02; both in the
+    compute dtype. `key`: an int seed or a `torch.Generator`, whose device
+    the batch lands on (an int seeds a generator on `device`; None: the
+    current CUDA device)."""
+    gen = _generator(key, device)
+    dev = gen.device
+    cd = dtype_of(cfg.compute_dtype)
+    B, S = shape.global_batch, shape.seq_len
+    decode = shape.kind == "decode"
+    if cfg.family == "vlm" and not decode:
+        S -= cfg.vision_tokens
+
+    def tokens(n):
+        return torch.randint(0, cfg.vocab_size, (B, n), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    if shape.kind == "train":
+        batch = {"tokens": tokens(S), "labels": tokens(S)}
+    elif shape.kind == "prefill":
+        batch = {"tokens": tokens(S)}
+    else:
+        batch = {"tokens": tokens(1), "pos": torch.tensor(S - 1, dtype=torch.int32, device=dev)}
+    if not decode and cfg.family == "vlm":
+        batch["patches"] = torch.randn((B, cfg.vision_tokens, cfg.vision_embed_dim),
+                                       generator=gen, device=dev).to(cd)
+    if not decode and cfg.family == "audio":
+        batch["frames"] = torch.randn((B, cfg.encoder_context, cfg.d_model), generator=gen,
+                                      device=dev).to(cd) * 0.02
+    return batch
+
+
+def param_count(params) -> int:
+    """Elements in a parameter tree (nested dicts and lists of tensors)."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return params.numel()
 
 
 def build(cfg: ArchConfig) -> ModelBundle:
@@ -107,6 +170,7 @@ def _build_transformer(cfg: ArchConfig) -> ModelBundle:
         init_state=functools.partial(transformer.init_caches, cfg),
         make_prefill=make_prefill,
         decode_step=decode_step,
+        make_batch=functools.partial(make_batch, cfg),
         paged_ops=PagedOps(
             layout=functools.partial(paged_layout, cfg),
             init_pools=functools.partial(transformer.init_paged_caches, cfg),
@@ -121,9 +185,7 @@ def _build_vlm(cfg: ArchConfig) -> ModelBundle:
     P = cfg.vision_tokens
 
     def loss(params, batch):
-        raise NotImplementedError(
-            "the VLM loss is not ported yet: it comes with the next training slice "
-            "(the VLM, encoder-decoder and hybrid losses and a gated_linear_scan backward)")
+        return vlm.lm_loss(cfg, params, batch["tokens"], batch["labels"], batch["patches"])
 
     def make_prefill(max_len=None):
         def prefill(params, batch):
@@ -144,14 +206,13 @@ def _build_vlm(cfg: ArchConfig) -> ModelBundle:
         init_state=functools.partial(vlm.init_states, cfg),
         make_prefill=make_prefill,
         decode_step=decode_step,
+        make_batch=functools.partial(make_batch, cfg),
     )
 
 
 def _build_encdec(cfg: ArchConfig) -> ModelBundle:
     def loss(params, batch):
-        raise NotImplementedError(
-            "the encoder-decoder loss is not ported yet: it comes with the next training slice "
-            "(the VLM, encoder-decoder and hybrid losses and a gated_linear_scan backward)")
+        return encdec.lm_loss(cfg, params, batch["tokens"], batch["labels"], batch["frames"])
 
     def make_prefill(max_len=None):
         def prefill(params, batch):
@@ -172,6 +233,7 @@ def _build_encdec(cfg: ArchConfig) -> ModelBundle:
         init_state=functools.partial(encdec.init_states, cfg),
         make_prefill=make_prefill,
         decode_step=decode_step,
+        make_batch=functools.partial(make_batch, cfg),
     )
 
 
@@ -198,14 +260,13 @@ def _build_xlstm(cfg: ArchConfig) -> ModelBundle:
             cfg, batch, device=device),
         make_prefill=make_prefill,
         decode_step=decode_step,
+        make_batch=functools.partial(make_batch, cfg),
     )
 
 
 def _build_hybrid(cfg: ArchConfig) -> ModelBundle:
     def loss(params, batch):
-        raise NotImplementedError(
-            "the hybrid loss is not ported yet: it comes with the next training slice "
-            "(the VLM, encoder-decoder and hybrid losses and a gated_linear_scan backward)")
+        return hybrid.lm_loss(cfg, params, batch["tokens"], batch["labels"])
 
     def make_prefill(max_len=None):
         def prefill(params, batch):
@@ -226,4 +287,5 @@ def _build_hybrid(cfg: ArchConfig) -> ModelBundle:
         init_state=functools.partial(hybrid.init_states, cfg),
         make_prefill=make_prefill,
         decode_step=decode_step,
+        make_batch=functools.partial(make_batch, cfg),
     )

@@ -10,6 +10,10 @@ in layer order: unit u, layer j of the reference is layer ``unit_len * u +
 j``; tail layer t is layer ``unit_len * n_units + t`` (`models/bridge.py`
 maps one onto the other). Caches and pools are written in place.
 
+Training rematerialises activations as the reference's `remat_policy`
+says (`_remat`, with `torch.utils.checkpoint`): per unit on sliding-window
+archs, per layer otherwise, as the reference's scans apply it.
+
 MoE layers hold ``"moe"`` in place of ``"ffn"`` and dispatch with the
 reference's capacity: a batched step's rows compete for it. The slot
 decoder's step (``dropless=True`` in `lm_decode_step`) keeps the reference's
@@ -18,9 +22,10 @@ drops (`moe.moe_ffn`).
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Callable, List, Tuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs import ArchConfig
 from .attention import (
@@ -132,16 +137,71 @@ def _layer_body(cfg: ArchConfig, p_l, h: torch.Tensor, *, window: int, prefix_le
     return h + y, aux_loss
 
 
+#: the products `remat_policy="minimal"` keeps: those with no batch
+#: dimension (a (B, S, d) @ (d, n) projection reaches the dispatcher as one
+#: `mm`), what the reference's `dots_with_no_batch_dims_saveable` keeps
+SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _remat(cfg: ArchConfig, fn: Callable) -> Callable:
+    """`fn` under the reference's `remat_policy` (`repro/models/transformer.py
+    ::_remat`), through `torch.utils.checkpoint` (non-reentrant): ``"none"``
+    keeps every activation; ``"full"`` keeps only `fn`'s inputs and runs it
+    again in the backward; ``"minimal"`` keeps the outputs of the products
+    with no batch dimension (`SAVED_PRODUCTS`) and recomputes the rest. The
+    CUDA kernels launch outside the dispatcher, so no policy can keep their
+    outputs: under both policies the flash and scan forwards run again in
+    the backward, as the reference's attention and scan einsums (which have
+    batch dimensions) do. Gradients are the same under every policy; with
+    grad mode off `fn` just runs."""
+    policy = cfg.remat_policy
+    if policy == "none":
+        return fn
+    if policy not in ("minimal", "full"):
+        raise ValueError(f"remat_policy {policy!r}: need none, minimal or full")
+
+    def context():
+        if policy == "full":
+            return _ckpt.noop_context_fn()
+        return _ckpt.create_selective_checkpoint_contexts(list(SAVED_PRODUCTS))
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=context)
+
+    return run
+
+
+def _layer_groups(cfg: ArchConfig) -> List[List[int]]:
+    """The layers each remat region runs, in order: a unit of
+    `unit_structure` on sliding-window archs (then each tail layer alone),
+    one layer otherwise, as the reference's scans group them."""
+    unit_len, n_units, n_tail = unit_structure(cfg)
+    if not has_units(cfg):
+        return [[i] for i in range(cfg.num_layers)]
+    units = [list(range(u * unit_len, (u + 1) * unit_len)) for u in range(n_units)]
+    return units + [[n_units * unit_len + t] for t in range(n_tail)]
+
+
 def backbone_forward(cfg: ArchConfig, params, h: torch.Tensor, *, prefix_len: int = 0):
     """Run embedded inputs h: (B,S,d) through every layer (windows from
     `layer_windows`, as the reference's scan over units and tail gives them)
-    and the final norm. Returns (h, aux_loss summed over the layers). The
-    reference's `remat_policy` (activation rematerialisation) is not ported:
-    autograd keeps every layer's activations, which changes no number."""
+    and the final norm, each group of `_layer_groups` under `_remat`.
+    Returns (h, aux_loss summed over the layers)."""
+    layers, windows = params["layers"], layer_windows(cfg)
+
+    def group_body(idx, x):
+        aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in idx:
+            x, aux_l = _layer_body(cfg, layers[i], x, window=windows[i], prefix_len=prefix_len)
+            aux_g = aux_g + aux_l
+        return x, aux_g
+
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for p_l, w in zip(params["layers"], layer_windows(cfg)):
-        h, aux_l = _layer_body(cfg, p_l, h, window=w, prefix_len=prefix_len)
-        aux = aux + aux_l
+    for idx in _layer_groups(cfg):
+        h, aux_g = _remat(cfg, lambda x, idx=idx: group_body(idx, x))(h)
+        aux = aux + aux_g
     return rms_norm(h, params["final_norm"], eps=cfg.norm_eps), aux
 
 

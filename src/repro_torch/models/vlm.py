@@ -1,11 +1,13 @@
 """PaliGemma-style VLM for serving: a stub SigLIP frontend (precomputed
 patch embeddings) projected into the gemma backbone, with prefix-LM
 attention: bidirectional within the vision prefix, causal over the text.
-Port of the serving half of `repro/models/vlm.py`.
+Port of `repro/models/vlm.py`.
 
 Cache positions count the vision prefix: a prompt of S text tokens fills
 positions 0 .. P + S - 1 (P = ``cfg.vision_tokens``), and decoding goes on
-from P + S. The forward/loss waits for the training slice.
+from P + S. The forward and loss (`lm_forward`, `lm_loss`) run the same
+backbone with the prefix-LM mask over [vision prefix; text] and score the
+text positions only.
 """
 from __future__ import annotations
 
@@ -13,7 +15,15 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from . import transformer
-from .common import ParamInit, dtype_of, embed, resolve_device, rms_norm, unembed
+from .common import (
+    ParamInit,
+    dtype_of,
+    embed,
+    resolve_device,
+    rms_norm,
+    softmax_cross_entropy,
+    unembed,
+)
 
 
 def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None, dtype=None):
@@ -35,6 +45,23 @@ def _embed_multimodal(cfg: ArchConfig, params, tokens: torch.Tensor,
     h_vis = patches.to(cd) @ params["vision_proj"].to(cd)
     h_txt = embed(params["embed"], tokens, compute_dtype=cd)
     return torch.cat([h_vis, h_txt], dim=1)
+
+
+def lm_forward(cfg: ArchConfig, params, tokens: torch.Tensor, patches: torch.Tensor):
+    """tokens: (B, S_text); patches: (B, P, vision_embed_dim). Returns
+    (text-position logits (B, S_text, V), the backbone's aux loss)."""
+    P = cfg.vision_tokens
+    h = _embed_multimodal(cfg, params, tokens, patches)
+    h, aux = transformer.backbone_forward(cfg, params, h, prefix_len=P)
+    return unembed(params["embed"], h[:, P:], tie=cfg.tie_embeddings), aux
+
+
+def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor, labels: torch.Tensor,
+            patches: torch.Tensor, *, z_loss: float = 1e-4, **_):
+    """Cross-entropy over the text positions: (loss, {"ce_loss", "moe_aux"})."""
+    logits, aux = lm_forward(cfg, params, tokens, patches)
+    loss = softmax_cross_entropy(logits, labels, z_loss=z_loss)
+    return loss, {"ce_loss": loss, "moe_aux": aux}
 
 
 def init_states(cfg: ArchConfig, batch: int, max_len: int, *, device=None):

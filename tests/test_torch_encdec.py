@@ -150,8 +150,19 @@ def test_decode_matches_teacher_forcing(bundle):
 
 
 def test_loss_waits_for_the_training_slice(bundle):
-    with pytest.raises(NotImplementedError, match="training slice"):
-        bundle[2][0].loss({}, {})
+    """The training slice has landed: the bundle's loss (the teacher-forced
+    decoder over the encoded frames) is the reference's on the same tokens,
+    frames and weights (`tests/test_torch_train_families.py` holds its
+    gradient)."""
+    cfg, (_, jmodel, jparams), (model, params) = bundle
+    tokens, frames = _inputs(cfg)
+    labels = np.roll(tokens, -1, axis=1)
+    want, _ = jmodel.loss(jparams, {"tokens": tokens, "labels": labels, "frames": frames})
+    got, metrics = model.loss(params, {"tokens": torch.from_numpy(tokens),
+                                       "labels": torch.from_numpy(labels),
+                                       "frames": torch.from_numpy(frames)})
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    assert set(metrics) == {"ce_loss", "moe_aux"}
 
 
 def test_full_config_builds_on_meta_with_reference_shapes():

@@ -11,8 +11,8 @@ q_offset masks (rows with no key included) and G in {1, 4}.
 is tested where no kernel runs; so are the backward's variant rule, the
 split of its dK/dV walks and its scratch, which decide on the host. Tests
 marked ``gpu`` hold both backward variants against the plain version on the
-card and check that the four wrappers without a backward raise under grad
-mode there.
+card and check that the three wrappers without a backward raise under grad
+mode there (the scan's backward has its own tests, `test_torch_scan_bwd.py`).
 """
 import threading
 
@@ -158,13 +158,10 @@ def _no_backward_calls(device):
             z(2, dtype=torch.int32)),
         "fused_linear": lambda: tlinear.fused_linear(
             z(4, 8, requires_grad=True), z(8, 4), z(4)),
-        "gated_linear_scan": lambda: tscan.gated_linear_scan(
-            z(1, 2, 5, 8), z(1, 2, 5, 8), z(1, 2, 5, 4, requires_grad=True), z(1, 2, 5)),
     }
 
 
-@pytest.mark.parametrize("name", ["decode_attention", "paged_decode_attention", "fused_linear",
-                                  "gated_linear_scan"])
+@pytest.mark.parametrize("name", ["decode_attention", "paged_decode_attention", "fused_linear"])
 def test_wrappers_without_backward_refuse_grad_mode(name):
     """Under grad mode with an input that requires grad, a wrapper whose
     kernel has no backward raises before anything else (its output would
@@ -184,6 +181,34 @@ def test_flash_forward_refuses_grad_mode_outside_the_function():
         tflash.flash_attention(q, k, k)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         tflash.flash_attention(q, k, k)
+
+
+@pytest.mark.parametrize("normaliser", [False, True])
+def test_scan_forward_refuses_grad_mode_outside_the_function(normaliser):
+    """The scan's raw forward, like flash's, raises under grad mode with an
+    input that requires grad (its output would carry no gradient): training
+    goes through `ops.gated_linear_scan` (`GatedLinearScanFn`)."""
+    v = torch.zeros((1, 2, 5, 4), requires_grad=True)
+    q = torch.zeros((1, 2, 5, 8))
+    with pytest.raises(RuntimeError, match="ops.gated_linear_scan"):
+        tscan.gated_linear_scan(q, q, v, torch.zeros((1, 2, 5)), normaliser=normaliser)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        tscan.gated_linear_scan(q, q, v, torch.zeros((1, 2, 5)), normaliser=normaliser)
+
+
+def test_cpu_scan_stays_differentiable_and_launches_nothing():
+    tops.reset_launch_counts()
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 16, 8)).astype(np.float32))
+               .requires_grad_() for _ in range(3))
+    la = torch.from_numpy(-rng.random((1, 2, 16)).astype(np.float32)).requires_grad_()
+    y, _, nrm, _ = tops.gated_linear_scan(q, k, v, la, chunk=8, normaliser=True)
+    got = torch.autograd.grad(y.sum() + nrm.square().sum(), (q, k, v, la))
+    y2, _, nrm2, _ = tref.gated_linear_scan_normalised(q, k, v, la, chunk=8)
+    want = torch.autograd.grad(y2.sum() + nrm2.square().sum(), (q, k, v, la))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert set(tops.launch_counts().values()) == {0}
 
 
 def test_backward_wrapper_checks_its_operands():
@@ -457,8 +482,7 @@ def test_attention_gradient_goes_through_the_kernels_on_card(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["decode_attention", "paged_decode_attention", "fused_linear",
-                                  "gated_linear_scan"])
+@pytest.mark.parametrize("name", ["decode_attention", "paged_decode_attention", "fused_linear"])
 def test_wrappers_without_backward_refuse_grad_mode_on_card(cuda, name):
     with pytest.raises(RuntimeError, match="requires grad.*no backward"):
         _no_backward_calls(cuda)[name]()

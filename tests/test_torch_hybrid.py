@@ -306,8 +306,13 @@ def test_paged_mode_refused_as_in_reference(bundle, runtime):
     with pytest.raises(ValueError, match="no paged KV-cache path") as want:
         JaxScheduler(jmodel, jparams, max_batch=2, max_len=32, kv_mode="paged")
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model.loss(params, {})
+    # the training slice has landed: the loss is the reference's
+    tokens = np.random.default_rng(3).integers(1, model.cfg.vocab_size, (2, 16)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    want_loss, _ = jmodel.loss(jparams, {"tokens": tokens, "labels": labels})
+    got_loss, _ = model.loss(params, {"tokens": torch.from_numpy(tokens),
+                                      "labels": torch.from_numpy(labels)})
+    np.testing.assert_allclose(float(got_loss), float(want_loss), rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------

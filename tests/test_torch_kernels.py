@@ -438,7 +438,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert tops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
                                     "paged_decode_attention": 0, "decode_attention": 0,
-                                    "fused_linear": 0, "gated_linear_scan": 0}
+                                    "fused_linear": 0, "gated_linear_scan": 0,
+                                    "gated_linear_scan_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -731,6 +732,7 @@ def test_variant_counts_start_at_zero_and_reset():
         "decode_attention": {"simt": 0, "mma": 0},
         "fused_linear": {"simt": 0, "simt_tiled": 0, "wgmma": 0},
         "gated_linear_scan": {"simt": 0, "mma": 0, "step": 0},
+        "gated_linear_scan_bwd": {"simt": 0},
     }
 
 

@@ -131,8 +131,19 @@ def test_decode_matches_teacher_forcing(bundle):
 
 
 def test_loss_waits_for_the_training_slice(bundle):
-    with pytest.raises(NotImplementedError, match="training slice"):
-        bundle[2][0].loss({}, {})
+    """The training slice has landed: the bundle's loss (prefix-LM over the
+    vision prefix, cross-entropy on the text) is the reference's on the same
+    tokens, patches and weights (`tests/test_torch_train_families.py` holds
+    its gradient)."""
+    cfg, (_, jmodel, jparams), (model, params) = bundle
+    tokens, patches = _inputs(cfg)
+    labels = np.roll(tokens, -1, axis=1)
+    want, _ = jmodel.loss(jparams, {"tokens": tokens, "labels": labels, "patches": patches})
+    got, metrics = model.loss(params, {"tokens": torch.from_numpy(tokens),
+                                       "labels": torch.from_numpy(labels),
+                                       "patches": torch.from_numpy(patches)})
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    assert set(metrics) == {"ce_loss", "moe_aux"}
 
 
 def test_full_config_builds_on_meta_with_reference_shapes():

@@ -205,19 +205,20 @@ def test_bare_runtime_builds_the_hostcpu_managers_as_the_reference():
         assert type(rt.compute_manager).__name__ == type(jrt.compute_manager).__name__
 
 
-def test_transformer_loss_is_not_ported_yet():
-    """The transformer loss is ported now (`tests/test_torch_train.py` holds it
-    against the reference); the families whose losses are not yet (the VLM,
-    the encoder-decoder, the hybrid) still raise."""
-    cfg = get_config("gemma3-1b", reduced=True)
-    model = build(cfg)
-    tokens = torch.zeros((1, 8), dtype=torch.int32)
-    loss, metrics = model.loss(model.init(seed=0, device="cpu"),
-                               {"tokens": tokens, "labels": tokens})
-    assert torch.isfinite(loss) and set(metrics) == {"ce_loss", "moe_aux"}
-    for arch in ("paligemma-3b", "whisper-small", "zamba2-7b"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build(get_config(arch, reduced=True)).loss({}, {})
+def test_every_family_loss_is_finite_with_its_metrics():
+    """Every family's `ModelBundle.loss` is ported (the reference's for the
+    transformers, the VLM, the encoder-decoder, xlstm and the hybrid): on a
+    `make_batch` batch it returns a finite loss with {"ce_loss",
+    "moe_aux"} (`tests/test_torch_train_families.py` holds each against the
+    reference)."""
+    from repro_torch.configs import ARCH_IDS, ShapeConfig
+
+    for arch in ARCH_IDS:
+        model = build(get_config(arch, reduced=True))
+        batch = model.make_batch(0, ShapeConfig("t", 16, 1, "train"), device="cpu")
+        loss, metrics = model.loss(model.init(seed=0, device="cpu"), batch)
+        assert torch.isfinite(loss) and loss.shape == (), arch
+        assert set(metrics) == {"ce_loss", "moe_aux"}, arch
 
 
 # ---------------------------------------------------------------------------
