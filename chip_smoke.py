@@ -84,8 +84,12 @@ nothing of JAX or of the JAX package. Phases:
    xlstm-125m's training shape (B=4, H=4, S=2048, dk=dv=384, bf16, the
    normaliser), Mamba2's at zamba2-7b's widths (B=2, H=32, S=1024, dk 64, dv
    224, q broadcast over the heads), carried states with final-state
-   gradients at S = 777 and 45, and fp32 (REDUCED and xlstm's widths), and
-   at the two training shapes timed warm and cold beside its plain version;
+   gradients at S = 777 and 45, chunk and tile edges (S = 33 and 2048 + 17
+   at xlstm's widths, Mamba2 at dv 200) and fp32 (REDUCED and xlstm's
+   widths), each case on the variant `backward_variant` names (mma: bf16
+   with 16-byte rows, dk <= 384, at most 8 column tiles; simt: the rest),
+   and at the two training shapes the mma variant timed warm and cold
+   beside the simt variant on the same operands and the plain version;
 4. reduced: REDUCED gemma3-1b in fp32 (TF32 off): prefill plus 16
    teacher-forced paged decode ticks on the card against the same functions
    on the CPU;
@@ -163,8 +167,8 @@ nothing of JAX or of the JAX package. Phases:
 21. serve-fleet: full gemma3-1b through 2 workers x 4 slots (paged) on
    phase 5's requests: tok/s beside phase 5's, TTFT at the router, peak
    memory, both workers settle work, exact launch counts; then a
-   kill-and-respawn on one worker must not raise the card's peak memory by
-   a pool;
+   kill-and-respawn on one worker, two runs in turns with two plain ones,
+   must not raise the card's peak memory by a pool;
 22. apps: the paper's Test Cases 3 and 4 (Fibonacci, Jacobi local and over
    2 localsim instances) on the machine's host against their oracles;
 23. reduced-moe: grok-1 and kimi-k2 REDUCED in fp32 on the card against the
@@ -209,14 +213,15 @@ nothing of JAX or of the JAX package. Phases:
    scan forward and backward on the kernels;
 33. train-xlstm: full-width xlstm-125m, B=4 x S=2048, 6 steps through the
    launcher: 29's and 30's checks (the step-0 loss against the plain scan's),
-   9 scan forward (`mma`) and 9 backward launches a step; ms a step,
+   9 scan forward and 9 backward launches a step, all on `mma`; ms a step,
    training tok/s, peak memory, the sLSTM blocks' share of a step, one step
    traced on the device (idle share, top kernels, the scan backward's share);
 34. train-zamba2: zamba2-7b at its published widths, depth cut to 13 layers
    (two groups of 6 and a tail layer), B=2 x S=1024, 4 steps: the same
    checks, flash `simt` forward and backward at hd 112 once per group (the
-   forward twice under "minimal"), the scan per layer; parameters and bytes,
-   flash's share of a traced step;
+   forward twice under "minimal"), the scan per layer (forward and backward
+   on `mma`); parameters and bytes, flash's and the scan backward's shares
+   of a traced step;
 35. train-bundles: full-width paligemma-3b (256 patch embeddings + 256
    tokens) and whisper-small (1500 frames x 0.02 + 448 tokens), B=2, 3 steps
    on `make_batch` batches: the same checks, every flash launch on wgmma.
@@ -1774,6 +1779,14 @@ SCAN_BWD_CASES = (
          init=True, d_state=True),
     dict(tag="mamba2-45-state", B=2, H=32, S=45, dk=64, dv=224, dtype="bfloat16", mamba=True,
          init=True, d_state=True),
+    # the mma kernel's chunk and tile edges: S = 33 (two chunks, the second
+    # of one position) and 2048 + 17 at xlstm's widths; Mamba2 at dv 200
+    # (three tiles of 64 and one of 8 columns)
+    dict(tag="xlstm-33-state", B=1, H=4, S=33, dk=384, dv=384, dtype="bfloat16", norm=True,
+         init=True, d_state=True),
+    dict(tag="xlstm-2065", B=1, H=4, S=2048 + 17, dk=384, dv=384, dtype="bfloat16", norm=True),
+    dict(tag="mamba2-dv200-state", B=2, H=8, S=100, dk=64, dv=200, dtype="bfloat16",
+         mamba=True, init=True, d_state=True),
     # fp32: REDUCED xlstm (ragged), REDUCED Mamba2, xlstm's widths
     dict(tag="fp32-reduced", B=2, H=4, S=45, dk=32, dv=32, dtype="float32", norm=True,
          init=True, d_state=True),
@@ -1835,11 +1848,18 @@ def check_scan_bwd(torch, gen) -> dict:
     (autograd through the plain chunked scan, at a chunk of at most 16 as
     `check_scan` holds the forward) at `SCAN_BWD_CASES`: max |d| / max
     |plain| of dq, dk, dv, dlog_a and the initial states' gradients within
-    2e-2 (bf16) and 1e-4 (fp32), finite, on its one variant. Then, at
-    xlstm's and Mamba2's training shapes, the kernel warm (CUDA events and
-    the profiler's device time) and with its inputs cold in L2, and the
-    plain version at the models' chunk; no single PyTorch call computes this
-    gradient."""
+    2e-2 (bf16) and 1e-4 (fp32), finite, each case on the variant
+    `backward_variant` names, which must be `mma` for bf16 and `simt` for
+    fp32. Then, at xlstm's and Mamba2's training shapes, the mma kernel warm
+    and with its inputs cold in L2, the simt kernel on the same operands,
+    and the plain version at the models' chunk; no single PyTorch call
+    computes this gradient. Both kernels run for milliseconds a call, so
+    back-to-back calls keep the card busy and CUDA events time the device
+    (`device_ms` here); a profiler trace late in a long run was seen to
+    record only part of these kernels' device time (0.41 and 0.33 of the
+    events' at xlstm's shape), so its reading is kept apart
+    (`profiler_device_ms`)."""
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import linear_scan, ref
     from repro_torch.models.ssm import _chunk_for
 
@@ -1847,6 +1867,9 @@ def check_scan_bwd(torch, gen) -> dict:
     worst_abs, worst_rel, worst_tol, timings = 0.0, 0.0, None, {}
     for case in SCAN_BWD_CASES:
         q, k, v, log_a, dy, ds, kw = _scan_bwd_case(torch, gen, **case)
+        norm = bool(kw.get("normaliser"))
+        want_kind = "mma" if case["dtype"] == "bfloat16" else "simt"
+        rule = linear_scan.backward_variant(q, k, v, normaliser=norm)
         results = []
         ran = launched_variant(linear_scan.backward, lambda: results.append(
             linear_scan.gated_linear_scan_backward(q, k, v, log_a, dy, ds, **kw)))
@@ -1866,36 +1889,61 @@ def check_scan_bwd(torch, gen) -> dict:
             worst_abs = max(worst_abs, diff)
             if rel[name] > worst_rel:
                 worst_rel, worst_tol = rel[name], tol
-        ok = ran == "simt" and max(rel.values()) <= tol
+        ok = ran == rule == want_kind and max(rel.values()) <= tol
         desc = ", ".join(f"{k_}={v_}" for k_, v_ in case.items() if k_ != "tag")
-        log(f"[kernels] gated_linear_scan_bwd {case['tag']} ({desc}; {ran}): max |d| / max "
-            f"|plain| " + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
+        log(f"[kernels] gated_linear_scan_bwd {case['tag']} ({desc}; {ran}, the rule's "
+            f"{rule}): max |d| / max |plain| " + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
             + f" (tol {tol}) {'ok' if ok else 'FAIL'}")
-        require(ok, f"gated_linear_scan_bwd disagrees with its plain version ({case['tag']})")
+        require(ok, f"gated_linear_scan_bwd disagrees with its plain version or ran {ran} "
+                    f"({case['tag']})")
         del results, want
         if case["tag"] in ("xlstm-train", "mamba2-train"):
             chunk = _chunk_for(case["S"])
+            B, H, S, dk = q.shape
+            cols = v.shape[-1] + int(norm)
+            tile = linear_scan.backward_tile_columns(B, H, cols, kbuild.sm_count(q.device))
             kern = lambda q_, k_, v_, la_, dy_: linear_scan.gated_linear_scan_backward(  # noqa
                 q_, k_, v_, la_, dy_, ds, **kw)
+            simt = lambda: linear_scan.gated_linear_scan_backward(  # noqa: E731
+                q, k, v, log_a, dy, ds, variant="simt", **kw)
             plain = lambda: ref.gated_linear_scan_backward(  # noqa: E731
                 q, k, v, log_a, dy, ds, chunk=chunk, **kw)
-            t = dict(ms=time_ms(torch, lambda: kern(q, k, v, log_a, dy), iters=5, warmup=1),
-                     plain_ms=time_ms(torch, plain, iters=3, warmup=1),
-                     device_ms=device_ms(torch, lambda: kern(q, k, v, log_a, dy), iters=5),
-                     plain_device_ms=device_ms(torch, plain, iters=3))
             ins = (q, k, v, log_a, dy)
-            t["cold_device_ms"] = cold_device_ms(torch, kern, ins, sum(
-                x.untyped_storage().nbytes() for x in ins))
+            copies = [tuple(x.clone() for x in ins) for _ in range(2 * L2_BYTES // sum(
+                x.untyped_storage().nbytes() for x in ins) + 2)]
+            turn = iter(range(1 << 30))
+            t = dict(ms=time_ms(torch, lambda: kern(*ins), iters=5, warmup=1),
+                     simt_ms=time_ms(torch, simt, iters=3, warmup=1),
+                     plain_ms=time_ms(torch, plain, iters=3, warmup=1),
+                     plain_device_ms=device_ms(torch, plain, iters=3),
+                     profiler_device_ms=device_ms(torch, lambda: kern(*ins), iters=5),
+                     cold_device_ms=time_ms(
+                         torch, lambda: kern(*copies[next(turn) % len(copies)]),
+                         iters=2 * len(copies), warmup=1))
+            del copies
+            t.update(device_ms=t["ms"], simt_device_ms=t["simt_ms"])
             bound, by, n_bytes, flops = _scan_bwd_bound_ms(q, k, v, log_a, dy, ds, kw,
                                                            case["dtype"])
             t.update(bound_ms=bound, bound_by=by, tflops=flops / (t["device_ms"] * 1e-3) / 1e12,
+                     simt_tflops=flops / (t["simt_device_ms"] * 1e-3) / 1e12, tile=tile,
+                     tiles=-(-cols // tile),
+                     smem_bytes=linear_scan.backward_mma_smem_bytes(tile, dk),
+                     max_clusters=linear_scan.backward_mma_max_clusters(tile, dk, cols),
                      shape=f"{case['tag']}: {desc}")
-            log(f"[kernels] gated_linear_scan_bwd timing {case['tag']} ({desc}): kernel "
-                f"{t['ms']:.4f} ms, device {t['device_ms']:.4f} ms ({t['cold_device_ms']:.4f} ms "
-                f"with the inputs cold in L2); plain (chunk {chunk}) {t['plain_ms']:.4f} ms, "
-                f"device {t['plain_device_ms']:.4f}; bound {bound * 1e3:.2f} us ({by}: "
-                f"{n_bytes} B, {flops} FLOP; kernel at {t['device_ms'] / bound:.1f}x the bound); "
-                f"{t['tflops']:.3f} TFLOP/s on the device time")
+            log(f"[kernels] gated_linear_scan_bwd timing {case['tag']} ({desc}): mma kernel "
+                f"{t['ms']:.4f} ms a call back to back ({t['cold_device_ms']:.4f} ms with the "
+                f"inputs cold in L2; a profiler trace read {t['profiler_device_ms']:.4f}); simt "
+                f"on the same operands {t['simt_ms']:.4f} ms; plain (chunk {chunk}) "
+                f"{t['plain_ms']:.4f} ms, device {t['plain_device_ms']:.4f}; bound "
+                f"{bound * 1e3:.2f} us ({by}: "
+                f"{n_bytes} B, {flops} FLOP; mma at {t['device_ms'] / bound:.1f}x the bound, simt "
+                f"at {t['simt_device_ms'] / bound:.1f}x); {t['tflops']:.3f} TFLOP/s (simt "
+                f"{t['simt_tflops']:.3f}) on these times; {tile} columns a block, clusters of "
+                f"{t['tiles']}, {t['max_clusters']} clusters on the card at once, "
+                f"{t['smem_bytes']} B of dynamic shared memory a block")
+            require(t["device_ms"] < t["simt_device_ms"],
+                    f"gated_linear_scan_bwd: mma {t['device_ms']:.4f} ms is not below simt's "
+                    f"{t['simt_device_ms']:.4f} at {case['tag']}")
             timings[case["tag"]] = t
         del q, k, v, log_a, dy, ds, kw
     main, mamba = timings["xlstm-train"], timings["mamba2-train"]
@@ -1915,15 +1963,21 @@ def check_scan_bwd(torch, gen) -> dict:
         "device_ms": main["device_ms"],
         "plain_device_ms": main["plain_device_ms"],
         "cold_device_ms": main["cold_device_ms"],
+        "profiler_device_ms": main["profiler_device_ms"],
         "bound_ms": main["bound_ms"],
         "bound_us": main["bound_ms"] * 1e3,
         "bound_by": main["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this gradient
         "library_device_ms": None,
         "tflops": main["tflops"],
-        "variant": "simt",
+        "variant": "mma",
         "timed_shape": main["shape"],
-        "other_timings": [mamba],
+        "other_timings": [
+            mamba,
+            {"variant": "simt", "shape": main["shape"], "ms": main["simt_ms"],
+             "device_ms": main["simt_device_ms"], "tflops": main["simt_tflops"]},
+            {"variant": "simt", "shape": mamba["shape"], "ms": mamba["simt_ms"],
+             "device_ms": mamba["simt_device_ms"], "tflops": mamba["simt_tflops"]}],
     }
 
 
@@ -3598,8 +3652,9 @@ def phase_reduced_fleet(torch) -> None:
 
 def phase_serve_fleet(torch, serve_tokens: dict, serve_tok_s: float) -> dict:
     """Full-width gemma3-1b through a 2-worker fleet (4 slots each, paged) on
-    the 16 synthetic requests, then a kill-and-respawn beside a plain run on
-    one worker, both on 4 requests, for the card's memory. Returns the
+    the 16 synthetic requests, then two kill-and-respawn runs in turns with
+    two plain runs on one worker, each on 4 requests, for the card's memory.
+    Returns the
     timed fleet run's launch counts."""
     import numpy as np
 
@@ -3704,11 +3759,14 @@ def phase_serve_fleet(torch, serve_tokens: dict, serve_tok_s: float) -> dict:
 
     # kill-and-respawn on one worker beside the same run without the kill: a
     # killed worker's pool must be freed when its thread ends, so the card's
-    # peak does not grow by a pool when its replacement allocates its own
+    # peak does not grow by a pool when its replacement allocates its own.
+    # The two run in turns, plain, kill, plain, kill: the plain runs' peaks
+    # show the baseline's own spread, and each kill run is held below the
+    # larger of them plus half a pool (a leak adds a whole pool to both)
     few = synthetic_requests(cfg.vocab_size, 4, prompt_range=(64, 257), steps_range=(24, 33),
                              seed=2)
-    peaks, results = {}, {}
-    for kill in (False, True):
+    peaks, results = {False: [], True: []}, {}
+    for kill in (False, True, False, True):
         state, hook = _kill_mid_stream(2)
         gc.collect()
         torch.cuda.synchronize()
@@ -3718,7 +3776,7 @@ def phase_serve_fleet(torch, serve_tokens: dict, serve_tok_s: float) -> dict:
             res = run_fleet(model, params, few, n_workers=1, respawn=kill,
                             on_forward=hook if kill else None, **fleet)
         torch.cuda.synchronize()
-        peaks[kill] = torch.cuda.max_memory_allocated() - base
+        peaks[kill].append(torch.cuda.max_memory_allocated() - base)
         gc.collect()
         left = torch.cuda.memory_allocated() - base
         results[kill] = {rid: r.get("tokens") for rid, r in res.results.items()}
@@ -3728,12 +3786,15 @@ def phase_serve_fleet(torch, serve_tokens: dict, serve_tok_s: float) -> dict:
             require(state["worker"] is not None and res.stats["workers_spawned"] == 2
                     and state["victim"] in res.stats["restarted"],
                     f"kill-and-respawn did not happen: {state}, {res.stats}")
-    log(f"[serve-fleet] kill-and-respawn on one worker (4 requests, prompts 64-256): peak "
-        f"device memory above the weights {peaks[True] / 2**20:.1f} MiB against "
-        f"{peaks[False] / 2**20:.1f} MiB without the kill (one worker's pool: "
-        f"{pool_bytes / 2**20:.1f} MiB); tokens equal to the run without the kill: "
-        f"{results[True] == results[False]} (reported: bf16)")
-    require(peaks[True] < peaks[False] + pool_bytes // 2,
+    mib = lambda xs: ", ".join(f"{x / 2**20:.1f}" for x in xs)  # noqa: E731
+    limit = max(peaks[False]) + pool_bytes // 2
+    log(f"[serve-fleet] kill-and-respawn on one worker (4 requests, prompts 64-256), in turns "
+        f"plain, kill, plain, kill: peak device memory above the weights {mib(peaks[True])} MiB "
+        f"with the kill against {mib(peaks[False])} MiB without (limit {limit / 2**20:.1f} MiB:"
+        f" the larger plain peak plus half of one worker's pool, {pool_bytes / 2**20:.1f} MiB);"
+        f" tokens equal to the run without the kill: {results[True] == results[False]} "
+        f"(reported: bf16)")
+    require(all(p < limit for p in peaks[True]),
             "the card's peak memory grew by a pool over a kill-and-respawn")
     del params
     return counts
@@ -4705,7 +4766,7 @@ def phase_train_xlstm(torch) -> tuple:
             and sum(counts.values()) == 2 * m * steps,
             f"expected {m} scan forward and {m} backward launches a step: {counts}")
     require_variant(variants, "gated_linear_scan", "mma", m * steps, "train-xlstm")
-    require_variant(variants, "gated_linear_scan_bwd", "simt", m * steps, "train-xlstm")
+    require_variant(variants, "gated_linear_scan_bwd", "mma", m * steps, "train-xlstm")
 
     # the sLSTM blocks alone, forward and backward, on the step's shape
     batch = tts.batch_to(stream._batch_for(steps), "cuda")
@@ -4742,7 +4803,7 @@ def phase_train_xlstm(torch) -> tuple:
 ZAMBA2_TRAIN_LAYERS = 13
 
 
-def phase_train_zamba2(torch) -> dict:
+def phase_train_zamba2(torch) -> tuple:
     """zamba2-7b at its published widths (d_model 3584, 32 heads of 112,
     Mamba2 state 64, vocab 32000), depth cut to `ZAMBA2_TRAIN_LAYERS`
     (`cfg.replace(num_layers=13)`): fp32 masters, bf16 compute, AdamW, B=2 x
@@ -4801,17 +4862,18 @@ def phase_train_zamba2(torch) -> dict:
     require_variant(variants, "flash_attention", "simt", fwd * steps, "train-zamba2")
     require_variant(variants, "flash_attention_bwd", "simt", bwd * steps, "train-zamba2")
     require_variant(variants, "gated_linear_scan", "mma", sfwd * steps, "train-zamba2")
+    require_variant(variants, "gated_linear_scan_bwd", "mma", sbwd * steps, "train-zamba2")
     br = _traced_step(torch, model, params, batches[steps])
     _log_breakdown("train-zamba2", br)
     flash_s = br["by_group_s"]["flash forward"] + br["by_group_s"]["flash backward"]
     log(f"[train-zamba2] the shared attention's flash simt forward and backward: "
         f"{flash_s * 1e3:.2f} of {br['busy_s'] * 1e3:.2f} ms of the traced step's device time "
         f"({flash_s / br['busy_s']:.4f}); the scan backward "
-        f"{br['by_group_s']['scan backward'] * 1e3:.2f} ms")
+        f"{br['by_group_s']['scan backward'] * 1e3:.2f} ms ({sbwd} calls)")
     del params, opt_state, batches
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, variants
 
 
 #: the bundles' training shapes: B=2; paligemma 256 patch embeddings + 256
@@ -4957,7 +5019,8 @@ def main() -> int:
         run_phase("reduced-train-families", phase_reduced_train_families, torch)
         xlstm_train_counts, xlstm_train_variants = run_phase("train-xlstm", phase_train_xlstm,
                                                              torch)
-        zamba2_train_counts = run_phase("train-zamba2", phase_train_zamba2, torch)
+        zamba2_train_counts, zamba2_train_variants = run_phase("train-zamba2",
+                                                               phase_train_zamba2, torch)
         bundle_train_counts = run_phase("train-bundles", phase_train_bundles, torch)
         log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
@@ -4982,8 +5045,11 @@ def main() -> int:
         k["launches"] = sum(k["launches_by_path"].values())
         if k["name"] == "flash_attention_bwd":  # the gemma3 train path's launches by variant
             k["launches_by_variant"] = train_variants["flash_attention_bwd"]
-        if k["name"] == "gated_linear_scan_bwd":
-            k["launches_by_variant"] = xlstm_train_variants["gated_linear_scan_bwd"]
+        if k["name"] == "gated_linear_scan_bwd":  # train-xlstm's and train-zamba2's
+            k["launches_by_variant"] = {
+                kind: xlstm_train_variants["gated_linear_scan_bwd"][kind]
+                + zamba2_train_variants["gated_linear_scan_bwd"][kind]
+                for kind in xlstm_train_variants["gated_linear_scan_bwd"]}
         log(f"[kernels] {k['name']}: {k['device_ms']:.4f} ms device, {k['tflops']:.3f} TFLOP/s "
             f"at {k['timed_shape']}; library device ms {k['library_device_ms']}; "
             f"{k['launches']} launches on the paths, by path {k['launches_by_path']}")

@@ -62,6 +62,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "scan_core.cuh"
 
 namespace {
 
@@ -121,25 +122,10 @@ __device__ __forceinline__ float v_at(const Args& a, const T* vb, int s, int c) 
   return (c == a.dv && has_norm(a)) ? 1.f : 0.f;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
+using repro::scan::cp_async16;
+using repro::scan::cp_async4;
+using repro::scan::cp_async_commit;
+using repro::scan::cp_async_wait;
 
 // ---------------------------------------------------------------------------
 // scan_mma_kernel: bf16 products on the tensor cores
@@ -207,11 +193,7 @@ struct Smem {
   }
 };
 
-// x0, x1 as bf16x2 hi = bf16(x) and lo = bf16(x - hi): hi + lo is x to ~2^-17.
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  hi = pack_bf16x2(x0, x1);
-  lo = pack_bf16x2(x0 - __uint_as_float(hi << 16), x1 - __uint_as_float(hi & 0xffff0000u));
-}
+using repro::scan::split2;
 
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                     uint32_t b1) {

@@ -1,7 +1,8 @@
 // Inline-PTX wrappers of the warp-level tensor-core pieces the decode core's
-// bf16 walk uses (sm_80 and later, so Hopper): `ldmatrix` of 8 x 8 bf16
-// tiles from shared memory, plain and transposed, and `mma.sync` m16n8k16
-// with bf16 inputs and an fp32 accumulator.
+// bf16 walk and the scan's kernels use (sm_80 and later, so Hopper):
+// `ldmatrix` of 8 x 8 bf16 tiles from shared memory, plain and transposed,
+// `movmatrix` (an 8 x 8 bf16 fragment transposed in registers) and
+// `mma.sync` m16n8k16 with bf16 inputs and an fp32 accumulator.
 //
 // Fragment layouts (lane l, g = l / 4, c = 2 * (l % 4)):
 // * A (16 x 16, row-major), four .b32 of two bf16: a0 (row g, cols c, c+1),
@@ -57,6 +58,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The transpose of an 8 x 8 bf16 tile held as a fragment (lane l: row g,
+// columns c, c+1, packed low first), in the same layout: lane l gets row g,
+// columns c, c+1 of the transposed tile. An fp32 accumulator tile packed by
+// `pack_bf16x2` is such a fragment.
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
+  uint32_t r;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;" : "=r"(r) : "r"(x));
+  return r;
 }
 
 // Two floats as bf16 (round to nearest even), lo in the low half.

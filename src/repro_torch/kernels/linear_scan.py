@@ -51,9 +51,21 @@ nothing but the inputs is saved. `GatedLinearScanFn` wires it into
 autograd; `kernels/ops.py::gated_linear_scan` takes that Function on CUDA
 whenever grad mode is on and an input requires grad; called directly under
 grad mode with such an input, `gated_linear_scan` raises rather than return
-an output that autograd would silently cut off. One variant, ``simt``
-(exact fp32 FMA on CUDA cores, fp32 and bf16 inputs); its three launches a
-call count once in `backward.launches` and `backward.variant_launches`.
+an output that autograd would silently cut off. Two variants, by an explicit
+rule (`backward_variant`), each call counted once in `backward.launches`
+and `backward.variant_launches`:
+
+* ``mma``: bf16 operands that `mma_layout_error` accepts (dk <= 384, dk and
+  dv multiples of 8, 16-byte rows; Mamba2's stride-0 q included) and at most
+  `BWD_MMA_MAX_TILES` column tiles: the chunkwise gradient on the tensor
+  cores. A block owns `backward_tile_columns` extended state columns and
+  all of dk; the tiles of one (b, h) form a thread-block cluster that adds
+  their dq and dk partials through distributed shared memory, so no partial
+  reaches device memory. Two launches a call (the walks, then the fp64
+  reverse sum of dlog_a).
+* ``simt``: the rest (fp32, whose 1e-4 parity rests on exact FMA): the
+  per-position walks on CUDA cores, their column tiles' partials summed by
+  a second kernel. Three launches a call.
 """
 from __future__ import annotations
 
@@ -71,15 +83,18 @@ STEP_MAX_S = 16  # the step kernel's positions
 MMA_TILES = (16, 32, 64)  # state columns a block of the tensor-core kernel owns
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANT_CODES = {"simt": 0, "mma": 1, "step": 2}
-BWD_TILE = 32  # extended state columns a block of the backward's walk owns
+BWD_TILE = 32  # extended state columns a block of the backward's simt walk owns
+BWD_MMA_TILES = (16, 32, 64)  # extended state columns a block of the backward's mma kernel owns
+BWD_MMA_MAX_TILES = 8  # column tiles of one (b, h): one cluster of at most 8 blocks
+BWD_VARIANT_CODES = {"simt": 0, "mma": 1}
 
 #: Kernel launches made by this process (one per call of `gated_linear_scan`).
 launches = 0
 #: The same launches by variant.
 variant_launches = {kind: 0 for kind in VARIANT_CODES}
-#: Calls of `gated_linear_scan_backward` (three launches a call, counted
-#: once), and the same calls by variant.
-backward = build.LaunchCounter(("simt",))
+#: Calls of `gated_linear_scan_backward` (two or three launches a call,
+#: counted once), and the same calls by variant.
+backward = build.LaunchCounter(tuple(BWD_VARIANT_CODES))
 
 
 @functools.cache
@@ -222,17 +237,78 @@ def gated_linear_scan(
 def _backward_entry():
     fn = build.load().gated_linear_scan_bwd
     fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 22
-                   + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def backward_scratch_elements(B: int, H: int, S: int, dk: int, dv: int, normaliser: bool) -> int:
+def backward_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     normaliser: bool = False) -> str:
+    """The kernel `gated_linear_scan_backward` launches for these operands
+    (see the module note): ``mma`` for bf16 that `mma_layout_error` accepts
+    with at most `BWD_MMA_MAX_TILES` tiles of the widest column tile, else
+    ``simt``."""
+    columns = v.shape[-1] + int(normaliser)
+    if (q.dtype == torch.bfloat16 and mma_layout_error(q, k, v) is None
+            and columns <= BWD_MMA_MAX_TILES * BWD_MMA_TILES[-1]):
+        return "mma"
+    return "simt"
+
+
+def backward_tile_columns(B: int, H: int, columns: int, sms: int) -> int:
+    """Extended state columns a block of the backward's mma kernel owns: as
+    `tile_columns`, the narrowest tile whose grid fits one wave of `sms`
+    multiprocessors, among those that cut `columns` into at most
+    `BWD_MMA_MAX_TILES` tiles (one cluster), else the widest."""
+    for tile in BWD_MMA_TILES:
+        tiles = -(-columns // tile)
+        if tiles <= BWD_MMA_MAX_TILES and B * H * tiles <= sms:
+            return tile
+    return BWD_MMA_TILES[-1]
+
+
+def backward_mma_smem_bytes(tile: int, dk: int) -> int:
+    """Dynamic shared memory a block of the backward's mma kernel asks for
+    with `tile` extended columns at this dk, from the built library."""
+    fn = build.load().gated_linear_scan_bwd_mma_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(tile, dk)
+
+
+def backward_mma_max_clusters(tile: int, dk: int, columns: int) -> int:
+    """Clusters of the backward's mma kernel (one walk of one (b, h), a block
+    per `tile` of the `columns` extended columns) the card holds at once,
+    from the built library (-1 if the query fails)."""
+    fn = build.load().gated_linear_scan_bwd_mma_max_clusters
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(tile, dk, columns)
+
+
+def backward_scratch_elements(B: int, H: int, S: int, dk: int, dv: int, normaliser: bool, *,
+                              variant: str = "simt", tile: int = BWD_TILE) -> int:
     """fp32 scratch of `gated_linear_scan_backward`, as the C entry point
-    requires: every 32-column tile's dq and dk partials (tiles, B, H, S, dk),
-    the tiles' final-state dots (tiles, B, H) and dA (B, H, S)."""
-    tiles = -(-(dv + int(normaliser)) // BWD_TILE)
+    requires. ``simt``: every 32-column tile's dq and dk partials (tiles, B,
+    H, S, dk), the tiles' final-state dots (tiles, B, H) and dA (B, H, S).
+    ``mma`` (`tile` columns a block): each tile's share of the two halves
+    of dA, q . dq and k . dk (tiles, B, H, S) each, and the tiles'
+    final-state dots; the dq and dk partials stay in the cluster's shared
+    memory."""
+    columns = dv + int(normaliser)
+    if variant == "mma":
+        tiles = -(-columns // tile)
+        return 2 * tiles * B * H * S + tiles * B * H
+    tiles = -(-columns // BWD_TILE)
     return 2 * tiles * B * H * S * dk + tiles * B * H + B * H * S
+
+
+def _rows16(t: torch.Tensor) -> torch.Tensor:
+    """t itself when its rows are whole 16-byte copies (unit last stride,
+    the others multiples of 8 elements, 16-byte aligned), else a dense copy."""
+    if t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:-1]) and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def gated_linear_scan_backward(
@@ -249,6 +325,7 @@ def gated_linear_scan_backward(
     initial_normaliser: Optional[torch.Tensor] = None,
     dnrm: Optional[torch.Tensor] = None,
     dn: Optional[torch.Tensor] = None,
+    variant: Optional[str] = None,
 ):
     """The gradient of `gated_linear_scan` called on the same q, k, v,
     log_a and initial states: dy (B, H, S, dv) in q's dtype, any strides,
@@ -257,7 +334,9 @@ def gated_linear_scan_backward(
     contiguous fp32 (B, H, dk, 1); any of them None (zeros). Returns (dq,
     dk (B, H, S, dk) and dv in q's dtype, dlog_a (B, H, S) fp32, d(initial
     state) fp32 or None, d(initial normaliser) fp32 or None: where they were
-    given), on CUDA. `chunk` shapes the plain version only."""
+    given), on CUDA. `chunk` shapes the plain version only. `variant` (None:
+    `backward_variant`'s) names the kernel, so that both can be timed on the
+    same operands; one these operands cannot take raises."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or log_a.dim() != 3:
         raise ValueError("gated_linear_scan_backward: q, k, v must be (B, H, S, d), "
                          "log_a (B, H, S)")
@@ -276,6 +355,16 @@ def gated_linear_scan_backward(
         raise ValueError(f"gated_linear_scan_backward: dtype {q.dtype}; need fp32 or bf16")
     if log_a.dtype != torch.float32:
         raise ValueError(f"gated_linear_scan_backward: log_a dtype {log_a.dtype}; need fp32")
+    kind = backward_variant(q, k, v, normaliser=normaliser)
+    if variant is not None and variant != kind:
+        if variant not in BWD_VARIANT_CODES:
+            raise ValueError(f"gated_linear_scan_backward: variant {variant!r}; need one of "
+                             f"{tuple(BWD_VARIANT_CODES)}")
+        if variant == "mma":
+            raise ValueError(f"gated_linear_scan_backward: the mma variant cannot take these "
+                             f"operands ({q.dtype}, "
+                             f"{mma_layout_error(q, k, v) or 'too many column tiles'})")
+        kind = variant
     grads = [("dy", dy, (B, H, S, dv)), ("dnrm", dnrm, (B, H, S, 1))]
     states = [("initial_state", initial_state, (B, H, dk, dv)),
               ("initial_normaliser", initial_normaliser, (B, H, dk, 1)),
@@ -301,6 +390,10 @@ def gated_linear_scan_backward(
                              f"got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"gated_linear_scan_backward: {name} must be contiguous")
+    tile = (backward_tile_columns(B, H, dv + int(normaliser), build.sm_count(q.device))
+            if kind == "mma" else BWD_TILE)
+    if kind == "mma" and dy is not None:
+        dy = _rows16(dy)
     dev = q.device
     dq = torch.empty((B, H, S, dk), dtype=q.dtype, device=dev)
     dk_ = torch.empty((B, H, S, dk), dtype=q.dtype, device=dev)
@@ -310,7 +403,8 @@ def gated_linear_scan_backward(
               if initial_state is not None else None)
     d_init_n = (torch.empty((B, H, dk, 1), dtype=torch.float32, device=dev)
                 if initial_normaliser is not None else None)
-    scratch = torch.empty(backward_scratch_elements(B, H, S, dk, dv, normaliser),
+    scratch = torch.empty(backward_scratch_elements(B, H, S, dk, dv, normaliser, variant=kind,
+                                                    tile=tile),
                           dtype=torch.float32, device=dev)
 
     def ptr(t):
@@ -325,10 +419,11 @@ def gated_linear_scan_backward(
         dk_.data_ptr(), dv_.data_ptr(), dla.data_ptr(), ptr(d_init), ptr(d_init_n),
         scratch.data_ptr(), B, H, S, dk, dv, int(bool(normaliser)), *q.stride(), *k.stride(),
         *v.stride(), *log_a.stride(), *strides(dy, 4), *strides(dnrm, 3),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(dev).cuda_stream,
+        _DTYPE_CODES[q.dtype], BWD_VARIANT_CODES[kind], tile,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check(err, "gated_linear_scan_backward (simt)")
-    build.count_launch(backward, "simt")
+    build.check(err, f"gated_linear_scan_backward ({kind})")
+    build.count_launch(backward, kind)
     return dq, dk_, dv_, dla, d_init, d_init_n
 
 

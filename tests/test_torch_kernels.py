@@ -732,7 +732,7 @@ def test_variant_counts_start_at_zero_and_reset():
         "decode_attention": {"simt": 0, "mma": 0},
         "fused_linear": {"simt": 0, "simt_tiled": 0, "wgmma": 0},
         "gated_linear_scan": {"simt": 0, "mma": 0, "step": 0},
-        "gated_linear_scan_bwd": {"simt": 0},
+        "gated_linear_scan_bwd": {"simt": 0, "mma": 0},
     }
 
 
