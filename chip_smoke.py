@@ -224,7 +224,22 @@ nothing of JAX or of the JAX package. Phases:
    of a traced step;
 35. train-bundles: full-width paligemma-3b (256 patch embeddings + 256
    tokens) and whisper-small (1500 frames x 0.02 + 448 tokens), B=2, 3 steps
-   on `make_batch` batches: the same checks, every flash launch on wgmma.
+   on `make_batch` batches: the same checks, every flash launch on wgmma;
+36. spmd: an NCCL world of 1 from the environment (127.0.0.1, a free port;
+   no fallback) and a (1, 1) ("data", "model") mesh on the card: the `spmd`
+   communication manager's five collectives return their input exactly, as
+   world size 1 implies; `reshard` Replicate -> Shard -> Replicate with its
+   fence; `mesh_from_topology` over `torchdev`'s topology gives the same
+   mesh;
+37. train-spmd: full-width gemma3-1b, B=4 x S=1024, 3 steps through the
+   launcher's SPMD route (`--mesh 1x1`: topology -> mesh -> spmd compute
+   manager, DTensors placed by the sharding plan, the kernels reached
+   through `local_map`): losses within 1e-3 relative of `train`'s, 30's
+   flash forward and backward launches a step all on wgmma, ms a step beside
+   `train`'s.
+
+The bound constants (peak rates, L2) come from
+`src/repro_torch/backends/gpu_spec.py`.
 
 Each path's launch counts are zeroed just before it runs and read just
 after. The line before the last is one JSON object with every kernel's
@@ -247,10 +262,12 @@ import weakref
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate and the rate of
-# each input type's arithmetic (bf16 on the tensor cores, fp32 on CUDA cores)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-L2_BYTES = 50 * 2**20  # H100 L2 cache: inputs cycled past twice this are read cold
+# each input type's arithmetic (bf16 on the tensor cores, fp32 on CUDA
+# cores), and the L2 cache (inputs cycled past twice it are read cold). Set
+# by `_load_spec` from `repro_torch/backends/gpu_spec.py`, their one source.
+PEAK_BYTES_PER_S: float = 0.0
+PEAK_FLOPS: dict = {}
+L2_BYTES: int = 0
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 LINEAR_TOL = TOL  # tests/test_kernels.py::TestFusedLinear: 2e-5 fp32; 2e-2 bf16
 PAGED_TOL = {"float32": dict(atol=1e-5, rtol=0.0), "bfloat16": dict(atol=5e-2, rtol=0.0)}
@@ -4378,8 +4395,9 @@ def expected_train_launches(cfg) -> tuple:
 
 
 def _plain_scan(q, k, v, log_a, *, chunk: int = 128, initial_state=None, normaliser=False,
-                initial_normaliser=None):
-    """`ops.gated_linear_scan`'s plain version on any device."""
+                initial_normaliser=None, impl=None):
+    """`ops.gated_linear_scan`'s plain version on any device (`impl`, the
+    CPU route's choice of twin, does not apply)."""
     from repro_torch.kernels import ref
 
     if normaliser:
@@ -4396,7 +4414,8 @@ def plain_kernels():
     from repro_torch.kernels import ops, ref
 
     saved = ops.attention, ops.gated_linear_scan
-    ops.attention, ops.gated_linear_scan = ref.attention, _plain_scan
+    ops.attention = lambda *a, impl=None, **kw: ref.attention(*a, **kw)  # noqa: E731
+    ops.gated_linear_scan = _plain_scan
     try:
         yield
     finally:
@@ -4493,6 +4512,7 @@ def phase_train(torch) -> dict:
         f"{counts}, flash by variant {variants['flash_attention']}, its backward by variant "
         f"{variants['flash_attention_bwd']}")
     _check_training("train", losses, plain_loss, first, len(_paths(params)))
+    TRAIN_RECORD.update(losses=losses, mean_ms=mean_ms, ms=ms)
     fwd, bwd, _, _ = expected_train_launches(cfg)
     require(counts["flash_attention"] == fwd * steps
             and counts["flash_attention_bwd"] == bwd * steps
@@ -4958,6 +4978,146 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+# ---------------------------------------------------------------------------
+# 36-37. multi-device: the SPMD backend, and training through its mesh
+# ---------------------------------------------------------------------------
+
+#: the `train` phase's losses and ms a step, for `train-spmd` to compare with
+TRAIN_RECORD: dict = {}
+
+
+def phase_spmd(torch) -> None:
+    """An NCCL world of one from the environment (127.0.0.1, a free port; a
+    failed init fails the phase, no gloo or CPU fallback) and a (1, 1)
+    ("data", "model") mesh on the card: each collective of the `spmd`
+    communication manager returns what world size 1 implies, exactly;
+    `reshard` goes Replicate -> Shard -> Replicate on card tensors and its
+    fence resolves; `mesh_from_topology` over `torchdev`'s discovered
+    topology gives the same mesh; the instance manager sees one root."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.backends.spmd import SpmdCommunicationManager, SpmdInstanceManager
+    from repro_torch.backends.torchdev import TorchTopologyManager
+    from repro_torch.launch.mesh import make_mesh, mesh_from_topology
+    from repro_torch.launch.train import init_world
+
+    rank, world, dev = init_world("cuda")
+    require(dist.get_backend() == "nccl" and (rank, world) == (0, 1) and dev.type == "cuda",
+            f"spmd: expected rank 0 of an NCCL world of 1 on the card, got {dist.get_backend()} "
+            f"rank {rank} of {world} on {dev}")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    require(mesh.device_type == "cuda", f"spmd: mesh on {mesh.device_type}")
+    cm = SpmdCommunicationManager(mesh)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn((8, 12), generator=gen, device="cuda")
+    got = {
+        "all_reduce": cm.all_reduce(x, "data"),
+        "all_gather": cm.all_gather(x, "model", axis=1),
+        "reduce_scatter": cm.reduce_scatter(x, "data", scatter_dimension=1),
+        "all_to_all": cm.all_to_all(x, "model", split_axis=0, concat_axis=1),
+        "ppermute_halo": cm.ppermute_halo(x, "data", shift=1),
+    }
+    torch.cuda.synchronize()
+    for name, y in got.items():
+        require(y.is_cuda and torch.equal(y, x), f"spmd: {name} at world size 1 is not the input")
+    d = cm.reshard(x, [Replicate(), Replicate()], tag=7)
+    d = cm.reshard(d, [Shard(0), Replicate()], tag=7)
+    d = cm.reshard(d, [Replicate(), Replicate()], tag=7)
+    cm.fence(7)
+    require(isinstance(d, DTensor) and d.placements == (Replicate(), Replicate())
+            and d.to_local().is_cuda and torch.equal(d.to_local(), x),
+            "spmd: reshard Replicate -> Shard -> Replicate did not give the tensor back")
+    topo_mesh = mesh_from_topology(TorchTopologyManager("cuda").query_topology(),
+                                   model_parallelism=1)
+    require(tuple(topo_mesh.mesh.shape) == (1, 1)
+            and topo_mesh.mesh_dim_names == mesh.mesh_dim_names
+            and topo_mesh.device_type == "cuda",
+            f"spmd: mesh_from_topology gave {topo_mesh}")
+    im = SpmdInstanceManager()
+    require(len(im.get_instances()) == 1 and im.get_current_instance().is_root,
+            "spmd: the instance manager does not see one root instance")
+    log(f"[spmd] NCCL world of 1, mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} on "
+        f"cuda: all_reduce, all_gather, reduce_scatter, all_to_all, ppermute_halo equal their "
+        f"input; reshard Replicate -> Shard(0) -> Replicate fenced; mesh_from_topology(torchdev) "
+        f"= {tuple(topo_mesh.mesh.shape)}")
+
+
+def phase_train_spmd(torch, card: str) -> tuple:
+    """gemma3-1b at full width, B=4 x 1024, 3 steps through the launcher's
+    SPMD route (`--mesh 1x1`: topology -> mesh -> spmd compute manager,
+    parameters, AdamW state and batches placed by the sharding plan as
+    DTensors; the kernels reached through `local_map`). Requires the step
+    losses within 1e-3 relative of the `train` phase's (the same seed and
+    steps), finite gradients on every parameter, and the flash forward and
+    backward launches of `train` a step, all on wgmma. Prints ms a step
+    beside `train`'s (DTensor's dispatch cost), with the card's name and
+    power limit. Returns the run's launch counts and counts by variant."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma3-1b")
+    B, S, steps = 4, 1024, 3
+    hook, first = _first_grads_hook(torch)
+    args = train_cli.parse_args(["--arch", "gemma3-1b", "--steps", str(steps), "--batch", str(B),
+                                 "--seq", str(S), "--log-every", "1", "--mesh", "1x1"])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    params, opt_state, history = train_cli.train(args, grads_hook=hook)
+    counts = ops.launch_counts()
+    variants = ops.variant_counts()
+    require(all(hasattr(t, "placements") for _, t in _paths(params)),
+            "train-spmd: the launcher's parameters are not DTensors")
+    losses = [h["loss"] for h in history]
+    ms = [h["seconds"] * 1e3 for h in history]
+    mean_ms = sum(ms[1:]) / len(ms[1:])
+    want = TRAIN_RECORD["losses"][:steps]
+    log(f"[train-spmd] gemma3-1b full width through the launcher's SPMD route, mesh "
+        f"{{'data': 1, 'model': 1}} over NCCL, B={B} x S={S}, {steps} steps: losses "
+        f"{[round(x, 5) for x in losses]} against train's {[round(x, 5) for x in want]}")
+    log(f"[train-spmd] ms a step {[round(x, 2) for x in ms]}: steps 2-{steps} {mean_ms:.2f} ms "
+        f"against train's {TRAIN_RECORD['mean_ms']:.2f} ms (steps 2-6; the difference is "
+        f"DTensor's dispatch), {B * S / (mean_ms / 1e3):.0f} training tok/s, on {card}; "
+        f"launches {counts}, flash by variant {variants['flash_attention']}, its backward by "
+        f"variant {variants['flash_attention_bwd']}")
+    require(all(math.isfinite(x) for x in losses), f"train-spmd: a loss is not finite: {losses}")
+    require(first.get("n") == len(_paths(params)) and not first["bad"],
+            f"train-spmd: parameters whose step-1 gradient is zero or not finite: "
+            f"{first.get('bad')}")
+    for got, ref in zip(losses, want):
+        require(abs(got - ref) <= 1e-3 * abs(ref),
+                f"train-spmd: losses {losses} against train's {want} (1e-3 relative)")
+    fwd, bwd, _, _ = expected_train_launches(cfg)
+    require(counts["flash_attention"] == fwd * steps
+            and counts["flash_attention_bwd"] == bwd * steps
+            and sum(counts.values()) == (fwd + bwd) * steps,
+            f"train-spmd: expected {fwd} flash forward and {bwd} backward launches a step: "
+            f"{counts}")
+    require_variant(variants, "flash_attention", "wgmma", fwd * steps, "train-spmd")
+    require_variant(variants, "flash_attention_bwd", "wgmma", bwd * steps, "train-spmd")
+    del params, opt_state
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, variants
+
+
+def _load_spec() -> None:
+    """The bound constants from the port's one source of them
+    (`backends/gpu_spec.py`, NVIDIA's H100 SXM5 datasheet)."""
+    from repro_torch.backends import gpu_spec
+
+    global PEAK_BYTES_PER_S, PEAK_FLOPS, L2_BYTES
+    PEAK_BYTES_PER_S = gpu_spec.H100.hbm_bandwidth
+    PEAK_FLOPS = dict(gpu_spec.PEAK_FLOPS)
+    L2_BYTES = gpu_spec.L2_BYTES
+
+
 def main() -> int:
     try:
         import torch
@@ -4975,8 +5135,9 @@ def main() -> int:
         print(f"chip_smoke: the port (src/repro_torch) is not importable: {e}", file=sys.stderr)
         return 2
     try:
+        _load_spec()
         t_start = time.perf_counter()
-        phase_device(torch)
+        card = phase_device(torch)
         run_phase("build", phase_build)
         kernels = run_phase("kernels", phase_kernels, torch)
         run_phase("reduced", phase_reduced, torch)
@@ -5022,6 +5183,8 @@ def main() -> int:
         zamba2_train_counts, zamba2_train_variants = run_phase("train-zamba2",
                                                                phase_train_zamba2, torch)
         bundle_train_counts = run_phase("train-bundles", phase_train_bundles, torch)
+        run_phase("spmd", phase_spmd, torch)
+        spmd_train_counts, _ = run_phase("train-spmd", phase_train_spmd, torch, card)
         log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
@@ -5038,7 +5201,8 @@ def main() -> int:
                    "serve-fleet": fleet_counts, **moe_counts,
                    "generate-paligemma": paligemma_counts, "generate-whisper": whisper_counts,
                    "train": train_counts, "train-xlstm": xlstm_train_counts,
-                   "train-zamba2": zamba2_train_counts, **bundle_train_counts}
+                   "train-zamba2": zamba2_train_counts, **bundle_train_counts,
+                   "train-spmd": spmd_train_counts}
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]] for path, c in path_counts.items()
                                  if c[k["name"]]}

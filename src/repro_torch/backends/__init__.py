@@ -7,6 +7,8 @@ with the core registry.
   coroutine  |          |          |               |        |   X      (Boost)
   localsim   |          |    X     |      X        |        |          (MPI/LPF)
   torchdev   |    X     |          |      X        |   X    |   X      (CUDA / host via PyTorch)
+  spmd       |          |    X     |      X        |        |   X      (torch.distributed)
+  h100_spec  |    X     |          |               |        |          (spec-sheet)
 
   X* — hostcpu's instance manager is the single-instance view: templates
   are validated against the host topology, but elastic creation reports
@@ -14,12 +16,13 @@ with the core registry.
 
 `hostcpu`, `coroutine` and `localsim` are own copies of the reference's
 `repro/backends/` modules with only the package prefix changed; `torchdev`
-takes `jaxdev`'s row. The reference's multi-device backends (spmd,
-tpu_spec) have no counterpart yet.
+takes `jaxdev`'s row, `spmd` the reference's XLA SPMD row (NCCL / gloo /
+fake process groups, DTensor over a `DeviceMesh`), `h100_spec` its
+`tpu_spec` row (a synthesised topology of 8-GPU NVLink nodes).
 """
 from repro_torch.core.registry import register_backend
 
-from . import coroutine, hostcpu, localsim, torchdev  # noqa: F401
+from . import coroutine, gpu_spec, hostcpu, localsim, spmd, torchdev  # noqa: F401
 
 register_backend(
     "hostcpu",
@@ -61,4 +64,20 @@ register_backend(
     description="ACL/OpenCL analog: one torch device (CUDA, or the CPU when asked)",
 )
 
-__all__ = ["coroutine", "hostcpu", "localsim", "torchdev"]
+register_backend(
+    "spmd",
+    {
+        "instance": spmd.SpmdInstanceManager,
+        "communication": spmd.SpmdCommunicationManager,
+        "compute": spmd.SpmdComputeManager,
+    },
+    description="torch.distributed SPMD: mesh programs over DTensors, collectives as communication",
+)
+
+register_backend(
+    "h100_spec",
+    {"topology": gpu_spec.SpecTopologyManager},
+    description="Target-system topology from the H100 SXM5 datasheet",
+)
+
+__all__ = ["coroutine", "gpu_spec", "hostcpu", "localsim", "spmd", "torchdev"]

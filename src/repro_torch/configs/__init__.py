@@ -105,6 +105,13 @@ class ShapeConfig:
         return self.kind == "decode"
 
 
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 ARCH_IDS: Sequence[str] = (
     "gemma3-1b",
     "granite-20b",
@@ -118,6 +125,10 @@ ARCH_IDS: Sequence[str] = (
     "zamba2-7b",
 )
 
+# long_500k needs sub-quadratic attention: run only for archs whose sequence
+# mixing is (mostly) sub-quadratic; skip pure full-attention archs.
+LONG_CONTEXT_ARCHS = frozenset({"gemma3-1b", "xlstm-125m", "zamba2-7b"})
+
 #: Architectures whose config (and model family) the port runs: all of them.
 PORTED_ARCH_IDS: Sequence[str] = ARCH_IDS
 
@@ -128,3 +139,7 @@ def get_config(arch_id: str, *, reduced: bool = False) -> ArchConfig:
     mod_name = arch_id.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.REDUCED if reduced else mod.CONFIG
+
+
+def get_shape(shape_id: str) -> ShapeConfig:
+    return SHAPES[shape_id]

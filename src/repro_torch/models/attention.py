@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs import ArchConfig
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, sharded
 from .common import ParamInit, apply_rope, resolve_device
 
 
@@ -65,7 +65,8 @@ def self_attention(
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(cfg, p, x, positions)
-    out = ops.attention(q, k, v, causal=causal, window=window, prefix_len=prefix_len)
+    out = ops.attention(q, k, v, causal=causal, window=window, prefix_len=prefix_len,
+                        impl=cfg.attention_impl)
     return _out_proj(p, out)
 
 
@@ -82,9 +83,15 @@ def prefill_attention(
     B, S, d = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(cfg, p, x, positions)
-    out = ops.attention(q, k, v, causal=True, window=window, prefix_len=prefix_len)
+    out = ops.attention(q, k, v, causal=True, window=window, prefix_len=prefix_len,
+                        impl=cfg.attention_impl)
     k_cache, v_cache = cache
     S_buf = k_cache.shape[1]
+    if sharded.is_dtensor(k) and not sharded.is_dtensor(k_cache):
+        # under a mesh (a dry run's prefill): the caches are made from k and
+        # v in their placements, not written into a plain buffer
+        return _out_proj(p, out), tuple(_cache_of(t, S_buf, window, k_cache.dtype)
+                                        for t in (k, v))
     if window and S_buf == window:
         # ring buffer: keep the last `window` entries at slots pos % window
         take = min(window, S)
@@ -95,6 +102,24 @@ def prefill_attention(
         k_cache[:, :S] = k.to(k_cache.dtype)
         v_cache[:, :S] = v.to(v_cache.dtype)
     return _out_proj(p, out), (k_cache, v_cache)
+
+
+def _cache_of(t: torch.Tensor, S_buf: int, window: int, dtype) -> torch.Tensor:
+    """The cache buffer `prefill_attention` writes, built from the keys or
+    values t (B, S, KV, hd) instead: the last `window` positions at slots
+    pos % window for a ring buffer, else t followed by zeros to S_buf."""
+    S = t.shape[1]
+    t = t.to(dtype)
+    if window and S_buf == window:
+        take = min(window, S)
+        t = t[:, S - take:]
+        if take == S_buf:
+            return torch.roll(t, shifts=(S - take) % window, dims=1)
+    if t.shape[1] == S_buf:
+        return t
+    pad = torch.zeros((t.shape[0], S_buf - t.shape[1], *t.shape[2:]), dtype=dtype,
+                      device=t.device)
+    return torch.cat([t, pad], dim=1)
 
 
 def tail_prefill_attention(
@@ -151,9 +176,13 @@ def decode_self_attention(
     S_buf = k_cache.shape[1]
     slot = torch.remainder(pos, window) if window and S_buf == window else pos
     slot = torch.clamp(slot, 0, S_buf - 1).long()
-    rows = torch.arange(B, device=x.device)
-    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+    if sharded.is_dtensor(k_cache):  # under a mesh: each rank writes its shard
+        sharded.write_rows(k_cache, slot, k[:, 0])
+        sharded.write_rows(v_cache, slot, v[:, 0])
+    else:
+        rows = torch.arange(B, device=x.device)
+        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
     # ring buffers are fully valid once warm: validity is slot <= eff_pos
     eff_pos = torch.clamp(pos, max=S_buf - 1)
     out = ops.decode_attention(q[:, 0], k_cache, v_cache, eff_pos, window=window)
@@ -189,7 +218,7 @@ def cross_attention(cfg: ArchConfig, p, x: torch.Tensor,
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     k, v = enc_kv
     q = (x @ p["wq"].to(cd).reshape(d, H * hd)).reshape(B, S, H, hd)
-    out = ops.attention(q, k, v, causal=False)
+    out = ops.attention(q, k, v, causal=False, impl=cfg.attention_impl)
     return _out_proj(p, out)
 
 

@@ -84,9 +84,12 @@ def unstack_layers(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
             layers.append(tree_map(lambda a, t=t: a[t], tree["tail"]))
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config has {cfg.num_layers}")
-    out = {k: v for k, v in tree.items() if k not in ("layers", "units", "tail")}
-    out["embed"] = dict(tree["embed"])
-    out["layers"] = layers
+    out = {}
+    for k, v in tree.items():  # in the tree's order, the stacks as "layers"
+        if k in ("layers", "units", "tail"):
+            out["layers"] = layers
+        else:
+            out[k] = dict(v) if k == "embed" else v
     return out
 
 
@@ -104,7 +107,7 @@ def unstack_hybrid(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
     """Reference hybrid tree -> the port's: the ``mamba`` and ``mamba_tail``
     stacks as per-layer lists (views, no copy), the rest as is."""
     g, n_groups, n_tail = group_structure(cfg)
-    out = {k: v for k, v in tree.items() if k not in ("mamba", "mamba_tail")}
+    out = dict(tree)
     out["mamba"] = [tree_map(lambda a, i=i: a[i], tree["mamba"]) for i in range(n_groups * g)]
     if n_tail:
         out["mamba_tail"] = [tree_map(lambda a, i=i: a[i], tree["mamba_tail"]) for i in range(n_tail)]
@@ -148,26 +151,41 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping[str, Any], *, device=None,
 
 
 def stack_params(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
-    """The port's transformer tree with its per-layer list stacked as the
-    reference stacks it (``units`` (n_units, unit_len, ...) and ``tail``, or
-    ``layers`` (num_layers, ...)): the inverse of `unstack_layers`, by
-    copy. xlstm's tree (``blocks``) is the reference's already."""
+    """The port's tree with its per-layer lists stacked as the reference
+    stacks them, by copy: the transformer's (the VLM's too) ``units``
+    (n_units, unit_len, ...) and ``tail``, or ``layers`` (num_layers, ...),
+    the inverse of `unstack_layers`; the hybrid's ``mamba`` (n_groups *
+    interval, ...) and ``mamba_tail`` (n_tail, ...); the encoder-decoder's
+    ``encoder`` (encoder_layers, ...) and ``decoder`` (num_layers, ...).
+    xlstm's tree (``blocks``) is the reference's already."""
+    stack = lambda *leaves: torch.stack(leaves)  # noqa: E731
     if "blocks" in tree:
         return dict(tree)
-    if "layers" not in tree:
-        raise NotImplementedError(f"stack_params: the {cfg.family} family's stacked layout "
-                                  f"(Adafactor, int8 compression) is not ported yet")
-    stack = lambda *leaves: torch.stack(leaves)  # noqa: E731
-    layers = tree["layers"]
-    out = {k: v for k, v in tree.items() if k != "layers"}
-    if not has_units(cfg):
-        out["layers"] = tree_map(stack, *layers)
+    if cfg.family == "hybrid":
+        out = dict(tree)
+        for key in ("mamba", "mamba_tail"):
+            if key in tree:
+                out[key] = tree_map(stack, *tree[key])
         return out
-    unit_len, n_units, n_tail = unit_structure(cfg)
-    units = [tree_map(stack, *layers[u * unit_len:(u + 1) * unit_len]) for u in range(n_units)]
-    out["units"] = tree_map(stack, *units)
-    if n_tail:
-        out["tail"] = tree_map(stack, *layers[n_units * unit_len:])
+    if cfg.family == "audio":
+        return dict(tree, encoder=tree_map(stack, *tree["encoder"]),
+                    decoder=tree_map(stack, *tree["decoder"]))
+    layers = tree["layers"]
+    if not has_units(cfg):
+        stacks = {"layers": tree_map(stack, *layers)}
+    else:
+        unit_len, n_units, n_tail = unit_structure(cfg)
+        units = [tree_map(stack, *layers[u * unit_len:(u + 1) * unit_len])
+                 for u in range(n_units)]
+        stacks = {"units": tree_map(stack, *units)}
+        if n_tail:
+            stacks["tail"] = tree_map(stack, *layers[n_units * unit_len:])
+    out = {}
+    for k, v in tree.items():  # in the tree's order, the stacks where "layers" was
+        if k == "layers":
+            out.update(stacks)
+        else:
+            out[k] = v
     return out
 
 
@@ -175,6 +193,10 @@ def unstack_params(cfg: ArchConfig, tree: Mapping[str, Any]) -> dict:
     """The inverse of `stack_params`: per-layer views of the stacks."""
     if "blocks" in tree:
         return dict(tree)
+    if cfg.family == "hybrid":
+        return unstack_hybrid(cfg, tree)
+    if cfg.family == "audio":
+        return unstack_encdec(cfg, tree)
     return unstack_layers(cfg, tree)
 
 

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.backends.torchdev import resolve_device as _backend_device
+from repro_torch.sharding.ambient import constrain
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -150,7 +151,10 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     ``z_loss * logsumexp**2`` added per position when `z_loss` is set."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    label_logits = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    # under a mesh, logits split over the vocabulary gather to a partial
+    # sum that DTensor cannot index: reduce it first (a no-op otherwise)
+    picked = constrain(torch.gather(logits, -1, labels.long()[..., None]), ("pod", "data"))
+    label_logits = picked[..., 0]
     loss = logz - label_logits
     if z_loss:
         loss = loss + z_loss * torch.square(logz)

@@ -12,7 +12,13 @@ Mamba2 + a shared attention block). The slot decoder marks its steps
 ``per_slot`` (every row its own request; MoE layers then never drop, as the
 reference's vmapped B=1 step). Every family's loss is ported, and
 `make_batch` draws a batch of any kind with the extra inputs the VLM and the
-encoder-decoder need (their token streams carry no patches or frames)."""
+encoder-decoder need (their token streams carry no patches or frames).
+
+For planning without weights, `logical_axes(cfg, params)` gives the
+parameter tree its logical sharding axes (the reference's vocabulary, its
+stack axes dropped), and `ModelBundle.input_specs(shape)` /
+`state_specs(shape)` make a batch and a decode state on the ``meta``
+device (the reference's ``jax.ShapeDtypeStruct`` stand-ins)."""
 from __future__ import annotations
 
 import dataclasses
@@ -73,6 +79,93 @@ class ModelBundle:
     #: (recurrent states are O(1); the VLM and the encoder-decoder need
     #: prefill inputs the scheduler does not carry, as in the reference)
     paged_ops: PagedOps = None
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """Every input of a batch of `shape`'s kind as a ``meta`` tensor of
+        the reference's shape and dtype (`input_specs`): a decode batch's
+        ``pos`` is 0-d, the VLM's text is the seq_len less its vision
+        prefix."""
+        return input_specs(self.cfg, shape)
+
+    def state_specs(self, shape: ShapeConfig):
+        """The decode state for `shape` (global_batch rows, seq_len deep) on
+        the ``meta`` device: no allocation."""
+        return self.init_state(shape.global_batch, shape.seq_len, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """`ModelBundle.input_specs`."""
+    B, S = shape.global_batch, shape.seq_len
+    cd = dtype_of(cfg.compute_dtype)
+    meta = dict(device="meta")
+    if cfg.family == "vlm" and shape.kind != "decode":
+        S -= cfg.vision_tokens
+    if shape.kind == "train":
+        specs = {"tokens": torch.empty((B, S), dtype=torch.int32, **meta),
+                 "labels": torch.empty((B, S), dtype=torch.int32, **meta)}
+    elif shape.kind == "prefill":
+        specs = {"tokens": torch.empty((B, S), dtype=torch.int32, **meta)}
+    else:  # decode: one new token against a seq_len-deep state
+        return {"tokens": torch.empty((B, 1), dtype=torch.int32, **meta),
+                "pos": torch.empty((), dtype=torch.int32, **meta)}
+    if cfg.family == "vlm":
+        specs["patches"] = torch.empty((B, cfg.vision_tokens, cfg.vision_embed_dim), dtype=cd,
+                                       **meta)
+    if cfg.family == "audio":
+        specs["frames"] = torch.empty((B, cfg.encoder_context, cfg.d_model), dtype=cd, **meta)
+    return specs
+
+
+#: logical axes by leaf name (the reference's `ParamBuilder` calls); the
+#: names shared by several blocks are resolved in `_leaf_axes`
+_AXES = {
+    "embedding": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+    "enc_pos": ("norm", "embed"), "vision_proj": ("norm", "embed"),
+    "wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+    "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "embed"),
+    "router": ("embed", "expert"),
+    "w_qkv": ("embed", "ssm_inner"), "w_gates": ("embed", "heads"), "b_gates": ("heads",),
+    "w_ogate": ("embed", "ssm_inner"),
+    "w_in": ("embed", "ssm_inner"), "w_rec": ("embed", "ssm_inner"), "b": ("ssm_inner",),
+    "w_z": ("embed", "ssm_inner"), "w_xbc": ("embed", "ssm_inner"), "w_dt": ("embed", "heads"),
+    "conv_w": ("conv", "ssm_inner"), "conv_b": ("ssm_inner",), "A_log": ("heads",),
+    "dt_bias": ("heads",), "D": ("heads",), "out_norm": ("ssm_inner",),
+}
+_NORMS = frozenset({"ln1", "ln2", "ln_x", "norm", "final_norm", "enc_norm"})
+
+
+def _leaf_axes(key: str, parent, siblings) -> tuple:
+    if key in _NORMS:
+        return ("norm",)
+    if key in ("w_up", "w_gate"):
+        return ("expert", "embed", "mlp") if parent == "moe" else ("embed", "mlp")
+    if key == "w_down":
+        return ("expert", "mlp", "embed") if parent == "moe" else ("mlp", "embed")
+    if key == "w_out":  # the sLSTM's is square; the mLSTM's and Mamba2's project down
+        return ("embed", "embed") if "w_rec" in siblings else ("ssm_inner", "embed")
+    return _AXES[key]
+
+
+def logical_axes(cfg: ArchConfig, params, *, stacked: bool = False):
+    """The parameter tree's logical sharding axes: a tree of the same
+    structure whose leaves are tuples of axis names, one a dim, from the
+    reference's vocabulary (`repro/models/common.py::ParamBuilder`). The
+    port keeps one dict a layer, so the reference's stack axes ("layers",
+    "units") have no dim here and are dropped. ``stacked=True`` takes a tree
+    in the reference's stacked layout (`bridge.stack_params`): each leading
+    stack dim gets "layers", which no plan shards."""
+    def walk(node, key=None, parent=None, siblings=()):
+        if isinstance(node, dict):
+            return {k: walk(v, k, key, node) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, key, parent, siblings) for v in node]
+        axes = _leaf_axes(key, parent, siblings)
+        extra = node.dim() - len(axes)
+        if extra < 0 or (extra and not stacked):
+            raise ValueError(f"leaf {key!r}: {node.dim()} dims, logical axes {axes}")
+        return ("layers",) * extra + axes
+
+    return walk(params)
 
 
 def _generator(key, device) -> torch.Generator:

@@ -9,9 +9,13 @@ C follows the reference bit for bit (`capacity`), since it decides which
 rows drop. The grouped products are plain matrix products (`torch.bmm`), as
 the reference computes them outside any Pallas kernel.
 
-The reference pins the dispatch intermediates to mesh axes with
-`repro.sharding.ambient.constrain`; on one device those calls do nothing,
-so the port leaves them out (they return with multi-device serving).
+Under a mesh (DTensor activations and expert weights split over the
+``model`` axis) the dispatch intermediates are pinned to mesh axes with
+`sharding.ambient.constrain` where the reference pins them: rows to the
+data axes, expert buffers to ``model``. The routing's integer bookkeeping
+(sort, counts, positions) runs on the whole picks as plain tensors (DTensor
+has no rule for such data-dependent ops), so routing and capacity are the
+global batch's, as in the reference. Without a mesh the pins do nothing.
 Training adds the reference's Switch-style load-balance loss
 (`moe_load_balance_loss`) over the router statistics `moe_ffn` returns.
 """
@@ -23,6 +27,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.sharding.ambient import constrain
 from .common import ParamInit, act_fn
 
 
@@ -74,21 +79,24 @@ def moe_ffn(cfg: ArchConfig, p, x: torch.Tensor, *,
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
 
     # ---- sort-based dispatch ------------------------------------------------
-    flat_expert = idx.reshape(N * k)
+    flat_expert = _full(idx.reshape(N * k))
     order = torch.argsort(flat_expert, stable=True)
     sorted_expert = flat_expert[order]
     token_of = torch.div(order, k, rounding_mode="floor")  # originating token per sorted row
 
     # position of each row within its expert group
-    counts = torch.bincount(sorted_expert, minlength=E)
+    # (a static-shape count: it also runs on a dry run's meta tensors)
+    counts = torch.zeros(E, dtype=torch.long, device=dev).index_add_(
+        0, sorted_expert, torch.ones_like(sorted_expert))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(N * k, device=dev) - starts[sorted_expert]
     keep = pos < C
     pos_c = torch.where(keep, pos, torch.zeros_like(pos))
 
-    x_rows = torch.where(keep[:, None], xf[token_of], torch.zeros((), dtype=cd, device=dev))
+    x_rows = constrain(xf[token_of], ("pod", "data"))  # (N*k, d) gather
+    x_rows = torch.where(keep[:, None], x_rows, torch.zeros((), dtype=cd, device=dev))
     buf = torch.zeros((E, C, d), dtype=cd, device=dev)
-    buf.index_put_((sorted_expert, pos_c), x_rows, accumulate=True)
+    buf = constrain(buf.index_put((sorted_expert, pos_c), x_rows, accumulate=True), "model")
 
     # ---- expert computation (grouped products over the expert dim) ---------
     up = torch.bmm(buf, p["w_up"].to(cd))
@@ -96,7 +104,7 @@ def moe_ffn(cfg: ArchConfig, p, x: torch.Tensor, *,
         h = act(torch.bmm(buf, p["w_gate"].to(cd))) * up
     else:
         h = act(up)
-    out_buf = torch.bmm(h, p["w_down"].to(cd))  # (E, C, d)
+    out_buf = constrain(torch.bmm(h, p["w_down"].to(cd)), "model")  # (E, C, d)
 
     # ---- combine ------------------------------------------------------------
     # back to token order: row t * k + j is token t's j-th pick; each token
@@ -106,12 +114,19 @@ def moe_ffn(cfg: ArchConfig, p, x: torch.Tensor, *,
     inv[order] = torch.arange(N * k, device=dev)
     y_rows = out_buf[sorted_expert, pos_c][inv]  # (N*k, d)
     kept = keep[inv]
-    y_rows = torch.where(kept[:, None], y_rows, torch.zeros((), dtype=cd, device=dev))
+    y_rows = constrain(torch.where(kept[:, None], y_rows, torch.zeros((), dtype=cd, device=dev)),
+                       ("pod", "data"))
     contrib = y_rows.float() * gates.reshape(N * k)[:, None]
-    y = contrib.reshape(N, k, d).sum(dim=1)
+    y = constrain(contrib.reshape(N, k, d).sum(dim=1), ("pod", "data"))
 
     aux = {"router_probs": probs, "expert_indices": idx, "dropped": ~kept.reshape(N, k)}
     return y.reshape(B, S, d).to(cd), aux
+
+
+def _full(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value as a plain tensor (every rank the same); a
+    plain tensor as is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
 def moe_load_balance_loss(router_probs: torch.Tensor, expert_indices: torch.Tensor,

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, sharded
 from .common import ParamInit, rms_norm
 
 
@@ -76,7 +76,7 @@ def _mlstm_qkvg(cfg: ArchConfig, p, x: torch.Tensor):
     v = v.reshape(B, S, H, hd).transpose(1, 2)
     gates = x @ p["w_gates"].to(cd) + p["b_gates"].to(cd)
     f_logit, i_logit = torch.split(gates, H, dim=-1)  # (B,S,H) each
-    log_a = F.logsigmoid(f_logit.float()).transpose(1, 2)  # (B,H,S)
+    log_a = sharded.elementwise(F.logsigmoid, f_logit.float()).transpose(1, 2)  # (B,H,S)
     i_gate = torch.sigmoid(i_logit.float()).transpose(1, 2)  # (B,H,S)
     k = k * i_gate[..., None].to(cd)
     return q, k, v, log_a
@@ -95,7 +95,8 @@ def mlstm_forward(cfg: ArchConfig, p, x: torch.Tensor, state=None):
     n0 = state["n"] if state is not None else None
     # y and the normaliser (the scan of v = ones) from one call
     y, S_f, nrm, n_f = ops.gated_linear_scan(q, k, v, log_a, chunk=chunk, initial_state=s0,
-                                             normaliser=True, initial_normaliser=n0)
+                                             normaliser=True, initial_normaliser=n0,
+                                             impl=cfg.ssd_impl)
     y = y.float() / torch.clamp_min(torch.abs(nrm.float()), 1.0)
     y = y.to(cd).transpose(1, 2).reshape(B, S, di)
     ogate = F.silu(h @ p["w_ogate"].to(cd))
@@ -253,7 +254,8 @@ def mamba_forward(cfg: ArchConfig, p, x: torch.Tensor, state=None):
     k = (Bmat[:, None, :, :] * dt.transpose(1, 2)[..., None]).to(cd)
     v = x_ssm.reshape(B, S, H, hd).transpose(1, 2)
     s0 = state["S"] if state is not None else None
-    y, S_f = ops.gated_linear_scan(q, k, v, log_a, chunk=_chunk_for(S), initial_state=s0)
+    y, S_f = ops.gated_linear_scan(q, k, v, log_a, chunk=_chunk_for(S), initial_state=s0,
+                                   impl=cfg.ssd_impl)
     y = y + p["D"].to(cd)[None, :, None, None] * v  # skip connection
     y = y.transpose(1, 2).reshape(B, S, di)
     y = rms_norm(y * F.silu(z), p["out_norm"], eps=cfg.norm_eps)

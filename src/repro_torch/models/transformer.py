@@ -28,6 +28,7 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs import ArchConfig
+from repro_torch.sharding.ambient import constrain
 from .attention import (
     PagedLayout,
     decode_self_attention,
@@ -219,6 +220,9 @@ def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor, labels: torch.Tensor,
     MoE load-balance loss. Returns (loss, {"ce_loss", "moe_aux"})."""
     logits, aux = lm_forward(cfg, params, tokens, prefix_len=prefix_len)
     loss = softmax_cross_entropy(logits, labels, z_loss=z_loss)
+    # under a mesh both are partial scalars of other kinds, whose sum DTensor
+    # cannot differentiate: replicate them first (a no-op otherwise)
+    loss, aux = constrain(loss), constrain(aux)
     return loss + moe_aux_weight * aux, {"ce_loss": loss, "moe_aux": aux}
 
 

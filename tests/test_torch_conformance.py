@@ -50,7 +50,13 @@ REGISTRY_CAPS = {
     "torchdev": {"topology", "communication", "memory", "compute"},
     "localsim": {"instance", "communication"},
     "coroutine": {"compute"},
+    "spmd": {"instance", "communication", "compute"},
+    "h100_spec": {"topology"},
 }
+
+#: the reference's row each of the port's registry rows takes
+REFERENCE_ROW = {"hostcpu": "hostcpu", "torchdev": "jaxdev", "localsim": "localsim",
+                 "coroutine": "coroutine", "spmd": "spmd", "h100_spec": "tpu_spec"}
 
 #: supports multi-instance global memory slots (and hence channels)
 MULTI_INSTANCE = {"localsim"}
@@ -405,3 +411,68 @@ class TestInstanceContract:
                 im.send_message(im.get_current_instance(), b"x")
             with pytest.raises(UnsupportedOperationError):
                 im.recv_message(timeout=0.01)
+
+
+
+# ---------------------------------------------------------------------------
+# the registry rows, the multi-device ones included
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend", sorted(REGISTRY_CAPS))
+def test_registry_row_matches_the_reference(backend):
+    """Every backend registers exactly its Table 1 row, the reference's row
+    for its counterpart (`spmd` for XLA SPMD, `h100_spec` for `tpu_spec`)."""
+    from repro.core.registry import get_backend as jax_get_backend
+    import repro.backends  # noqa: F401  (registers the reference's rows)
+
+    assert set(get_backend(backend).factories) == REGISTRY_CAPS[backend]
+    assert set(jax_get_backend(REFERENCE_ROW[backend]).factories) == REGISTRY_CAPS[backend]
+
+
+def test_spmd_compute_manager_runs_a_unit_without_a_mesh():
+    """The spmd compute manager's execution contract on the host: a unit
+    runs, its Future resolves with the result, a finished state is not
+    re-run; the processing unit of a mesh is a MESH_SLICE resource."""
+    from repro_torch.backends.spmd import SpmdComputeManager
+    from repro_torch.core.definitions import ComputeResourceKind, LifetimeError
+
+    cm = SpmdComputeManager()
+    pu = cm.create_processing_unit(ComputeResource(kind="mesh_slice", index=0, device_id="m"))
+    cm.initialize(pu)
+    unit = cm.create_execution_unit(lambda a, b: a + b, name="add")
+    state = cm.create_execution_state(unit, 2, 3)
+    assert cm.execute(pu, state).result() == 5
+    with pytest.raises(LifetimeError):
+        cm.execute(pu, state)
+    failing = cm.create_execution_state(cm.create_execution_unit(lambda: 1 / 0))
+    with pytest.raises(ZeroDivisionError):
+        cm.execute(pu, failing).result()
+    cm.finalize(pu)
+
+    class _Grid:
+        shape = (2, 4)
+
+    class _Mesh:
+        mesh = _Grid()
+        mesh_dim_names = ("data", "model")
+        device_type = "cpu"
+
+    res = SpmdComputeManager(_Mesh()).mesh_compute_resource()
+    assert res.kind == ComputeResourceKind.MESH_SLICE.value and res.device_id == "mesh-2x4"
+    assert res.attributes["axis_names"] == ("data", "model")
+
+
+def test_h100_spec_topology_is_a_node_of_eight_gpus():
+    from repro_torch.backends.gpu_spec import H100, SpecTopologyManager
+
+    topo = get_backend("h100_spec").factories["topology"]().query_topology()
+    devices = topo.get_devices()
+    assert len(devices) == 8 and {d.kind for d in devices} == {"gpu"}
+    assert {d.attributes["node"] for d in devices} == {0}
+    hbm = [m for m in topo.all_memory_spaces() if m.kind == "device_hbm"]
+    assert all(m.size_bytes == H100.hbm_bytes and m.bandwidth_bytes_per_s == H100.hbm_bandwidth
+               for m in hbm)
+    again = Topology.deserialize(topo.serialize())
+    assert len(again.get_devices()) == 8
+    assert len(SpecTopologyManager(nodes=2).query_topology().get_devices()) == 16

@@ -50,7 +50,13 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.models.moe", "repro_torch.models.vlm",
                    "repro_torch.models.encdec", "repro_torch.configs.grok_1_314b",
                    "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.configs.paligemma_3b",
-                   "repro_torch.configs.whisper_small"):
+                   "repro_torch.configs.whisper_small",
+                   # the reference's multi-device modules' counterparts
+                   "repro_torch.backends.spmd", "repro_torch.backends.gpu_spec",
+                   "repro_torch.kernels.blocked", "repro_torch.kernels.sharded",
+                   "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+                   "repro_torch.launch.roofline", "repro_torch.sharding.partition",
+                   "repro_torch.sharding.ambient"):
         assert module in names, module
 
 
@@ -149,3 +155,22 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
     return [t for v in tree for t in _leaves(v)]
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Every module of the JAX package has one in the port: by the same
+    path, or by its named counterpart (`jaxdev` -> `torchdev`, `tpu_spec`
+    -> `gpu_spec`)."""
+    import pkgutil
+
+    import repro
+    import repro_torch
+
+    renamed = {"repro.backends.jaxdev": "repro_torch.backends.torchdev",
+               "repro.backends.tpu_spec": "repro_torch.backends.gpu_spec"}
+    # the Pallas-only helpers of the reference's kernels stay with them
+    ref = {m.name for m in pkgutil.walk_packages(repro.__path__, "repro.")}
+    port = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    missing = sorted(m for m in ref
+                     if renamed.get(m, "repro_torch." + m[len("repro."):]) not in port)
+    assert not missing, missing

@@ -18,6 +18,19 @@ this shape), which the test asserts, and the port is held to max |d| / max
 train shape (B=2, S=64) and key. Then the port alone: the three
 `remat_policy` values give the same gradients, `make_batch` draws the
 reference's shapes and `param_count` counts the reference's parameters.
+
+Every family's tree stacks into the reference's layout (`stack_params`),
+so Adafactor and int8 error feedback step on all of them: two steps of
+zamba2 and whisper with each equal the reference's (Adafactor's statistics
+and the residuals compared in that layout). With int8 compression on
+zamba2, whose reference gradient is noisy (above), a value within that
+noise of a half step of its leaf's int8 grid rounds the other way: such
+ties are allowed in at most twice that noise over a grid step (2.54e-2)
+of the residuals and 1e-4 of the parameters, each parameter off by at most
+the learning rates' sum; the other residuals
+are held within the gradient's noise (1e-4 of the leaf's largest value),
+and Adafactor's statistics, squared gradients, per leaf to 2e-4 of its
+largest value.
 """
 import numpy as np
 import pytest
@@ -169,3 +182,105 @@ def test_make_batch_draws_the_reference_shapes(step):
 def test_param_count_matches_reference(step):
     assert param_count(step["params"]) == jax_param_count(step["jparams"])
 
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_stack_params_is_the_reference_layout(arch):
+    """`stack_params` rebuilds every family's reference stacks from the
+    port's per-layer lists bit for bit (the hybrid's Mamba2 stacks, the
+    encoder-decoder's encoder and decoder stacks too), and `unstack_params`
+    undoes it: Adafactor and int8 compression step on every family."""
+    from repro_torch.models.bridge import stack_params, unstack_params
+
+    jcfg, cfg = jax_get_config(arch, reduced=True), get_config(arch, reduced=True)
+    jparams = _np(jax_build(jcfg).init(jax.random.PRNGKey(0))[0])
+    params = params_from_jax(cfg, jparams, device="cpu")
+    stacked = stack_params(cfg, params)
+    got = dict(jax.tree_util.tree_flatten_with_path(stacked)[0])
+    want = dict(jax.tree_util.tree_flatten_with_path(jparams)[0])
+    assert set(map(jax.tree_util.keystr, got)) == set(map(jax.tree_util.keystr, want))
+    by_key = {jax.tree_util.keystr(k): v for k, v in want.items()}
+    for k, v in got.items():
+        np.testing.assert_array_equal(v.numpy(), by_key[jax.tree_util.keystr(k)], err_msg=str(k))
+    back = unstack_params(cfg, stacked)
+    assert len(tree_leaves(back)) == len(tree_leaves(params))
+    for a, b in zip(tree_leaves(back), tree_leaves(params)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-small"])
+@pytest.mark.parametrize("name,compression", [("adafactor", None), ("adamw", "int8_ef")],
+                         ids=["adafactor", "int8_ef"])
+def test_adafactor_and_int8_ef_match_reference(arch, name, compression):
+    """Two steps of the hybrid and the encoder-decoder with Adafactor and
+    with int8 error feedback against the reference's jitted step, on its
+    `make_batch` batches, with `tests/test_torch_train.py`'s tolerances;
+    Adafactor's statistics and the residuals in the reference's stacked
+    layout."""
+    import dataclasses
+
+    jcfg, cfg = jax_get_config(arch, reduced=True), get_config(arch, reduced=True)
+    jmodel, model = jax_build(jcfg), build(cfg)
+    jocfg = jopt.OptimizerConfig(name=name, learning_rate=1e-3)
+    jtcfg = jts.TrainConfig(grad_compression=compression)
+    jparams, _, jopt_state, jef = jts.init_train_state(jmodel, jocfg, jax.random.PRNGKey(0),
+                                                       train_cfg=jtcfg)
+    batches = [_np(jmodel.make_batch(jax.random.PRNGKey(k), JSHAPE)) for k in (2, 3)]
+    jstep = jax.jit(jts.make_train_step(jmodel, jocfg, jtcfg))
+    ocfg = topt.OptimizerConfig(**dataclasses.asdict(jocfg))
+    tcfg = tts.TrainConfig(grad_compression=compression)
+    params, opt_state, ef = tts.init_train_state(
+        model, ocfg, train_cfg=tcfg, params=params_from_jax(cfg, _np(jparams), device="cpu"))
+    step = tts.make_train_step(model, ocfg, tcfg)
+    for batch in batches:
+        jparams, jopt_state, jef, jm = jstep(jparams, jopt_state, jef, batch)
+        params, opt_state, ef, m = step(params, opt_state, ef, batch)
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(m[key]), float(jm[key]), rtol=1e-5,
+                                       err_msg=f"{arch} {key}")
+    want = params_from_jax(cfg, _np(jparams), device="cpu")
+    if compression and cfg.family in NOISY_REFERENCE:
+        # a gradient within the reference's own noise of a half step of its
+        # leaf's int8 grid rounds the other way (the residual ties below);
+        # Adam then moves that element by up to a learning rate a step
+        lr_sum = sum(float(topt.schedule(ocfg, s)) for s in (1, 2))
+        off = total = 0
+        for path, a, b in _pairs(params, want):
+            d = (a - b).abs()
+            bad = d > 1e-5 + 1e-4 * b.abs()
+            assert float(d.max()) <= 1.01 * lr_sum * (1 + ocfg.weight_decay), f"param {path}"
+            off, total = off + int(bad.sum()), total + a.numel()
+        assert off <= 1e-4 * total, f"{off} of {total} parameters differ"
+    else:
+        _close(params, want, rtol=1e-4, atol=1e-5, what=f"{arch} param ")
+    stacked_ref = lambda t: tree_map_np(t)  # noqa: E731  (the reference's stacked layout)
+    noisy = cfg.family in NOISY_REFERENCE
+    if name == "adafactor" and noisy:
+        # the statistics are squared gradients: twice the gradients' noise
+        for path, a, b in _pairs(opt_state["v"], stacked_ref(jopt_state["v"])):
+            err = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            assert err <= 2 * GRAD_TOL["rtol"], f"{arch} v {path}: {err:.2e}"
+    elif name == "adafactor":
+        _close(opt_state["v"], stacked_ref(jopt_state["v"]), rtol=1e-4, atol=1e-12,
+               what=f"{arch} v ")
+    else:
+        ties = total = 0
+        for path, a, b in _pairs(ef, stacked_ref(jef)):
+            a, b = a.numpy(), b.numpy()
+            grid = 2 * max(np.abs(a).max(), np.abs(b).max())
+            # a residual moves with its gradient: by the gradient's noise
+            # (1e-4 of the leaf's largest value, 127 grid steps) where that
+            # is noisy
+            slack = GRAD_TOL["rtol"] * 127 * grid if noisy else 0.0
+            off = np.abs(a - b) > 1e-6 + 1e-4 * np.abs(b) + slack
+            assert np.all(np.abs(a - b)[off] <= 1.01 * grid), f"ef {path}"
+            ties, total = ties + int(off.sum()), total + a.size
+        # ties: under a noisy gradient, a value within the noise of a
+        # grid boundary (a share of at most twice the noise over the step)
+        share = 2 * GRAD_TOL["rtol"] * 127 if noisy else 1e-4
+        assert ties <= share * total, f"{ties} of {total} residuals differ"
+
+
+def tree_map_np(tree):
+    """A reference tree (its stacked layout) as CPU tensors, as it is."""
+    return jax.tree_util.tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
