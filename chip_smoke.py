@@ -15,8 +15,10 @@ fleet, the MoE family (grok-1-314b, kimi-k2-1t-a32b) at its published widths
 with the depth cut through the paged and dense schedulers, and full-width
 paligemma-3b and whisper-small through their model bundles, full-width
 gemma3-1b and xlstm-125m trained through the launcher, and zamba2-7b (depth
-cut), paligemma-3b and whisper-small trained through the train step -- and
-fails (non-zero exit) if any phase fails. It imports
+cut), paligemma-3b and whisper-small trained through the train step, and
+the port's examples through their own entry points (Test Case 2, the
+channel serve demo at full-width gemma3-1b, the ~100M-parameter training
+driver at its own widths) -- and fails (non-zero exit) if any phase fails. It imports
 nothing of JAX or of the JAX package. Phases:
 
 1. device: the card from `nvidia-smi` (name, power limit);
@@ -47,7 +49,8 @@ nothing of JAX or of the JAX package. Phases:
    names and the checked shapes covering the tensor-core variant's three
    tile widths, timed at every path shape against a bound built from the
    work itself, and its kernels' `-Xptxas -v` lines printed; zamba2-7b's
-   shapes: flash's simt kernel at head_dim 112 (and 160, G=4) and the decode
+   shapes: flash's simt kernel at head_dim 112 (and 160, G=4; and 80,
+   `examples/train_100m_torch.py`'s, in fp32, bf16 and ragged) and the decode
    core's simt walk at 32 heads of 112, both beside SDPA, the scan at
    Mamba2's tick and ragged prefill with the operands laid out as
    `mamba_forward` makes them; the paged kernel with window 512 through the
@@ -75,7 +78,9 @@ nothing of JAX or of the JAX package. Phases:
    variant `backward_variant` names (wgmma: bf16 at hd 64 / 128 / 256 with
    query heads per KV head dividing 64; simt: the rest), with whisper-small's
    encoder (1500 frames) and cross-attention (64 against 1500 keys) and
-   bf16 rows with no key among them; at the training shape the wgmma
+   bf16 rows with no key among them, and `examples/train_100m_torch.py`'s
+   shape (B=4, S=256, 8 query heads over 2 at hd 80, fp32, a global and a
+   local layer; bf16 and ragged S = 257 too: `simt`); at the training shape the wgmma
    variant timed warm (twice) and cold beside the simt variant on the same
    operands, its plain version and SDPA's backward, all in one call; the
    scan's backward kernel (`gated_linear_scan_bwd`) against
@@ -236,7 +241,28 @@ nothing of JAX or of the JAX package. Phases:
    manager, DTensors placed by the sharding plan, the kernels reached
    through `local_map`): losses within 1e-3 relative of `train`'s, 30's
    flash forward and backward launches a step all on wgmma, ms a step beside
-   `train`'s.
+   `train`'s;
+38. example-hetero: `examples/heterogeneous_inference_torch.py`'s three
+   rows through its `run` on the card: phase 9's checks (equal accuracy
+   above 0.85, img-0 scores within 1e-4, `fused_linear` twice a batch, on
+   `simt`);
+39. example-serve-demo: `examples/serve_demo_torch.py`'s two acts (two
+   clients and a channel server over localsim; a router and two workers
+   created at run time) at REDUCED fp32 on the card, token for token equal
+   to the same functions on the CPU; then both acts at full-width
+   gemma3-1b: every request completes with its token count, flash
+   launches exact (a prefill a request a layer) on wgmma, decode launches
+   exact (a tick a layer) on mma;
+40. example-train-100m: `examples/train_100m_torch.py` at its own widths
+   (75.2 M parameters, 8 query heads over 2 at hd 80, fp32) and CLI
+   defaults (30 steps, B=4 x 256, a checkpoint at 25) through its `train`
+   (the spmd compute manager over an NCCL world of one that it starts and
+   destroys): finite, falling losses, `expected_train_launches` flash
+   forward and backward launches a step all on simt, ms a step, training
+   tok/s, peak memory; a second run resumes at 25 and its step-30 loss
+   equals the first's within 1e-5 relative (bit equality reported). The
+   flash forward and backward at its shape are timed in phase 3 beside the
+   plain version and SDPA.
 
 The bound constants (peak rates, L2) come from
 `src/repro_torch/backends/gpu_spec.py`.
@@ -494,6 +520,16 @@ def check_flash(torch, gen) -> dict:
         dict(Sq=300, Skv=300, H=64, KV=8, hd=112, dtype=torch.bfloat16),
         dict(Sq=77, Skv=77, H=64, KV=8, hd=112, dtype=torch.float32),
     ]
+    # examples/train_100m_torch.py's attention (8 query heads over 2 at head_dim
+    # 80, fp32, B=4 x 256, causal; its local layers' window 256), in bf16 and
+    # at a ragged length: simt
+    cases += [
+        dict(B=4, Sq=256, Skv=256, H=8, KV=2, hd=80, dtype=torch.float32),
+        dict(B=4, Sq=256, Skv=256, H=8, KV=2, hd=80, dtype=torch.float32, window=256),
+        dict(B=4, Sq=256, Skv=256, H=8, KV=2, hd=80, dtype=torch.bfloat16),
+        dict(B=2, Sq=257, Skv=257, H=8, KV=2, hd=80, dtype=torch.float32, window=64),
+        dict(B=2, Sq=257, Skv=257, H=8, KV=2, hd=80, dtype=torch.bfloat16),
+    ]
     # the serial engine's prefill, 8 prompts of 512 tokens: a grid over a wave,
     # so two consumer warpgroups a block
     serial = [dict(B=8, Sq=512, Skv=512, H=4, KV=1, hd=256, dtype=torch.bfloat16, window=w)
@@ -713,6 +749,13 @@ BWD_CASES = (
                                    causal=False)),
     ("whisper-small cross-attention", dict(B=2, Sq=64, Skv=1500, H=12, KV=12, hd=64,
                                            dtype="bfloat16", causal=False)),
+    # examples/train_100m_torch.py: 8 query heads over 2 at hd 80, fp32, B=4 x
+    # 256 (a global layer and a local one, window 256), in bf16 and ragged
+    ("train_100m, global", dict(B=4, Sq=256, H=8, KV=2, hd=80, dtype="float32")),
+    ("train_100m, local", dict(B=4, Sq=256, H=8, KV=2, hd=80, dtype="float32", window=256)),
+    ("hd 80 bf16", dict(B=4, Sq=256, H=8, KV=2, hd=80, dtype="bfloat16")),
+    ("hd 80 ragged", dict(B=2, Sq=257, H=8, KV=2, hd=80, dtype="float32", window=64)),
+    ("hd 80 bf16 ragged", dict(B=2, Sq=257, H=8, KV=2, hd=80, dtype="bfloat16")),
 )
 
 
@@ -913,6 +956,79 @@ def check_flash_bwd(torch, gen) -> dict:
         "other_timings": [dict(shape="the same, window=512 (a local layer)",
                                **{n: local[n] for n in keys})],
     }
+
+
+#: examples/train_100m_torch.py's attention: B=4 x 256, 8 query heads over 2
+#: at head_dim 80 (fp32, causal; its local layers' window of 256 keys drops
+#: no pair at 256 positions)
+TRAIN_100M_ATTENTION = dict(B=4, Sq=256, H=8, KV=2, hd=80)
+
+
+def time_flash_hd80(torch, gen) -> tuple:
+    """The flash forward and backward at `TRAIN_100M_ATTENTION` in fp32,
+    each on `simt`, timed (CUDA events and the profiler's device time)
+    beside the plain version and SDPA (its backward through autograd, the
+    same output gradient), with the bound from the pairs the causal mask
+    keeps. Returns (forward row, backward row) for the two kernels'
+    `other_timings`."""
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels.ref import _build_mask
+
+    q, k, v, out, lse, do, kw = _bwd_case(torch, gen, dtype="float32", **TRAIN_100M_ATTENTION)
+    B, Sq, H, hd = q.shape
+    fwd = lambda: flash_attention.flash_attention(q, k, v, **kw)  # noqa: E731
+    bwd = lambda: flash_attention.flash_attention_backward(  # noqa: E731
+        q, k, v, out, lse, do, **kw)
+    require(launched_variant(flash_attention, fwd) == "simt"
+            and launched_variant(flash_attention.backward, bwd) == "simt",
+            "flash at train_100m's shape did not run simt both ways")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib_fwd = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+    lib_bwd = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,  # noqa: E731
+                                          retain_graph=True)
+    plain_bwd = lambda: ref.attention_backward(q, k, v, out, lse, do, **kw)  # noqa: E731
+    want = ref.attention(q, k, v, **kw)
+    want_dq = plain_bwd()[0]
+    pairs = B * int(_build_mask(Sq, Sq, device="cuda", **kw).sum().item())
+    f_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    f_flops = 4 * hd * H * pairs
+    fb_bytes = f_bytes / PEAK_BYTES_PER_S * 1e3
+    fb_ops = f_flops / PEAK_FLOPS["float32"] * 1e3
+    b_bound, b_by, b_bytes, b_flops = _bwd_bound_ms(q, k, lse, kw)
+    shape = (f"train_100m: B={B} Sq=Skv={Sq} H={H} KV={k.shape[2]} hd={hd} fp32 causal "
+             f"(simt)")
+    with torch.no_grad():
+        fwd_row = dict(
+            shape=shape, variant="simt", ms=time_ms(torch, fwd), device_ms=device_ms(torch, fwd),
+            plain_ms=time_ms(torch, lambda: ref.attention(q, k, v, **kw)),
+            plain_device_ms=device_ms(torch, lambda: ref.attention(q, k, v, **kw), iters=5),
+            library_ms=time_ms(torch, lib_fwd), library_device_ms=device_ms(torch, lib_fwd),
+            library_err=float((lib_fwd().transpose(1, 2) - want).abs().max().item()),
+            bound_ms=max(fb_bytes, fb_ops), bytes=f_bytes, flops=f_flops,
+            bound_by="bytes" if fb_bytes >= fb_ops else "operations")
+    bwd_row = dict(
+        shape=shape, variant="simt", ms=time_ms(torch, bwd, iters=10),
+        device_ms=device_ms(torch, bwd, iters=10),
+        plain_ms=time_ms(torch, plain_bwd, iters=3, warmup=1),
+        plain_device_ms=device_ms(torch, plain_bwd, iters=3),
+        library_ms=time_ms(torch, lib_bwd, iters=10),
+        library_device_ms=device_ms(torch, lib_bwd, iters=10),
+        library_dq_err=float((lib_bwd()[0].transpose(1, 2) - want_dq).abs().max().item()),
+        bound_ms=b_bound, bound_by=b_by, bytes=b_bytes, flops=b_flops)
+    for name, row in (("flash_attention", fwd_row), ("flash_attention_bwd", bwd_row)):
+        row["tflops"] = row["flops"] / (row["device_ms"] * 1e-3) / 1e12
+        log(f"[kernels] {name} timing {shape}: kernel {row['ms']:.4f} ms, device "
+            f"{row['device_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms, device "
+            f"{row['plain_device_ms']:.4f}; SDPA {row['library_ms']:.4f} ms, device "
+            f"{row['library_device_ms']:.4f} (its max err vs plain "
+            f"{row.get('library_err', row.get('library_dq_err')):.3e}); bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {row['bytes']} B, "
+            f"{row['flops']} FLOP); {row['tflops']:.3f} TFLOP/s on the device time")
+    del q, k, v, out, lse, do, qt, kt, vt, lib_out
+    return fwd_row, bwd_row
 
 
 def decode_ptxas(rows: str, dtype, hd: int, groups: int, kind: str) -> str:
@@ -2001,9 +2117,12 @@ def check_scan_bwd(torch, gen) -> dict:
 def phase_kernels(torch) -> list:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    return [check_flash(torch, gen), check_flash_bwd(torch, gen), check_paged(torch, gen),
-            check_decode(torch, gen), check_fused_linear(torch, gen), check_scan(torch, gen),
-            check_scan_bwd(torch, gen)]
+    flash, flash_bwd = check_flash(torch, gen), check_flash_bwd(torch, gen)
+    fwd_hd80, bwd_hd80 = time_flash_hd80(torch, gen)
+    flash["other_timings"].append(fwd_hd80)
+    flash_bwd["other_timings"].append(bwd_hd80)
+    return [flash, flash_bwd, check_paged(torch, gen), check_decode(torch, gen),
+            check_fused_linear(torch, gen), check_scan(torch, gen), check_scan_bwd(torch, gen)]
 
 
 # ---------------------------------------------------------------------------
@@ -5107,6 +5226,252 @@ def phase_train_spmd(torch, card: str) -> tuple:
     return counts, variants
 
 
+# ---------------------------------------------------------------------------
+# 38-40. the examples: Test Case 2, the channel serve demo and the 100M
+# training driver through their own entry points
+# ---------------------------------------------------------------------------
+
+
+def _example(name: str):
+    """`examples/<name>.py` as a module (the examples are scripts, not a
+    package; importing one runs nothing)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, "examples",
+                                                                     f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_example_hetero(torch) -> dict:
+    """`examples/heterogeneous_inference_torch.py`'s three rows on the card
+    through its own `run`: Test Case 2's checks (phase tc2's), with
+    `fused_linear` launched twice a batch of its row, on `simt`, and by no
+    other row. Returns the run's launch counts."""
+    from repro_torch.kernels import ops
+
+    ex = _example("heterogeneous_inference_torch")
+    n_test, batch = 2000, 256
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = ex.run("cuda", n_test=n_test)
+    wall = time.perf_counter() - t0
+    counts, variants = ops.launch_counts(), ops.variant_counts()
+    for dev, backend, r in rows:
+        log(f"[example-hetero] {dev:<10} {backend:<13} accuracy {r.accuracy:.4f}, img-0 class "
+            f"{r.img0_class}, score {r.img0_score:.9f}")
+    accs = {r.accuracy for _, _, r in rows}
+    scores = [r.img0_score for _, _, r in rows]
+    n_launch = 2 * -(-n_test // batch)
+    log(f"[example-hetero] three rows in {wall:.3f}s; launches {counts}, fused_linear by variant "
+        f"{variants['fused_linear']}")
+    require([(d, b) for d, b, _ in rows] == [("host-cpu", "numpy"), ("cuda", "torch"),
+                                             ("cuda", "fused_linear")],
+            f"example-hetero rows {[(d, b) for d, b, _ in rows]}")
+    require(len(accs) == 1 and min(accs) > 0.85, f"Test Case 2 accuracies {accs}")
+    require(len({r.img0_class for _, _, r in rows}) == 1, "img-0 class differs across rows")
+    require(max(scores) - min(scores) < 1e-4, f"img-0 scores spread {max(scores) - min(scores)}")
+    require(counts["fused_linear"] == n_launch and sum(counts.values()) == n_launch,
+            f"example-hetero launches {counts}, expected fused_linear {n_launch} and nothing else")
+    require_variant(variants, "fused_linear", "simt", n_launch, "example-hetero")
+    return counts
+
+
+def phase_example_serve_demo(torch) -> dict:
+    """`examples/serve_demo_torch.py`'s two acts through its own functions:
+    at REDUCED fp32 (TF32 off) on the card, every request's streamed tokens
+    equal the same functions' on the CPU; then at full-width gemma3-1b (26
+    layers, bf16, seeded) every request completes with its requested count
+    of tokens, and the launches are exact: a flash prefill a request and a
+    decode a tick, each a layer, flash on `wgmma` and decode on `mma`.
+    Returns each act's launch counts at full width."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models.common import dtype_of
+
+    ex = _example("serve_demo_torch")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("gemma3-1b", reduced=True)
+    model = build(cfg)
+    params_cpu = model.init(seed=0, device="cpu")
+    params_card = _to_device(params_cpu, "cuda")
+    acts = {}
+    for device, params in (("cuda", params_card), ("cpu", params_cpu)):
+        _, replies = ex.serve_channels(model, params, device)
+        fleet = ex.serve_fleet(model, params, device)
+        acts[device] = ({rid: toks for rid, (toks, _) in replies.items()},
+                        {rid: r["tokens"] for rid, r in fleet.results.items()})
+    for i, act in enumerate(("act 1 (channel server)", "act 2 (fleet)")):
+        card, host = acts["cuda"][i], acts["cpu"][i]
+        log(f"[example-serve-demo] REDUCED fp32 {act}: {len(card)} requests, tokens on the card "
+            f"equal the CPU's: {card == host}")
+        require(card == host and len(card) == 6,
+                f"example-serve-demo REDUCED {act}: card {card} cpu {host}")
+    del params_card
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma3-1b")
+    model = build(cfg)
+    L = cfg.num_layers
+    params = model.init(seed=0, device="cuda", dtype=dtype_of(cfg.compute_dtype))
+    torch.cuda.synchronize()
+    bodies = [b for rank in range(1, 1 + ex.N_CLIENTS)
+              for b in ex.client_requests(cfg.vocab_size, rank)]
+    steps = {b["id"]: b["steps"] for b in bodies}
+    steps.update({r.rid: r.max_new_tokens for r in ex.fleet_requests(cfg.vocab_size)})
+    counts = {}
+
+    def check(act, got, ticks, counts_, variants, wall):
+        n_tok = sum(len(t) for t in got.values())
+        log(f"[example-serve-demo] gemma3-1b full width {act}: {len(got)} requests, {n_tok} "
+            f"tokens in {wall:.3f}s, {ticks} decode ticks; launches {counts_}")
+        require(len(got) == 6 and all(len(t) == steps[rid] for rid, t in got.items()),
+                f"{act}: tokens {got}")
+        require(all(bool(np.all((np.asarray(t) >= 0) & (np.asarray(t) < cfg.vocab_size)))
+                    for t in got.values()), f"{act}: a token out of range")
+        want = {name: 0 for name in counts_}
+        want.update(flash_attention=len(got) * L, decode_attention=ticks * L)
+        require(counts_ == want, f"{act}: launches {counts_}, expected {want}")
+        require_variant(variants, "flash_attention", "wgmma", want["flash_attention"], act)
+        require_variant(variants, "decode_attention", "mma", want["decode_attention"], act)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    server, replies = ex.serve_channels(model, params, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["example-serve-demo act 1"] = ops.launch_counts()
+    check("act 1 (channel server)", {rid: t for rid, (t, _) in replies.items()},
+          server["ticks"], counts["example-serve-demo act 1"], ops.variant_counts(), wall)
+    with _worker_schedulers() as made:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fleet = ex.serve_fleet(model, params, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts["example-serve-demo act 2"] = ops.launch_counts()
+        variants = ops.variant_counts()
+        ticks = sum(sched.ticks for sched in made)
+    require(fleet.stats["worker_errors"] == {} and len(made) == ex.N_WORKERS,
+            f"act 2: worker errors {fleet.stats['worker_errors']}, {len(made)} workers")
+    log(f"[example-serve-demo] act 2: per-worker settled {fleet.stats['per_worker_settled']}, "
+        f"{len(fleet.chunks)} merged chunks")
+    check("act 2 (fleet)", {rid: r["tokens"] for rid, r in fleet.results.items()}, ticks,
+          counts["example-serve-demo act 2"], variants, wall)
+    del params, made
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_example_train_100m(torch, card: str) -> dict:
+    """`examples/train_100m_torch.py` at its own widths (10 layers, d_model
+    640, 8 query heads over 2 at hd 80, vocab 50304, fp32) and CLI defaults
+    (30 steps, B=4 x 256, a checkpoint at 25) through its own `train`: the
+    SPMD compute manager over an NCCL world of one that the run starts and
+    destroys. Losses finite and falling; exactly `expected_train_launches`
+    flash forward and backward launches a step, all on `simt`; ms a step,
+    training tok/s, peak memory. Then a second run of 30 steps on the same
+    directory resumes at 25, and its step-30 loss equals the first run's
+    within 1e-5 relative (bit equality reported); one more step is traced
+    (device busy time, idle share, top kernels). Returns both runs' launch
+    counts."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.backends import torchdev
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models.model_zoo import param_count
+    from repro_torch.train.data import SyntheticTokenStream
+
+    ex = _example("train_100m_torch")
+    cfg = ex.model_config()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        args = ex.parse_args(["--ckpt-dir", ckpt_dir])
+        device = torchdev.resolve_device(args.device)
+        run_kw = dict(steps=args.steps, batch=args.batch, seq=args.seq, ckpt_dir=ckpt_dir,
+                      ckpt_every=args.ckpt_every,
+                      out=lambda line: log(f"[example-train-100m] {line}"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = build(cfg).init(seed=0, device=device)
+        n_params = param_count(params)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        first = ex.train(cfg, params, device, **run_kw)
+        counts, variants = ops.launch_counts(), ops.variant_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        del params, first.params, first.opt_state
+        require(not dist.is_initialized(), "the example left its process group behind")
+        params = build(cfg).init(seed=0, device=device)
+        ops.reset_launch_counts()
+        resumed = ex.train(cfg, params, device, **run_kw)
+        resume_counts, resume_variants = ops.launch_counts(), ops.variant_counts()
+        # one more step under the profiler: the device's busy and idle time
+        stream = SyntheticTokenStream(cfg, ShapeConfig("train100m", args.seq, args.batch,
+                                                       "train"))
+        br = _traced_step(torch, build(cfg), resumed.params, stream._batch_for(args.steps))
+        del params, resumed.params, resumed.opt_state
+    losses = [h["loss"] for h in first.history]
+    ms = [h["seconds"] * 1e3 for h in first.history]
+    mean_ms = sum(ms[1:]) / len(ms[1:])
+    B, S, steps = args.batch, args.seq, args.steps
+    log(f"[example-train-100m] {n_params / 1e6:.1f}M parameters ({cfg.num_layers}L "
+        f"d={cfg.d_model} H={cfg.num_heads} KV={cfg.num_kv_heads} hd={cfg.head_dim} "
+        f"V={cfg.vocab_size}, fp32), B={B} x S={S}, {steps} steps: losses "
+        f"{[round(x, 5) for x in losses]}")
+    log(f"[example-train-100m] ms a step {[round(x, 2) for x in ms]}: steps 2-{steps} "
+        f"{mean_ms:.2f} ms = {B * S / (mean_ms / 1e3):.0f} training tok/s (step 1 "
+        f"{ms[0]:.2f} ms); peak device memory above the baseline {peak / 2**30:.3f} GiB; on "
+        f"{card}; launches {counts}, flash by variant {variants['flash_attention']}, backward "
+        f"{variants['flash_attention_bwd']}")
+    want_steps = list(range(1, steps + 1))
+    require([h["step"] for h in first.history] == want_steps and first.start_step == 0,
+            f"example-train-100m ran steps {[h['step'] for h in first.history]}")
+    require(all(math.isfinite(x) for x in losses), f"a loss is not finite: {losses}")
+    require(sum(losses[-5:]) < sum(losses[:5]) and losses[-1] < losses[0],
+            f"the losses did not fall: {losses}")
+    fwd, bwd, _, _ = expected_train_launches(cfg)
+    for tag, got, kinds, n in (("run", counts, variants, steps),
+                               ("resume", resume_counts, resume_variants,
+                                steps - resumed.start_step)):
+        require(got["flash_attention"] == fwd * n and got["flash_attention_bwd"] == bwd * n
+                and sum(got.values()) == (fwd + bwd) * n,
+                f"example-train-100m {tag}: {got}, expected {fwd} forward and {bwd} backward "
+                f"flash launches a step")
+        require_variant(kinds, "flash_attention", "simt", fwd * n, f"example-train-100m {tag}")
+        require_variant(kinds, "flash_attention_bwd", "simt", bwd * n,
+                        f"example-train-100m {tag}")
+    last, again = first.history[-1]["loss"], resumed.history[-1]["loss"]
+    log(f"[example-train-100m] resumed at step {resumed.start_step}: steps "
+        f"{[h['step'] for h in resumed.history]}, losses "
+        f"{[h['loss'] for h in resumed.history]} against "
+        f"{[h['loss'] for h in first.history[resumed.start_step:]]}; step-{steps} loss "
+        f"{again!r} against {last!r}: relative difference {abs(again - last) / abs(last):.3e}, "
+        f"bit-equal {again == last}; launches {resume_counts}")
+    _log_breakdown("example-train-100m", br)
+    require(resumed.start_step == args.ckpt_every
+            and [h["step"] for h in resumed.history] == want_steps[args.ckpt_every:],
+            f"the second run resumed at {resumed.start_step}")
+    require(abs(again - last) <= 1e-5 * abs(last),
+            f"the resumed step-{steps} loss {again} differs from {last} beyond 1e-5 relative")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"example-train-100m": counts, "example-train-100m resume": resume_counts}
+
+
 def _load_spec() -> None:
     """The bound constants from the port's one source of them
     (`backends/gpu_spec.py`, NVIDIA's H100 SXM5 datasheet)."""
@@ -5185,6 +5550,10 @@ def main() -> int:
         bundle_train_counts = run_phase("train-bundles", phase_train_bundles, torch)
         run_phase("spmd", phase_spmd, torch)
         spmd_train_counts, _ = run_phase("train-spmd", phase_train_spmd, torch, card)
+        hetero_counts = run_phase("example-hetero", phase_example_hetero, torch)
+        demo_counts = run_phase("example-serve-demo", phase_example_serve_demo, torch)
+        train_100m_counts = run_phase("example-train-100m", phase_example_train_100m, torch,
+                                      card)
         log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
@@ -5202,7 +5571,8 @@ def main() -> int:
                    "generate-paligemma": paligemma_counts, "generate-whisper": whisper_counts,
                    "train": train_counts, "train-xlstm": xlstm_train_counts,
                    "train-zamba2": zamba2_train_counts, **bundle_train_counts,
-                   "train-spmd": spmd_train_counts}
+                   "train-spmd": spmd_train_counts, "example-hetero": hetero_counts,
+                   **demo_counts, **train_100m_counts}
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]] for path, c in path_counts.items()
                                  if c[k["name"]]}

@@ -73,7 +73,7 @@
 //   ptxas otherwise reuses its registers as scratch and serialises every
 //   wgmma of the kernel (its warning C7515).
 // * simt (fp32, whose exactness the REDUCED parity and the resume test
-//   depend on; head dims 16, 32, 112, 160; groups that do not divide 64,
+//   depend on; head dims 16, 32, 80, 112, 160; groups that do not divide 64,
 //   such as granite-20b's 48 over 1): scalar fp32 FMA on the CUDA cores.
 //   Three launches: D = rowsum(dO * o), one warp a (b, position, head) row;
 //   dK/dV, one block per (key tile of 32, KV head, batch), walking every
@@ -496,6 +496,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, con
     REPRO_BWD_HD(16)
     REPRO_BWD_HD(32)
     REPRO_BWD_HD(64)
+    REPRO_BWD_HD(80)  // train_100m's ~100M-parameter gemma3-family model
     REPRO_BWD_HD(112)
     REPRO_BWD_HD(128)
     REPRO_BWD_HD(160)

@@ -12,8 +12,12 @@ retried):
   tile. Every gemma3 prefill at full width takes it. `consumer_warpgroups`
   picks one or two consumer warpgroups a block by the grid's size.
 * ``simt``: everything else (fp32, whose 2e-5 parity TF32 would break; head
-  dims 16 and 32 of the REDUCED configs, 112 of zamba2-7b, 160 of
-  stablelm-12b): scalar fp32 FMA, 32 query rows a block.
+  dims 16 and 32 of the REDUCED configs, 80 of `examples/train_100m_torch.py`,
+  112 of zamba2-7b, 160 of stablelm-12b): scalar fp32 FMA, 32 query rows a
+  block.
+
+Head dims outside `SUPPORTED_HEAD_DIMS` raise: each is an instantiation of
+the CUDA templates, and the build instantiates only these.
 
 Both mask ragged Sq / Skv themselves, so any prompt length runs without
 padding (the Pallas wrapper needs block multiples), and visit only the key
@@ -39,8 +43,8 @@ the forward's rule:
   card's SM count) whose fp32 partials a second pass adds in a fixed order;
   the wrapper allocates that scratch and the row stats' (`backward_scratch`).
 * ``simt``: scalar fp32 FMA, tiles of 32 (fp32, which must stay exact for
-  the REDUCED parity and the resume test; hd 16, 32, 112, 160; granite's 48
-  query heads over 1).
+  the REDUCED parity and the resume test; hd 16, 32, 80, 112, 160;
+  granite's 48 query heads over 1).
 
 Both are deterministic (no atomics) and both take rows with no key (the
 reference's uniform average, no gradient to q or k).
@@ -62,9 +66,10 @@ import torch
 
 from . import build
 
-#: head dims of the repo's configs: 16 and 32 (REDUCED), 112 (zamba2-7b, kimi-k2),
-#: 160 (stablelm-12b), 64, 128, 256
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 112, 128, 160, 256)
+#: head dims of the repo's configs and examples: 16 and 32 (REDUCED), 80
+#: (`examples/train_100m_torch.py`), 112 (zamba2-7b, kimi-k2), 160 (stablelm-12b),
+#: 64, 128, 256
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160, 256)
 WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODES = {"simt": 0, "wgmma": 1}
@@ -118,9 +123,10 @@ def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 def backward_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The variant `flash_attention_backward` launches for these operands:
     ``wgmma`` for bf16 at head_dim 64 / 128 / 256 with query heads per KV
-    head dividing 64 and q, k, v 16-byte aligned, ``simt`` otherwise (fp32
-    among them). A rule on dtype, head_dim, group size and alignment only:
-    both variants take every mask, rows with no key included."""
+    head dividing 64 and q, k, v 16-byte aligned, ``simt`` otherwise (fp32,
+    and hd 80 of either dtype, among them). A rule on dtype, head_dim,
+    group size and alignment only: both variants take every mask, rows with
+    no key included."""
     return "wgmma" if _tensor_core_operands(q, k, v) else "simt"
 
 

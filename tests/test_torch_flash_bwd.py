@@ -417,6 +417,8 @@ def cuda():
     (torch.bfloat16, 2, 256, 4, 1, 256, {"window": 64}),
     (torch.bfloat16, 1, 200, 8, 2, 128, {"prefix_len": 50}),
     (torch.bfloat16, 1, 100, 4, 4, 112, {}),
+    (torch.float32, 2, 257, 8, 2, 80, {}),             # train_100m's head_dim, ragged
+    (torch.bfloat16, 1, 256, 8, 2, 80, {"window": 64}),
     (torch.float32, 2, 45, 4, 1, 16, {"window": 16}),
     (torch.float32, 1, 40, 4, 1, 32, {"q_offset": 30, "window": 8}),
     # whisper-small's encoder (1500 frames: a ragged last key tile) and its

@@ -60,6 +60,39 @@ def test_port_imports_no_jax_and_no_reference():
         assert module in names, module
 
 
+EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
+PORTED_EXAMPLES = ("quickstart_torch", "distributed_jacobi_torch", "heterogeneous_inference_torch",
+                   "serve_demo_torch", "train_100m_torch")
+
+
+def test_port_examples_import_no_jax_and_no_reference():
+    """Every `examples/*_torch.py` (the five ports of the reference's
+    examples among them) imports neither JAX nor the JAX package, and runs
+    nothing at import."""
+    found = sorted(f[:-3] for f in os.listdir(EXAMPLES) if f.endswith("_torch.py"))
+    assert set(PORTED_EXAMPLES) <= set(found), found
+    script = textwrap.dedent("""
+        import importlib.util, os, sys
+        here = sys.argv[1]
+        for name in sys.argv[2:]:
+            spec = importlib.util.spec_from_file_location(name, os.path.join(here, name + ".py"))
+            module = importlib.util.module_from_spec(spec)
+            sys.modules[name] = module
+            spec.loader.exec_module(module)
+            assert callable(module.main), name
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
+                     or m == "repro" or m.startswith("repro."))
+        print(bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", script, os.path.abspath(EXAMPLES)] + found,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip() == "[]"  # nothing printed: no module ran its program
+
+
 def test_torchdev_without_a_device_never_picks_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -771,8 +771,10 @@ def test_flash_kernel_matches_plain_on_card(cuda, Sq, window, kw, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd,H,KV,Sq", [(112, 32, 32, 1024), (112, 32, 32, 77), (160, 32, 8, 300)],
-                         ids=["zamba2-prefill", "zamba2-ragged", "hd160-gqa"])
+@pytest.mark.parametrize("hd,H,KV,Sq", [(112, 32, 32, 1024), (112, 32, 32, 77), (160, 32, 8, 300),
+                                        (80, 8, 2, 256), (80, 8, 2, 257)],
+                         ids=["zamba2-prefill", "zamba2-ragged", "hd160-gqa", "hd80-train100m",
+                              "hd80-ragged"])
 def test_flash_simt_at_wide_head_dims_matches_plain_on_card(cuda, hd, H, KV, Sq, dtype):
     gen = torch.Generator(device=cuda).manual_seed(hd + Sq)
     q = torch.randn((1, Sq, H, hd), generator=gen, device=cuda).to(TDT[dtype])
