@@ -49,14 +49,15 @@ nothing of JAX or of the JAX package. Phases:
    names and the checked shapes covering the tensor-core variant's three
    tile widths, timed at every path shape against a bound built from the
    work itself, and its kernels' `-Xptxas -v` lines printed; zamba2-7b's
-   shapes: flash's simt kernel at head_dim 112 (and 160, G=4; and 80,
-   `examples/train_100m_torch.py`'s, in fp32, bf16 and ragged) and the decode
-   core's simt walk at 32 heads of 112, both beside SDPA, the scan at
+   shapes: flash at head_dim 112 (and 160, G=4; and 80,
+   `examples/train_100m_torch.py`'s, in fp32 on simt, bf16 on wgmma, and
+   ragged) and the decode core's simt walk at 32 heads of 112, both beside
+   SDPA, the scan at
    Mamba2's tick and ragged prefill with the operands laid out as
    `mamba_forward` makes them; the paged kernel with window 512 through the
    full table (the prefix cache's local layers); the dense family's shapes:
-   flash at granite-20b's prefill (48 query heads over 1, hd 128: simt),
-   minitron-8b's (32 over 8: wgmma) and stablelm-12b's (hd 160: simt), the
+   flash at granite-20b's prefill (48 query heads over 1, hd 128),
+   minitron-8b's (32 over 8) and stablelm-12b's (hd 160), all wgmma, the
    decode core's simt walk at stablelm-12b's tick (hd 160) and the paged
    kernel at granite-20b's tick (six head groups: mma), each held against
    its plain version and timed warm and with its inputs cold in L2 (flash
@@ -64,8 +65,11 @@ nothing of JAX or of the JAX package. Phases:
    at paligemma-3b's prefix-LM prefill (B=8, 256 + 32 positions, wgmma, SDPA
    with the same boolean mask), whisper-small's bidirectional encoder
    (1500 frames) and cross-attention (Sq = 16 and 1 against 1500 keys, a
-   ragged last key tile), grok-1's prefill (48 over 8, hd 128: simt) and
-   kimi-k2's (64 over 8, hd 112: simt); the decode core at grok's dense
+   ragged last key tile), grok-1's prefill (48 over 8, hd 128) and kimi-k2's
+   (64 over 8, hd 112), both wgmma; at zamba2's, stablelm's, granite's,
+   grok's and kimi's prefills flash's simt kernel is timed too on the same
+   operands (`_fwd_simt`), and wgmma must beat it; the decode core at
+   grok's dense
    tick, paligemma's and whisper's ticks (mma) and the paged kernel at
    grok's (mma) and kimi's (simt) ticks; and rows that are not whole
    16-byte loads (fp32 hd 18, bf16 hd 36: element loads on the simt walk),
@@ -75,14 +79,18 @@ nothing of JAX or of the JAX package. Phases:
    layer), a group of 4 at hd 128, hd 112 and 160, a prefix-LM mask, fp32
    at hd 16 and rows with no key (max |d| / max |plain| within 2e-2 bf16,
    1e-4 fp32; the forward's log-sum-exp within 1e-3), each case on the
-   variant `backward_variant` names (wgmma: bf16 at hd 64 / 128 / 256 with
-   query heads per KV head dividing 64; simt: the rest), with whisper-small's
+   variant `backward_variant` names (wgmma: bf16 at hd 64 / 80 / 112 / 128 /
+   160 / 256 with at most 64 query heads per KV head; simt: the rest), with
+   granite-20b's G = 48 and grok-1's G = 6 at B=1 x 1024, zamba2-7b's
+   training shape (B=2 x 1024, 32 over 32, hd 112), whisper-small's
    encoder (1500 frames) and cross-attention (64 against 1500 keys) and
    bf16 rows with no key among them, and `examples/train_100m_torch.py`'s
    shape (B=4, S=256, 8 query heads over 2 at hd 80, fp32, a global and a
-   local layer; bf16 and ragged S = 257 too: `simt`); at the training shape the wgmma
-   variant timed warm (twice) and cold beside the simt variant on the same
-   operands, its plain version and SDPA's backward, all in one call; the
+   local layer: `simt`; bf16 on wgmma, and ragged S = 257 too); at
+   gemma3-1b's training shape, hd 112, hd 160 G=4, G=48, G=6 and zamba2-7b's
+   training shape the wgmma variant timed warm (twice) and cold beside the
+   simt variant on the same operands (which it must beat), its plain version
+   and SDPA's backward, all in one call; the
    scan's backward kernel (`gated_linear_scan_bwd`) against
    `ref.gated_linear_scan_backward` (max |d| / max |plain| of dq, dk, dv,
    dlog_a and the initial states' gradients within 2e-2 bf16, 1e-4 fp32) at
@@ -148,8 +156,8 @@ nothing of JAX or of the JAX package. Phases:
 16. serve-zamba2: full zamba2-7b (81 Mamba2 layers, the shared attention
    block after every 6, d_model 3584, 32 heads of 112, bf16, seeded) serves
    phase 5's 16 requests through the dense scheduler (max_len 1088), then
-   the serial engine (8 x 512, 32 steps): flash and the decode kernel on
-   their simt variants (hd 112) once per group, the scan once per layer
+   the serial engine (8 x 512, 32 steps): flash on wgmma and the decode
+   kernel on its simt walk (hd 112) once per group, the scan once per layer
    (prefills `mma`, ticks `step`), peak memory;
 17. reduced-dense-family: granite-20b, minitron-8b and stablelm-12b REDUCED
    in fp32 on the card against the CPU: prefill plus 16 teacher-forced
@@ -159,9 +167,10 @@ nothing of JAX or of the JAX package. Phases:
    depth not cut; granite 20.3 G parameters) serves phase 5's 16 requests
    on 8 slots through the paged scheduler, stablelm also the serial engine
    on 4 of them; tok/s, TTFT, peak memory; flash and the decode kernels on
-   the variants their rules name (granite: flash simt at 48 query heads a
-   KV head, paged mma in 6 head groups; minitron: wgmma and mma; stablelm:
-   simt at hd 160 for both); each config's weights freed before the next;
+   the variants their rules name (flash wgmma for all three: granite's 48
+   query heads a KV head in 48-row tiles, stablelm's hd 160 in 192-column
+   tiles; paged decode mma in 6 head groups for granite, mma for minitron,
+   simt at hd 160 for stablelm); each config's weights freed before the next;
 19. conformance: the `torchdev` manager contracts on the card (execute's
    Future resolves and carries errors, memcpy Events land host to device,
    device to device and device to host, alloc / register / free);
@@ -185,7 +194,7 @@ nothing of JAX or of the JAX package. Phases:
    paged scheduler, grok also through the dense one (whose ticks keep the
    reference's per-slot capacity: no row dropped); tok/s, TTFT, peak memory,
    rows dropped by capacity, exact launches on the variants the rules name
-   (flash simt for both; paged mma for grok, simt for kimi at hd 112);
+   (flash wgmma for both; paged mma for grok, simt for kimi at hd 112);
 25. reduced-vlm: REDUCED paligemma-3b in fp32 through its bundle on the card
    against the CPU: prefill logits within 1e-4, 16 greedy tokens equal;
 26. generate-paligemma: the full 18-layer paligemma-3b (bf16, seeded), 8
@@ -223,7 +232,7 @@ nothing of JAX or of the JAX package. Phases:
    traced on the device (idle share, top kernels, the scan backward's share);
 34. train-zamba2: zamba2-7b at its published widths, depth cut to 13 layers
    (two groups of 6 and a tail layer), B=2 x S=1024, 4 steps: the same
-   checks, flash `simt` forward and backward at hd 112 once per group (the
+   checks, flash `wgmma` forward and backward at hd 112 once per group (the
    forward twice under "minimal"), the scan per layer (forward and backward
    on `mma`); parameters and bytes, flash's and the scan backward's shares
    of a traced step;
@@ -449,6 +458,17 @@ def _flash_case(torch, gen, *, Sq, Skv, H, KV, hd, dtype, B=1, causal=True, wind
     return (q, k, v, kw), got, want
 
 
+def _tensor_core_case(dtype_name: str, case: dict) -> bool:
+    """Whether flash's rule gives a case's operands the `wgmma` variants
+    (forward and backward): bf16 at a head_dim of whole or padded 64-column
+    tiles, at most 64 query heads a KV head (16-byte alignment holds for
+    fresh tensors)."""
+    from repro_torch.kernels import flash_attention
+
+    return (dtype_name == "bfloat16" and case["hd"] in flash_attention.WGMMA_HEAD_DIMS
+            and case["H"] // case["KV"] <= flash_attention.WGMMA_ROWS)
+
+
 def check_flash(torch, gen) -> dict:
     from repro_torch.kernels import flash_attention, ref
     from repro_torch.kernels.ref import _build_mask
@@ -478,9 +498,10 @@ def check_flash(torch, gen) -> dict:
         dict(Sq=50, Skv=20, H=2, KV=1, hd=64, dtype=torch.bfloat16, window=8),  # rows with no key
         dict(Sq=64, Skv=300, H=4, KV=1, hd=128, dtype=torch.bfloat16, q_offset=236, prefix_len=250),
     ]
-    # head dims between the tensor-core ones, on the simt kernel: zamba2-7b's
-    # shared block (32 heads over 32, head_dim 112) at its prefill shape and
-    # ragged; stablelm-12b's head_dim 160 with 4 query heads a KV head
+    # head dims between the powers of two (wgmma in bf16, tiles padded to
+    # 128 / 192 columns; simt in fp32): zamba2-7b's shared block (32 heads
+    # over 32, head_dim 112) at its prefill shape and ragged; stablelm-12b's
+    # head_dim 160 with 4 query heads a KV head
     cases += [
         dict(Sq=1024, Skv=1024, H=32, KV=32, hd=112, dtype=torch.bfloat16),
         dict(Sq=777, Skv=777, H=32, KV=32, hd=112, dtype=torch.float32),
@@ -489,9 +510,9 @@ def check_flash(torch, gen) -> dict:
         dict(Sq=300, Skv=300, H=8, KV=2, hd=160, dtype=torch.float32, window=64),
     ]
     # the dense family's prefills: granite-20b's 48 query heads over 1 KV head
-    # (hd 128, a group the wgmma variant's 64 rows do not divide: simt),
-    # minitron-8b's 32 over 8 (hd 128, wgmma), stablelm-12b's 32 over 8 at hd
-    # 160 (simt), at a full prompt and ragged
+    # (hd 128, a group that does not divide 64: one position, 48 of a
+    # warpgroup's 64 rows), minitron-8b's 32 over 8 (hd 128), stablelm-12b's
+    # 32 over 8 at hd 160, at a full prompt and ragged; bf16 on wgmma
     cases += [
         dict(Sq=1024, Skv=1024, H=48, KV=1, hd=128, dtype=torch.bfloat16),
         dict(Sq=300, Skv=300, H=48, KV=1, hd=128, dtype=torch.float32),
@@ -505,8 +526,9 @@ def check_flash(torch, gen) -> dict:
     # whisper-small's bidirectional encoder over 1500 frames and its
     # cross-attention (Sq = 16 or 1 against Skv = 1500, not a whole number of
     # key tiles: the tail tile masked), 12 heads over 12 at hd 64 (wgmma);
-    # grok-1's 48 over 8 at hd 128 (a group of 6: simt) and kimi-k2's 64
-    # over 8 at hd 112 (simt); each ragged and in fp32 too
+    # grok-1's 48 over 8 at hd 128 (a group of 6: 10 positions, 60 rows) and
+    # kimi-k2's 64 over 8 at hd 112 (wgmma in bf16); each ragged and in fp32
+    # too
     cases += [
         dict(B=2, Sq=288, Skv=288, H=8, KV=1, hd=256, dtype=torch.bfloat16, prefix_len=256),
         dict(Sq=261, Skv=261, H=8, KV=1, hd=256, dtype=torch.float32, prefix_len=256),
@@ -521,14 +543,26 @@ def check_flash(torch, gen) -> dict:
         dict(Sq=77, Skv=77, H=64, KV=8, hd=112, dtype=torch.float32),
     ]
     # examples/train_100m_torch.py's attention (8 query heads over 2 at head_dim
-    # 80, fp32, B=4 x 256, causal; its local layers' window 256), in bf16 and
-    # at a ragged length: simt
+    # 80, fp32, B=4 x 256, causal; its local layers' window 256: simt), in
+    # bf16 (wgmma, tiles padded to 128 columns) and at a ragged length
     cases += [
         dict(B=4, Sq=256, Skv=256, H=8, KV=2, hd=80, dtype=torch.float32),
         dict(B=4, Sq=256, Skv=256, H=8, KV=2, hd=80, dtype=torch.float32, window=256),
         dict(B=4, Sq=256, Skv=256, H=8, KV=2, hd=80, dtype=torch.bfloat16),
         dict(B=2, Sq=257, Skv=257, H=8, KV=2, hd=80, dtype=torch.float32, window=64),
         dict(B=2, Sq=257, Skv=257, H=8, KV=2, hd=80, dtype=torch.bfloat16),
+    ]
+    # groups that do not divide 64 with padded head dims, rows with no key,
+    # a prefix-LM mask over a q_offset, Skv < Sq bidirectional, and more
+    # query heads a KV head than a warpgroup's 64 rows (simt)
+    cases += [
+        dict(B=2, Sq=257, Skv=257, H=6, KV=1, hd=80, dtype=torch.bfloat16),
+        dict(Sq=130, Skv=77, H=6, KV=1, hd=112, dtype=torch.bfloat16, causal=False),
+        dict(Sq=64, Skv=300, H=48, KV=8, hd=128, dtype=torch.bfloat16, q_offset=236,
+             prefix_len=250),
+        dict(Sq=50, Skv=20, H=6, KV=1, hd=160, dtype=torch.bfloat16, window=8),
+        dict(B=8, Sq=512, Skv=512, H=48, KV=8, hd=128, dtype=torch.bfloat16),
+        dict(B=3, Sq=100, Skv=100, H=96, KV=1, hd=128, dtype=torch.bfloat16),
     ]
     # the serial engine's prefill, 8 prompts of 512 tokens: a grid over a wave,
     # so two consumer warpgroups a block
@@ -543,8 +577,7 @@ def check_flash(torch, gen) -> dict:
         name = str(case["dtype"]).split(".")[-1]
         err, ok = _max_err_and_ok(torch, got, want, TOL[name])
         desc = ", ".join(f"{k}={v}" for k, v in case.items() if k != "dtype")
-        tc = (name == "bfloat16" and case["hd"] in flash_attention.WGMMA_HEAD_DIMS
-              and flash_attention.WGMMA_ROWS % (case["H"] // case["KV"]) == 0)
+        tc = _tensor_core_case(name, case)
         layout = kind[0]
         if kind == ["wgmma"]:
             consumers = flash_attention.consumer_warpgroups(q, k)
@@ -604,11 +637,11 @@ def check_flash(torch, gen) -> dict:
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * elem
     flops = 4 * hd * H * pairs
     b_bytes, b_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
-    # the configs' other prefills (B=1, 1024 tokens), each beside SDPA: the
-    # simt kernel at the head dims and group sizes the tensor-core variant
-    # does not take (zamba2-7b: 32 heads over 32, hd 112; stablelm-12b: 32
-    # over 8, hd 160; granite-20b: 48 over 1, hd 128), and minitron-8b's 32
-    # over 8 at hd 128 on wgmma
+    # the configs' other prefills (B=1, 1024 tokens), each beside SDPA, all on
+    # wgmma: zamba2-7b (32 heads over 32, hd 112), stablelm-12b (32 over 8, hd
+    # 160), granite-20b (48 over 1, hd 128), grok-1 (48 over 8) and kimi-k2
+    # (64 over 8, hd 112) each also beside the simt kernel on the same
+    # operands (`FLASH_SIMT_BESIDE`), and minitron-8b's 32 over 8 at hd 128
     shape_timings = [_flash_timing(torch, gen, label, want, **shape)
                      for label, want, shape in FLASH_TIMINGS]
     log(f"[kernels] flash_attention timing B=1 Sq=Skv={Sq} H={H} KV={KV} hd={hd} bf16 causal "
@@ -649,12 +682,12 @@ def check_flash(torch, gen) -> dict:
 #: (label, variant the rule names, shape) of the prefill shapes timed beside
 #: gemma3-1b's: B=1, a 1024-token prompt, causal, bf16
 FLASH_TIMINGS = (
-    ("zamba2-7b prefill", "simt", dict(Sq=1024, H=32, KV=32, hd=112)),
-    ("stablelm-12b prefill", "simt", dict(Sq=1024, H=32, KV=8, hd=160)),
-    ("granite-20b prefill", "simt", dict(Sq=1024, H=48, KV=1, hd=128)),
+    ("zamba2-7b prefill", "wgmma", dict(Sq=1024, H=32, KV=32, hd=112)),
+    ("stablelm-12b prefill", "wgmma", dict(Sq=1024, H=32, KV=8, hd=160)),
+    ("granite-20b prefill", "wgmma", dict(Sq=1024, H=48, KV=1, hd=128)),
     ("minitron-8b prefill", "wgmma", dict(Sq=1024, H=32, KV=8, hd=128)),
-    ("grok-1-314b prefill", "simt", dict(Sq=1024, H=48, KV=8, hd=128)),
-    ("kimi-k2-1t-a32b prefill", "simt", dict(Sq=1024, H=64, KV=8, hd=112)),
+    ("grok-1-314b prefill", "wgmma", dict(Sq=1024, H=48, KV=8, hd=128)),
+    ("kimi-k2-1t-a32b prefill", "wgmma", dict(Sq=1024, H=64, KV=8, hd=112)),
     # the two bundles' batches of 8 (phases generate-paligemma, -whisper)
     ("paligemma-3b prefill", "wgmma", dict(B=8, Sq=288, H=8, KV=1, hd=256, prefix_len=256)),
     ("whisper-small encoder", "wgmma", dict(B=8, Sq=1500, H=12, KV=12, hd=64, causal=False)),
@@ -666,12 +699,38 @@ FLASH_TIMINGS = (
 )
 
 
+#: the prefill shapes whose tensor-core forward came with padded head dims and
+#: rows (head_dim 112 / 160, groups of 48 and 6): timed beside the simt
+#: kernel on the same operands, which they must beat
+FLASH_SIMT_BESIDE = ("zamba2-7b prefill", "stablelm-12b prefill", "granite-20b prefill",
+                     "grok-1-314b prefill", "kimi-k2-1t-a32b prefill")
+
+
+def _fwd_simt(torch, q, k, v, **kw):
+    """The `simt` forward at operands the rule gives to `wgmma`: its C entry
+    point with the simt code, for the before-and-after timing only (no
+    launch is counted: no path runs it); the twin of `_bwd_simt`."""
+    from repro_torch.kernels import build, flash_attention
+
+    B, Sq, H, hd = q.shape
+    out = torch.empty_like(q)
+    err = flash_attention._entry()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B, Sq, k.shape[1], H,
+        k.shape[2], hd, flash_attention._DTYPE_CODES[q.dtype], 1.0 / hd**0.5,
+        int(kw["causal"]), kw["window"], kw["prefix_len"], kw["q_offset"],
+        flash_attention._VARIANT_CODES["simt"], 0, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "flash_attention (simt, timing)")
+    return out
+
+
 def _flash_timing(torch, gen, label, want_kind, *, Sq, H, KV, hd, B=1, Skv=None, causal=True,
                   prefix_len=0) -> dict:
     """Device times of flash (bf16) at one shape, warm and with its inputs
     cold in L2, its plain version and SDPA (one call with the same mask: a
     boolean one for the prefix-LM), with the bound from the pairs the mask
-    keeps; the launch must take variant `want_kind`."""
+    keeps; the launch must take variant `want_kind`. At `FLASH_SIMT_BESIDE`
+    also the simt kernel on the same operands, held to the plain version and
+    required slower than the kernel's variant."""
     from repro_torch.kernels import flash_attention, ref
     from repro_torch.kernels.ref import _build_mask
 
@@ -688,6 +747,15 @@ def _flash_timing(torch, gen, label, want_kind, *, Sq, H, KV, hd, B=1, Skv=None,
     d_cold = cold_device_ms(torch, lambda q_, k_, v_: flash_attention.flash_attention(
         q_, k_, v_, **kw), (q, k, v), q.nbytes + k.nbytes + v.nbytes)
     d_plain = device_ms(torch, lambda: ref.attention(q, k, v, **kw), iters=5)
+    d_simt = simt_err = None
+    if label in FLASH_SIMT_BESIDE:
+        simt_err, simt_ok = _max_err_and_ok(torch, _fwd_simt(torch, q, k, v, **kw), want,
+                                            TOL["bfloat16"])
+        require(simt_ok, f"flash_attention simt ({label}) disagrees with its plain version: "
+                f"{simt_err:.3e}")
+        d_simt = device_ms(torch, lambda: _fwd_simt(torch, q, k, v, **kw), iters=5)
+        require(d_kernel < d_simt, f"flash_attention ({label}): {kind} {d_kernel:.4f} ms is not "
+                f"faster than simt's {d_simt:.4f} ms on the same operands")
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = _build_mask(Sq, Skv, causal=causal, window=0, prefix_len=prefix_len, q_offset=0,
@@ -706,13 +774,15 @@ def _flash_timing(torch, gen, label, want_kind, *, Sq, H, KV, hd, B=1, Skv=None,
     masks = ("causal" if causal else "bidirectional") + (
         f" prefix_len={prefix_len}" if prefix_len else "")
     shape = f"{label}: B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} hd={hd} bf16 {masks} ({kind})"
+    beside = ("" if d_simt is None else
+              f", simt on the same operands {d_simt:.4f} ms (max_abs_err {simt_err:.3e})")
     log(f"[kernels] flash_attention timing {shape}: max_abs_err={err:.3e}; device time per "
-        f"call: kernel {d_kernel:.4f} ms ({d_cold:.4f} ms with the inputs cold in L2), plain "
-        f"{d_plain:.4f} ms, sdpa {d_lib:.4f} ms (sdpa max_abs_err vs plain {lib_err:.3e}); bound "
-        f"{max(b_bytes, b_ops) * 1e3:.2f} us ({n_bytes} B, {flops} FLOP); "
+        f"call: kernel {d_kernel:.4f} ms ({d_cold:.4f} ms with the inputs cold in L2){beside}, "
+        f"plain {d_plain:.4f} ms, sdpa {d_lib:.4f} ms (sdpa max_abs_err vs plain "
+        f"{lib_err:.3e}); bound {max(b_bytes, b_ops) * 1e3:.2f} us ({n_bytes} B, {flops} FLOP); "
         f"{flops / (d_kernel * 1e-3) / 1e12:.2f} TFLOP/s on the device time")
     return dict(shape=shape, variant=kind, max_abs_err=err, device_ms=d_kernel,
-                cold_device_ms=d_cold, plain_device_ms=d_plain,
+                cold_device_ms=d_cold, simt_device_ms=d_simt, plain_device_ms=d_plain,
                 library_device_ms=d_lib, bound_ms=max(b_bytes, b_ops),
                 bound_by="bytes" if b_bytes >= b_ops else "operations",
                 tflops=flops / (d_kernel * 1e-3) / 1e12)
@@ -727,11 +797,14 @@ BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSE_ATOL = 1e-3
 
 #: (label, shape) of the backward's checked cases: gemma3-1b's training shape
-#: (a global and a local layer), a GQA group of 4 at hd 128, the simt head
-#: dims 112 and 160, a prefix-LM mask (8 query heads over 1: wgmma), fp32 at
+#: (a global and a local layer), a GQA group of 4 at hd 128, the padded head
+#: dims 112 and 160, a prefix-LM mask (8 query heads over 1), fp32 at
 #: REDUCED's hd 16, rows with no key (a window past the last key, q_offset)
-#: in fp32 and in bf16, and whisper-small's encoder (1500 frames: a ragged
-#: last key tile) and cross-attention (64 queries against 1500 keys)
+#: in fp32 and in bf16, whisper-small's encoder (1500 frames: a ragged last
+#: key tile) and cross-attention (64 queries against 1500 keys), hd 80
+#: (train_100m's fp32 on simt, bf16 on wgmma), groups that do not divide 64
+#: (granite-20b's 48 and grok-1's 6 at B=1 x 1024; ragged, and with rows with
+#: no key), and zamba2-7b's training shape (B=2 x 1024, 32 over 32, hd 112)
 BWD_CASES = (
     ("gemma3-1b train, global", dict(B=4, Sq=1024, H=4, KV=1, hd=256, dtype="bfloat16")),
     ("gemma3-1b train, local", dict(B=4, Sq=1024, H=4, KV=1, hd=256, dtype="bfloat16",
@@ -756,7 +829,18 @@ BWD_CASES = (
     ("hd 80 bf16", dict(B=4, Sq=256, H=8, KV=2, hd=80, dtype="bfloat16")),
     ("hd 80 ragged", dict(B=2, Sq=257, H=8, KV=2, hd=80, dtype="float32", window=64)),
     ("hd 80 bf16 ragged", dict(B=2, Sq=257, H=8, KV=2, hd=80, dtype="bfloat16")),
+    ("granite-20b, G=48", dict(B=1, Sq=1024, H=48, KV=1, hd=128, dtype="bfloat16")),
+    ("grok-1, G=6", dict(B=1, Sq=1024, H=48, KV=8, hd=128, dtype="bfloat16")),
+    ("G=6 hd 80 ragged", dict(B=2, Sq=77, H=6, KV=1, hd=80, dtype="bfloat16")),
+    ("G=48 hd 160, empty rows", dict(B=1, Sq=40, Skv=50, H=48, KV=1, hd=160, dtype="bfloat16",
+                                     q_offset=30, window=8)),
+    ("zamba2-7b train", dict(B=2, Sq=1024, H=32, KV=32, hd=112, dtype="bfloat16")),
 )
+#: the cases timed (warm, cold, beside simt on the same operands, the plain
+#: version and SDPA's backward): gemma3-1b's two layers, and the shapes
+#: whose wgmma came with padded head dims and rows, which must beat simt
+BWD_TIMED = ("gemma3-1b train, global", "gemma3-1b train, local", "hd 112", "hd 160, G=4",
+             "granite-20b, G=48", "grok-1, G=6", "zamba2-7b train")
 
 
 def _bwd_case(torch, gen, *, B, Sq, H, KV, hd, dtype, Skv=None, causal=True, window=0,
@@ -815,12 +899,13 @@ def _bwd_bound_ms(q, k, lse, kw) -> tuple:
 def check_flash_bwd(torch, gen) -> dict:
     """The backward kernel against `ref.attention_backward` at `BWD_CASES`
     (and the forward's log-sum-exp against the plain one), each case on the
-    variant `backward_variant` names; then, at gemma3-1b's training shape,
-    the `wgmma` variant (warm, twice, and cold), the `simt` variant on the
-    same operands, the plain version and SDPA's backward (one library call
-    computing the same gradient: the flash backend at the global layer's
-    causal mask, K/V shared by the query heads through ``enable_gqa``; at the
-    local layer's window, SDPA with that boolean mask), all in this call."""
+    variant `backward_variant` names; then, at `BWD_TIMED` (gemma3-1b's
+    training shape first), the `wgmma` variant (warm, twice, and cold), the
+    `simt` variant on the same operands (which `wgmma` must beat), the plain
+    version and SDPA's backward (one library call computing the same
+    gradient: causal through ``is_causal``, K/V shared by the query heads
+    through ``enable_gqa``; a window through that boolean mask), all in this
+    call."""
     from repro_torch.kernels import flash_attention, ref
 
     worst_abs, worst_rel, worst_tol = 0.0, 0.0, None
@@ -830,8 +915,7 @@ def check_flash_bwd(torch, gen) -> dict:
         live = lse_plain > -1e29  # rows with a key
         lse_err = float((lse - lse_plain)[live].abs().max().item())
         kind = flash_attention.backward_variant(q, k, v)
-        tc = (case["dtype"] == "bfloat16" and case["hd"] in flash_attention.WGMMA_HEAD_DIMS
-              and flash_attention.WGMMA_ROWS % (case["H"] // case["KV"]) == 0)
+        tc = _tensor_core_case(case["dtype"], case)
         require(kind == ("wgmma" if tc else "simt"), f"backward ({label}) takes {kind}")
         plan = ""
         if kind == "wgmma":
@@ -862,9 +946,10 @@ def check_flash_bwd(torch, gen) -> dict:
             worst_rel, worst_tol = max(rel.values()), tol
         del q, k, v, out, lse, do, got, want, results
 
-    # timing at gemma3-1b's training shape: B=4, S=1024, 4 over 1, hd 256, bf16
     timings = {}
-    for label, case in BWD_CASES[:2]:
+    cases = dict(BWD_CASES)
+    for label in BWD_TIMED:
+        case = cases[label]
         q, k, v, out, lse, do, kw = _bwd_case(torch, gen, **case)
         require(flash_attention.backward_variant(q, k, v) == "wgmma",
                 f"the timed backward ({label}) does not take wgmma")
@@ -905,14 +990,19 @@ def check_flash_bwd(torch, gen) -> dict:
                 f"the simt backward's dq at {label} is off its plain version by {simt_rel:.3e}")
         # the wgmma variant again, after the others (kernel, simt, plain, library, kernel)
         t["device_ms_again"] = device_ms(torch, call, iters=10)
+        require(max(t["device_ms"], t["device_ms_again"]) < t["simt_device_ms"],
+                f"the wgmma backward at {label} ({t['device_ms']:.4f} / "
+                f"{t['device_ms_again']:.4f} ms) is not faster than simt's "
+                f"{t['simt_device_ms']:.4f} ms on the same operands")
         t["cold_device_ms"] = cold_device_ms(
             torch, lambda *xs: flash_attention.flash_attention_backward(*xs, **kw),
             (q, k, v, out, lse, do), sum(x.nbytes for x in (q, k, v, out, lse, do)))
+        desc = ", ".join(f"{n}={x}" for n, x in case.items() if n != "dtype")
         t.update(bound_ms=bound, bound_by=bound_by, bytes=n_bytes, flops=flops,
                  tflops=flops / (t["device_ms"] * 1e-3) / 1e12,
-                 plan=flash_attention.backward_plan(q, k, **kw))
-        log(f"[kernels] flash_attention_bwd timing {label} (B=4 S=1024 H=4 KV=1 hd=256 bf16"
-            f"{', window 512' if kw['window'] else ', causal'}): wgmma {t['ms']:.4f} ms, "
+                 plan=flash_attention.backward_plan(q, k, **kw), shape=f"{label}: {desc}")
+        log(f"[kernels] flash_attention_bwd timing {label} ({desc}, bf16, causal): wgmma "
+            f"{t['ms']:.4f} ms, "
             f"device {t['device_ms']:.4f} / {t['device_ms_again']:.4f} ms ({t['cold_device_ms']:.4f}"
             f" ms with the inputs cold in L2; chunk, splits {t['plan']}); simt device "
             f"{t['simt_device_ms']:.4f} ms (its dq max err vs plain {t['simt_dq_err']:.3e}); plain "
@@ -922,11 +1012,10 @@ def check_flash_bwd(torch, gen) -> dict:
             f"{n_bytes} B, {flops} FLOP); {t['tflops']:.2f} TFLOP/s on the wgmma device time")
         timings[label] = t
         del q, k, v, out, lse, do, qt, kt, vt, lib_out
-    g = timings[BWD_CASES[0][0]]
-    local = timings[BWD_CASES[1][0]]
-    keys = ("ms", "device_ms", "device_ms_again", "cold_device_ms", "simt_device_ms", "plain_ms",
-            "plain_device_ms", "library_ms", "library_device_ms", "bound_ms", "bound_by",
-            "tflops")
+    g = timings[BWD_TIMED[0]]
+    keys = ("shape", "ms", "device_ms", "device_ms_again", "cold_device_ms", "simt_device_ms",
+            "plain_ms", "plain_device_ms", "library_ms", "library_device_ms", "bound_ms",
+            "bound_by", "tflops")
     return {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -953,8 +1042,7 @@ def check_flash_bwd(torch, gen) -> dict:
         "variant": "wgmma",
         "timed_shape": "B=4 Sq=Skv=1024 H=4 KV=1 hd=256 bf16 causal window=0 (gemma3-1b "
                        "training, a global layer)",
-        "other_timings": [dict(shape="the same, window=512 (a local layer)",
-                               **{n: local[n] for n in keys})],
+        "other_timings": [{n: timings[label][n] for n in keys} for label in BWD_TIMED[1:]],
     }
 
 
@@ -3262,7 +3350,7 @@ def phase_serve_zamba2(torch) -> tuple:
                 "paged_decode_attention": 0, "fused_linear": 0,
                 "flash_attention_bwd": 0, "gated_linear_scan_bwd": 0}
         require(counts == want, f"zamba2 serve launches {counts}, expected {want}")
-        require_variant(variants, "flash_attention", "simt", want["flash_attention"],
+        require_variant(variants, "flash_attention", "wgmma", want["flash_attention"],
                         "zamba2 serve")
         require_variant(variants, "decode_attention", "simt", want["decode_attention"],
                         "zamba2 serve")
@@ -3310,6 +3398,8 @@ def phase_serve_zamba2(torch) -> tuple:
             "fused_linear": 0,
             "flash_attention_bwd": 0, "gated_linear_scan_bwd": 0}
     require(serial_counts == want, f"zamba2 serial launches {serial_counts}, expected {want}")
+    require_variant(serial_variants, "flash_attention", "wgmma", want["flash_attention"],
+                    "zamba2 serial")
     require(serial_variants["gated_linear_scan"] == {
         "simt": 0, "mma": cfg.num_layers, "step": cfg.num_layers * steps},
         f"zamba2 serial scan launches by variant {serial_variants['gated_linear_scan']}")
@@ -3327,11 +3417,12 @@ def phase_serve_zamba2(torch) -> tuple:
 
 DENSE_FAMILY = ("granite-20b", "minitron-8b", "stablelm-12b")
 #: the variants each config's full-width paged serve launches, by the
-#: kernels' rules: (flash, paged decode). granite's 48 query heads a KV head
-#: do not divide the wgmma variant's 64 rows; stablelm's head_dim 160 is
-#: neither a wgmma head dim nor a power of two
-DENSE_FAMILY_VARIANTS = {"granite-20b": ("simt", "mma"), "minitron-8b": ("wgmma", "mma"),
-                         "stablelm-12b": ("simt", "simt")}
+#: kernels' rules: (flash, paged decode). Every prefill takes flash's wgmma
+#: (granite's 48 query heads a KV head fill 48 of a warpgroup's 64 rows;
+#: stablelm's head_dim 160 pads to 192 columns); stablelm's head_dim 160 is
+#: not a power of two, so its decode core walks simt
+DENSE_FAMILY_VARIANTS = {"granite-20b": ("wgmma", "mma"), "minitron-8b": ("wgmma", "mma"),
+                         "stablelm-12b": ("wgmma", "simt")}
 
 
 def phase_reduced_dense_family(torch) -> None:
@@ -3535,7 +3626,7 @@ def _serve_dense_config(torch, arch: str) -> dict:
                     "paged_decode_attention": 0, "gated_linear_scan": 0, "fused_linear": 0,
                     "flash_attention_bwd": 0, "gated_linear_scan_bwd": 0}
             require(serial == want, f"{arch} serial launches {serial}, expected {want}")
-            require_variant(serial_variants, "flash_attention", "simt", want["flash_attention"],
+            require_variant(serial_variants, "flash_attention", "wgmma", want["flash_attention"],
                             f"{arch} serial")
             require_variant(serial_variants, "decode_attention", "simt",
                             want["decode_attention"], f"{arch} serial")
@@ -3984,10 +4075,11 @@ MOE_FAMILY = ("grok-1-314b", "kimi-k2-1t-a32b")
 #: the published widths, the depth cut (grok 3.31 G parameters a layer, kimi
 #: 17.03 G, beside 1.61 G and 2.35 G of untied embeddings)
 MOE_LAYERS = {"grok-1-314b": 8, "kimi-k2-1t-a32b": 1}
-#: (flash, decode core) variants their serves launch: grok's 6 query heads a
-#: KV head do not divide wgmma's 64 rows (simt) and its hd 128 takes the
-#: mma walk; kimi's hd 112 is neither a wgmma head dim nor a power of two
-MOE_VARIANTS = {"grok-1-314b": ("simt", "mma"), "kimi-k2-1t-a32b": ("simt", "simt")}
+#: (flash, decode core) variants their serves launch: both prefills take
+#: flash's wgmma (grok's 6 query heads a KV head: 10 positions, 60 of 64
+#: rows; kimi's hd 112 pads to 128 columns); grok's hd 128 takes the decode
+#: core's mma walk, kimi's hd 112, not a power of two, its simt walk
+MOE_VARIANTS = {"grok-1-314b": ("wgmma", "mma"), "kimi-k2-1t-a32b": ("wgmma", "simt")}
 #: kv modes each full-width MoE config serves (grok also the dense per-slot
 #: decoder, whose MoE keeps the reference's per-slot capacity: no drop)
 MOE_MODES = {"grok-1-314b": ("paged", "dense"), "kimi-k2-1t-a32b": ("paged",)}
@@ -4998,14 +5090,14 @@ def phase_train_zamba2(torch) -> tuple:
             and counts["gated_linear_scan_bwd"] == sbwd * steps
             and sum(counts.values()) == (fwd + bwd + sfwd + sbwd) * steps,
             f"launches {counts}, expected {(fwd, bwd, sfwd, sbwd)} a step")
-    require_variant(variants, "flash_attention", "simt", fwd * steps, "train-zamba2")
-    require_variant(variants, "flash_attention_bwd", "simt", bwd * steps, "train-zamba2")
+    require_variant(variants, "flash_attention", "wgmma", fwd * steps, "train-zamba2")
+    require_variant(variants, "flash_attention_bwd", "wgmma", bwd * steps, "train-zamba2")
     require_variant(variants, "gated_linear_scan", "mma", sfwd * steps, "train-zamba2")
     require_variant(variants, "gated_linear_scan_bwd", "mma", sbwd * steps, "train-zamba2")
     br = _traced_step(torch, model, params, batches[steps])
     _log_breakdown("train-zamba2", br)
     flash_s = br["by_group_s"]["flash forward"] + br["by_group_s"]["flash backward"]
-    log(f"[train-zamba2] the shared attention's flash simt forward and backward: "
+    log(f"[train-zamba2] the shared attention's flash wgmma forward and backward: "
         f"{flash_s * 1e3:.2f} of {br['busy_s'] * 1e3:.2f} ms of the traced step's device time "
         f"({flash_s / br['busy_s']:.4f}); the scan backward "
         f"{br['by_group_s']['scan backward'] * 1e3:.2f} ms ({sbwd} calls)")

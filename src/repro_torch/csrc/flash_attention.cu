@@ -16,27 +16,45 @@
 // variants, chosen by an explicit rule in the wrapper
 // (`kernels/flash_attention.py::variant`):
 //
-// * wgmma (bf16, head_dim 64 / 128 / 256, query heads per KV head dividing
-//   64): the tensor cores. A block owns one KV head and one or two consumer
-//   warpgroups of 64 query rows; a row is a (position, query head) pair, so
-//   the heads that share a KV head (gemma3's 4) sit in one warpgroup's rows
-//   and every K/V tile is read once for all of them. One producer thread
-//   loads Q once and then keeps a 2-stage ring of K and V tiles of 64 keys
-//   in flight with TMA (128-byte swizzle; keys past Skv read zeros and are
-//   masked by index), guarded by "full" / "empty" mbarriers. Each consumer
-//   warpgroup computes S = Q K^T with `wgmma` m64n64k16 (both operands
-//   K-major, from shared memory), masks (only tiles that cross a mask edge)
-//   and runs the online softmax on the accumulator fragment (row max and sum
-//   over the four lanes that share a row), converts P to bf16 in registers
-//   and adds P V with `wgmma` m64n{head_dim}k16 (A from registers, V through
-//   the transpose bit), starting the next tile's S behind it so that one wait
-//   covers both. The 64 x head_dim fp32 output accumulator stays in
-//   registers. One consumer warpgroup a block when the grid then fits in one
-//   wave -- a single prompt: the chain of key tiles of the last rows sets the
-//   time, and a warpgroup with the tensor cores to itself walks it faster --
-//   two otherwise (`setmaxnreg` then gives them 240 registers each); the
-//   wrapper picks (`kernels/flash_attention.py::consumer_warpgroups`).
-// * simt (fp32, head_dim 16 / 32 / 80 / 112 / 160, other group sizes): one
+// * wgmma (bf16, head_dim 64 / 80 / 112 / 128 / 160 / 256, at most 64 query
+//   heads per KV head): the tensor cores. A block owns one KV head and one or
+//   two consumer warpgroups of 64 query rows; a row is a (position, query
+//   head) pair, so the heads that share a KV head (gemma3's 4) sit in one
+//   warpgroup's rows and every K/V tile is read once for all of them. A
+//   warpgroup holds P = 64 / G whole positions, P * G rows: 64 when G
+//   divides 64, 48 for granite-20b's 48 heads a group, 60 for grok-1's 6; its
+//   rows past P * G are zeroed in shared memory once (TMA never writes them)
+//   and never stored. One producer thread loads Q once and then keeps a
+//   2-stage ring of K and V tiles of 64 keys in flight with TMA (128-byte
+//   swizzle, 64-column boxes; keys past Skv read zeros and are masked by
+//   index), guarded by "full" / "empty" mbarriers. Tiles span HDP =
+//   ceil(head_dim / 64) * 64 columns (128 at hd 80 and 112, 192 at 160), TMA
+//   reading zeros past head_dim (global rows of 160 / 224 / 320 bytes are
+//   16-byte multiples, as TMA needs). Each consumer warpgroup computes S = Q
+//   K^T with `wgmma` m64n64k16 over the head_dim / 16 k-steps of real
+//   columns only (both operands K-major, from shared memory), masks (only
+//   tiles that cross a mask edge) and runs the online softmax on the
+//   accumulator fragment (row max and sum over the four lanes that share a
+//   row), converts P to bf16 in registers and adds P V with `wgmma`
+//   m64n{HDP}k16 (A from registers, V through the transpose bit: an N-major
+//   operand with the 128-byte swizzle comes in whole 64-column atoms, so the
+//   padded width, not head_dim), starting the next tile's S behind it so
+//   that one wait covers both. The 64 x HDP fp32 output accumulator stays in
+//   registers (96 a thread at hd 160); only head_dim columns are stored. One
+//   consumer warpgroup a block when the grid then fits in one wave -- a
+//   single prompt: the chain of key tiles of the last rows sets the time,
+//   and a warpgroup with the tensor cores to itself walks it faster -- two
+//   otherwise (`setmaxnreg` then gives them 240 registers each); the wrapper
+//   picks (`kernels/flash_attention.py::consumer_warpgroups`). 145 KB of
+//   shared memory at hd 160 with two consumer warpgroups. A causal grid
+//   (no prefix, no window) of more blocks than the card has SMs starts its
+//   longest key walks first, over every (batch, KV head): on an H100 that
+//   took 7-25 % off the 1024-token prefills of 8 to 64 query heads, where
+//   the grid spans two or more waves. Other grids keep (query block, KV
+//   head, batch) order, whose neighbouring blocks share a KV head: the
+//   global order cost 10-13 % there (one wave, or walks of equal length),
+//   for a reason not measured.
+// * simt (fp32, head_dim 16 / 32, more than 64 query heads per KV head): one
 //   block per (32 query rows, head, batch), K/V tiles of 32 keys staged in
 //   fp32 shared memory, scalar FMA on the CUDA cores. fp32 stays off TF32,
 //   whose rounding would break the 2e-5 fp32 parity. Any head_dim that is a
@@ -290,20 +308,22 @@ constexpr int STAGES = 2;
 constexpr int CHUNK = 64 * 128;            // one 64-column box of a 64-row tile: 8 KB
 template <int HD, int NC>
 constexpr size_t smem_bytes() {  // Q tiles, K / V ring, barriers, alignment slack
-  return size_t(NC + 2 * STAGES) * (HD / 64) * CHUNK + (1 + 2 * STAGES) * sizeof(uint64_t) +
-         1024;
+  return size_t(NC + 2 * STAGES) * (repro::sm90::tile_columns(HD) / 64) * CHUNK +
+         (1 + 2 * STAGES) * sizeof(uint64_t) + 1024;
 }
 }  // namespace fa
 
 // NC consumer warpgroups (1 or 2) and one producer warpgroup a block.
-template <int HD, int NC>
+// LONGEST_FIRST: the grid's order (see the launch).
+template <int HD, int NC, bool LONGEST_FIRST>
 __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int Sq, int Skv, int H, int G, float scale_log2, int causal,
     int window, int prefix_len, int q_offset) {
   using namespace repro::sm90;
-  constexpr int CH = HD / 64;
+  constexpr int HDP = tile_columns(HD);  // columns of a tile; TMA reads zeros past HD
+  constexpr int CH = HDP / 64;
   constexpr int TILE = CH * fa::CHUNK;  // one 64-row tile: Q of a warpgroup, or K, or V
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
@@ -315,8 +335,25 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_attention_wgmma_kerne
   uint64_t* empty = full + fa::STAGES;
 
   const int P = fa::ROWS / G;  // positions per warpgroup
-  const int q0 = blockIdx.x * NC * P;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int PG = P * G;        // rows of its Q tile that TMA fills; the rest are zero
+  // LONGEST_FIRST (a causal grid of more than one wave): a 1-D grid, query
+  // blocks outermost and from the last, so the longest key walks of every
+  // (batch, KV head) start first and the short ones fill the last wave's
+  // tail; otherwise (x: query block, y: KV head, z: batch), which keeps the
+  // blocks of one KV head neighbours in launch order
+  int qb, kvh, b;
+  if constexpr (LONGEST_FIRST) {
+    const int n_qb = (Sq + NC * P - 1) / (NC * P), n_z = int(gridDim.x) / n_qb;
+    const int z = int(blockIdx.x) % n_z;
+    qb = n_qb - 1 - int(blockIdx.x) / n_z;
+    kvh = z % (H / G);
+    b = z / (H / G);
+  } else {
+    qb = blockIdx.x;
+    kvh = blockIdx.y;
+    b = blockIdx.z;
+  }
+  const int q0 = qb * NC * P;
   const int nq = min(NC * P, Sq - q0);
   int k_begin, k_end;
   key_range(q_offset + q0, q_offset + q0 + nq - 1, Skv, causal, window, prefix_len, &k_begin,
@@ -332,6 +369,10 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_attention_wgmma_kerne
     }
     fence_barrier_init();
   }
+  if (PG < fa::ROWS) {  // a group that does not divide 64: zero rows PG..63 once
+    zero_box_tails(q_tiles, NC * CH, fa::CHUNK, PG);
+    fence_proxy_async();
+  }
   __syncthreads();
 
   if (wg == NC) {
@@ -340,7 +381,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_attention_wgmma_kerne
     // moves the producer's to the consumers; with one, all start at 255.
     if constexpr (NC > 1) setmaxnreg_dec<24>();
     if (threadIdx.x == NC * 128) {
-      mbar_arrive_expect_tx(q_full, NC * TILE);
+      mbar_arrive_expect_tx(q_full, NC * CH * PG * 128);
       for (int c = 0; c < NC; ++c)
         for (int ch = 0; ch < CH; ++ch)
           tma_load_5d(q_tiles + c * TILE + ch * fa::CHUNK, &q_map, q_full, ch * 64, 0, kvh,
@@ -363,17 +404,19 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_attention_wgmma_kerne
     const int t = lane % 4;
     // this thread's two rows of the warpgroup's 64: warp * 16 + lane / 4 (+ 8)
     int qp[2], pos[2], head[2];
+    bool pad[2];  // a row past the P * G the Q box fills
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = warp * 16 + lane / 4 + 8 * h;
       pos[h] = q0 + wg * P + r / G;
       qp[h] = q_offset + pos[h];
       head[h] = kvh * G + r % G;
+      pad[h] = r >= PG;
     }
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-    float oacc[HD / 2];
+    float oacc[HDP / 2];  // columns past HD stay 0 (V's are) and are not stored
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < HDP / 2; ++i) oacc[i] = 0.f;
     float sacc[32];  // S of one tile, then P in fp32
 #pragma unroll
     for (int j = 0; j < 32; ++j) sacc[j] = 0.f;
@@ -382,7 +425,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_attention_wgmma_kerne
     // the block's real query positions: a tile every row may see whole needs no mask
     const int qp_lo = q_offset + q0, qp_hi = q_offset + q0 + nq - 1;
 
-    // S = Q K^T of tile i: 64 rows x 64 keys, 16 head dims a step, K-major both
+    // S = Q K^T of tile i: 64 rows x 64 keys, 16 head dims a step over the HD
+    // real ones, K-major both
     auto launch_scores = [&](int i) {
       const uint8_t* k_tile = kv_tiles + 2 * (i % fa::STAGES) * TILE;
       mbar_wait(&full[i % fa::STAGES], (i / fa::STAGES) & 1);
@@ -457,7 +501,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_attention_wgmma_kerne
       // warp moved its max
       if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
+        for (int j = 0; j < HDP / 8; ++j) {
           oacc[4 * j + 0] *= alpha[0];
           oacc[4 * j + 1] *= alpha[0];
           oacc[4 * j + 2] *= alpha[1];
@@ -473,14 +517,16 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_attention_wgmma_kerne
       }
 
       // O += P V: V is N-major (head dims contiguous), 16 keys = 2048 bytes a
-      // step. The next tile's scores start behind it, so the tensor
-      // cores run both while this warpgroup waits once.
+      // step, over the padded HDP columns: an N-major operand with the
+      // 128-byte swizzle comes in whole 64-column atoms. The next tile's
+      // scores start behind it, so the tensor cores run both while this
+      // warpgroup waits once.
       const uint8_t* v_tile = kv_tiles + (2 * s + 1) * TILE;
       fence_regs(oacc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<HD, 1>(oacc, pa[kk], smem_desc(v_tile + kk * 2048, fa::CHUNK, 1024), 1);
+        wgmma_rs<HDP, 1>(oacc, pa[kk], smem_desc(v_tile + kk * 2048, fa::CHUNK, 1024), 1);
       wgmma_commit();
       if (i + 1 < n_tiles) launch_scores(i + 1);
       wgmma_wait<0>();
@@ -498,14 +544,14 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_attention_wgmma_kerne
     for (int h = 0; h < 2; ++h) {
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-      if (pos[h] >= Sq) continue;
+      if (pad[h] || pos[h] >= Sq) continue;
       // log-sum-exp in natural units (m is in log2 units of the scaled
       // scores), at (b, head, pos) of the (B, H, Sq) output
       if (lse != nullptr && t == 0)
-        lse[(size_t(blockIdx.z) * H + head[h]) * Sq + pos[h]] =
+        lse[(size_t(b) * H + head[h]) * Sq + pos[h]] =
             (m[h] + log2f(fmaxf(l[h], 1e-30f))) * 0.6931471805599453f;
       const float denom = fmaxf(l[h], 1e-30f);
-      __nv_bfloat16* orow = o + (size_t(blockIdx.z) * Sq + pos[h]) * size_t(H) * HD +
+      __nv_bfloat16* orow = o + (size_t(b) * Sq + pos[h]) * size_t(H) * HD +
                             size_t(head[h]) * HD;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j)
@@ -522,18 +568,36 @@ cudaError_t launch_wgmma_nc(const CUtensorMap& q_map, const CUtensorMap& k_map,
                             int KV, float scale, int causal, int window, int prefix_len,
                             int q_offset, cudaStream_t stream) {
   constexpr size_t bytes = fa::smem_bytes<HD, NC>();
-  auto kernel = flash_attention_wgmma_kernel<HD, NC>;
-  static const cudaError_t attr =  // once a process: the port drives one card
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  static const cudaError_t attr = [] {  // once a process: the port drives one card
+    cudaError_t e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<HD, NC, true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(flash_attention_wgmma_kernel<HD, NC, false>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  }();
   if (attr != cudaSuccess) return attr;
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
   const int P = fa::ROWS / (H / KV);
-  const dim3 grid((Sq + NC * P - 1) / (NC * P), KV, B);
+  const int n_qb = (Sq + NC * P - 1) / (NC * P);
+  // walks that differ by query block (causal, no prefix, no window) over more
+  // blocks than the card runs at once: the longest first (see the kernel)
+  const bool longest_first =
+      causal && prefix_len == 0 && window <= 0 && n_qb > 1 && n_qb * KV * B > sms;
   const float scale_log2 = scale * 1.4426950408889634f;  // softmax in exp2
-  kernel<<<grid, 128 * (NC + 1), bytes, stream>>>(q_map, k_map, v_map,
-                                                 static_cast<__nv_bfloat16*>(o), lse, Sq, Skv,
-                                                 H,
-                                                 H / KV, scale_log2, causal, window, prefix_len,
-                                                 q_offset);
+  if (longest_first)
+    flash_attention_wgmma_kernel<HD, NC, true><<<n_qb * KV * B, 128 * (NC + 1), bytes, stream>>>(
+        q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, H, H / KV,
+        scale_log2, causal, window, prefix_len, q_offset);
+  else
+    flash_attention_wgmma_kernel<HD, NC, false><<<dim3(n_qb, KV, B), 128 * (NC + 1), bytes,
+                                                  stream>>>(
+        q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, H, H / KV,
+        scale_log2, causal, window, prefix_len, q_offset);
   return cudaGetLastError();
 }
 
@@ -546,7 +610,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
   const int P = fa::ROWS / G;
   CUtensorMap q_map, k_map, v_map;
   const uint64_t e = 2;  // bytes of a bf16
-  // q: (B, Sq, KV, G, HD) read in boxes of (1, P, 1, G, 64): 64 rows of 128 bytes
+  // q: (B, Sq, KV, G, HD) read in boxes of (1, P, 1, G, 64): P * G rows of 128
+  // bytes; a box's columns past HD read zeros
   const uint64_t q_sizes[5] = {uint64_t(HD), uint64_t(G), uint64_t(KV), uint64_t(Sq), uint64_t(B)};
   const uint64_t q_strides[5] = {e, e * HD, e * HD * G, e * HD * H, e * HD * H * Sq};
   const uint32_t q_box[5] = {64, uint32_t(G), 1, uint32_t(P), 1};
@@ -568,9 +633,10 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
 }  // namespace
 
 // C entry point. q, o: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); contiguous,
-// one dtype (0 fp32, 1 bf16); variant 0 simt, 1 wgmma (bf16; hd 64 / 128 /
-// 256; H / KV divides 64; q, k, v 16-byte aligned) with `consumers` (1 or 2)
-// consumer warpgroups a block, which the wrapper picks by the grid's size.
+// one dtype (0 fp32, 1 bf16); variant 0 simt, 1 wgmma (bf16; hd 64 / 80 /
+// 112 / 128 / 160 / 256; H / KV at most 64; q, k, v, o 16-byte aligned) with
+// `consumers` (1 or 2) consumer warpgroups a block, which the wrapper picks
+// by the grid's size.
 // `lse`: null, or fp32 (B, H, Sq) that receives each query row's
 // log-sum-exp of its scaled, masked scores (the backward's input).
 // Returns the cudaError_t of the launch.
@@ -583,12 +649,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
     const int G = H / KV;
-    if (dtype != repro::kBFloat16 || G > fa::ROWS || fa::ROWS % G != 0 || !aligned16(q) ||
-        !aligned16(k) || !aligned16(v) || !aligned16(o))
+    if (dtype != repro::kBFloat16 || G > fa::ROWS || !aligned16(q) || !aligned16(k) ||
+        !aligned16(v) || !aligned16(o) || (consumers != 1 && consumers != 2))
       return int(cudaErrorInvalidValue);
-    if ((hd != 64 && hd != 128 && hd != 256) || (consumers != 1 && consumers != 2))
-      return int(cudaErrorInvalidValue);
-    auto fn = hd == 64 ? launch_wgmma<64> : hd == 128 ? launch_wgmma<128> : launch_wgmma<256>;
+    decltype(&launch_wgmma<64>) fn = nullptr;
+    switch (hd) {
+      case 64: fn = launch_wgmma<64>; break;
+      case 80: fn = launch_wgmma<80>; break;
+      case 112: fn = launch_wgmma<112>; break;
+      case 128: fn = launch_wgmma<128>; break;
+      case 160: fn = launch_wgmma<160>; break;
+      case 256: fn = launch_wgmma<256>; break;
+      default: return int(cudaErrorInvalidValue);
+    }
     return int(fn(q, k, v, o, lse, B, Sq, Skv, H, KV, scale, causal, window, prefix_len,
                   q_offset, consumers, s));
   }

@@ -29,14 +29,24 @@
 // chosen by an explicit rule in the wrapper
 // (`kernels/flash_attention.py::backward_variant`):
 //
-// * wgmma (bf16, head_dim 64 / 128 / 256, query heads per KV head dividing
-//   64, 16-byte-aligned operands): every product on the tensor cores. Rows
-//   are the forward's packing, (position, query head) pairs of one KV group,
-//   64 to a tile (gemma3: 16 positions x 4 heads), so each K / V tile serves
-//   all G heads. Three or four launches a call:
+// * wgmma (bf16, head_dim 64 / 80 / 112 / 128 / 160 / 256, at most 64 query
+//   heads per KV head, 16-byte-aligned operands): every product on the
+//   tensor cores. Rows are the forward's packing, (position, query head)
+//   pairs of one KV group, P = 64 / G whole positions to a tile of 64 rows
+//   (gemma3: 16 positions x 4 heads; granite-20b's G = 48: one position, 48
+//   rows; grok-1's G = 6: 10 positions, 60 rows), so each K / V tile serves
+//   all G heads. A tile's rows past P * G are zeroed in shared memory once
+//   (TMA never writes them): dV and dK sum over rows, and a stale NaN there
+//   would reach every key. Tiles span HDP = ceil(head_dim / 64) * 64 columns
+//   of 64-column, 128-byte-swizzled TMA boxes (zeros past head_dim); S and
+//   dP loop over the head_dim / 16 k-steps of real columns, dV, dK and dQ
+//   run at n = HDP (an MN-major operand with that swizzle comes in whole
+//   64-column atoms), and only head_dim columns are stored. Three or four
+//   launches a call:
 //   - rowstat: lse (in log2 units) and D = rowsum(dO * o) of each packed
 //     row, into fp32 scratch laid out by query tile (64 lse, then 64 D), one
-//     warp a row; padded rows past Sq get lse = +inf, so their P is 0;
+//     warp a row; padding rows and rows past Sq get lse = +inf, so their P
+//     is 0;
 //   - dK/dV: a block owns 64 keys of one KV head (K and V loaded once by
 //     TMA) and walks a run of the query tiles that can see them through a
 //     2-stage TMA ring of packed Q and dO tiles with their row stats. Two
@@ -48,8 +58,9 @@
 //     as bf16 in registers, dO through the transpose bit); warpgroup 1
 //     computes dP^T = V dO^T, dS^T = P^T (dP^T - D) and adds dK += dS^T Q.
 //     Each starts its next tile's first product behind its second. 210 KB
-//     of shared memory at hd 256. The walks of the first key tiles under a
-//     causal mask are long (key tile 0 sees every query tile), so a walk of
+//     of shared memory at hd 256, 162 KB at hd 160. The walks of the first
+//     key tiles under a causal mask are long (key tile 0 sees every query
+//     tile), so a walk of
 //     more than `chunk` query tiles is split over several blocks, each
 //     writing its fp32 partial dK / dV to scratch; the host picks `chunk`
 //     from the mask geometry when the unsplit grid fills less than one wave
@@ -73,8 +84,8 @@
 //   ptxas otherwise reuses its registers as scratch and serialises every
 //   wgmma of the kernel (its warning C7515).
 // * simt (fp32, whose exactness the REDUCED parity and the resume test
-//   depend on; head dims 16, 32, 80, 112, 160; groups that do not divide 64,
-//   such as granite-20b's 48 over 1): scalar fp32 FMA on the CUDA cores.
+//   depend on; head dims 16 and 32; more than 64 query heads per KV head):
+//   scalar fp32 FMA on the CUDA cores.
 //   Three launches: D = rowsum(dO * o), one warp a (b, position, head) row;
 //   dK/dV, one block per (key tile of 32, KV head, batch), walking every
 //   query tile that can see its keys for all G query heads of its KV group,
@@ -521,7 +532,7 @@ constexpr uint32_t STAT_BYTES = STAT * sizeof(float);
 constexpr int BAR_P_FULL = 1, BAR_P_EMPTY = 2;  // named barriers of the P^T hand-over
 constexpr float LOG2E = 1.4426950408889634f;
 template <int HD>
-constexpr int tile_bytes() { return HD / 64 * CHUNK; }
+constexpr int tile_bytes() { return repro::sm90::tile_columns(HD) / 64 * CHUNK; }
 template <int HD>
 constexpr size_t dkdv_smem() {  // K, V, STAGES x (Q, dO), P^T, row stats, barriers, slack
   return size_t(2 + 2 * STAGES) * tile_bytes<HD>() + ROWS * BKV * sizeof(float) +
@@ -582,9 +593,11 @@ __device__ __forceinline__ int walk_splits(int n, int chunk) {
   return n > chunk ? (n + chunk - 1) / chunk : 1;
 }
 
-// lse (log2 units) and D of every packed row (b, kvh, position, g), by query
-// tile: stat[((b * KV + kvh) * n_qt + tile) * 128 + {0, 64} + row % 64].
-// Rows past Sq: lse2 = +inf (P = 0), D = 0.
+// lse (log2 units) and D of every packed row of every query tile: row x < P
+// * G of tile `tile` is (position tile * P + x / G, head kvh * G + x % G), at
+// stat[((b * KV + kvh) * n_qt + tile) * 128 + {0, 64} + x]. Padding rows (x
+// >= P * G, when G does not divide 64) and rows past Sq: lse2 = +inf (P =
+// 0), D = 0.
 __global__ void __launch_bounds__(NT) flash_bwd_rowstat_kernel(
     const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, float* __restrict__ stat, int rows, int Sq, int H, int KV,
@@ -595,9 +608,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_rowstat_kernel(
   const int per_z = n_qt * fb::ROWS;
   const int z = r / per_z, rr = r % per_z;
   const int b = z / KV, kvh = z % KV;
-  const int pos = rr / G, h = kvh * G + rr % G;
+  const int x = rr % fb::ROWS, P = fb::ROWS / G;
+  const bool real = x < P * G;
+  const int pos = (rr / fb::ROWS) * P + x / G, h = kvh * G + x % G;
   float d = 0.f;
-  if (pos < Sq) {
+  if (real && pos < Sq) {
     const size_t row = ((size_t(b) * Sq + pos) * H + h) * hd;
     for (int e = lane * 8; e < hd; e += 256) {  // 16-byte loads: 8 bf16
       const uint4 a = *reinterpret_cast<const uint4*>(o + row + e);
@@ -614,9 +629,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_rowstat_kernel(
   }
   if (lane == 0) {
     float* s = stat + (size_t(z) * n_qt + rr / fb::ROWS) * fb::STAT;
-    s[rr % fb::ROWS] =
-        pos < Sq ? lse[(size_t(b) * H + h) * Sq + pos] * fb::LOG2E : CUDART_INF_F;
-    s[fb::ROWS + rr % fb::ROWS] = d;
+    s[x] = real && pos < Sq ? lse[(size_t(b) * H + h) * Sq + pos] * fb::LOG2E : CUDART_INF_F;
+    s[fb::ROWS + x] = d;
   }
 }
 
@@ -627,11 +641,12 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dkdv_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap do_map,
     const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
     const float* __restrict__ stat, float* __restrict__ partial, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int KV, int log2g, int n_qt,
+    __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int KV, int G, int n_qt,
     float scale, float scale_log2, int causal, int window, int prefix_len, int q_offset,
     int chunk) {
   using namespace repro::sm90;
-  constexpr int CH = HD / 64;
+  constexpr int HDP = tile_columns(HD);  // columns of a tile; TMA reads zeros past HD
+  constexpr int CH = HDP / 64;
   constexpr int TILE = CH * fb::CHUNK;  // one 64-row tile: Q, dO, K or V
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -646,7 +661,7 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dkdv_wgmma_kernel(
 
   const int j = blockIdx.x, split = blockIdx.y, z = blockIdx.z;
   const int b = z / KV, kvh = z % KV;
-  const int P = fb::ROWS >> log2g;
+  const int P = fb::ROWS / G, PG = P * G;  // packed rows a Q / dO box fills
   int lo, hi;
   query_tiles(j, Sq, Skv, P, causal, window, prefix_len, q_offset, &lo, &hi);
   const int splits = walk_splits(hi - lo, chunk);
@@ -662,6 +677,13 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dkdv_wgmma_kernel(
       mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
     fence_barrier_init();
+  }
+  if (PG < fb::ROWS) {
+    // rows PG..63 of every ring tile are zeroed once: TMA never writes them,
+    // and dV += P^T dO, dK += dS^T Q sum over rows, where a stale NaN would
+    // reach every key (0 * NaN is NaN)
+    zero_box_tails(ring, 2 * fb::STAGES * CH, fb::CHUNK, PG);
+    fence_proxy_async();
   }
   __syncthreads();
 
@@ -679,7 +701,7 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dkdv_wgmma_kernel(
         mbar_wait(&empty[s], ((i / fb::STAGES) & 1) ^ 1);
         uint8_t* st = ring + 2 * s * TILE;
         const int qt = i_begin + i;
-        mbar_arrive_expect_tx(&full[s], 2 * TILE + fb::STAT_BYTES);
+        mbar_arrive_expect_tx(&full[s], 2 * CH * PG * 128 + fb::STAT_BYTES);
         for (int ch = 0; ch < CH; ++ch) {
           tma_load_5d(st + ch * fb::CHUNK, &q_map, &full[s], ch * 64, 0, kvh, qt * P, b);
           tma_load_5d(st + TILE + ch * fb::CHUNK, &do_map, &full[s], ch * 64, 0, kvh, qt * P,
@@ -699,9 +721,9 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dkdv_wgmma_kernel(
 #pragma unroll
     for (int h = 0; h < 2; ++h) key[h] = k0 + warp * 16 + lane / 4 + 8 * h;
     const float inv_skv = 1.f / float(Skv);
-    float acc[HD / 2];  // dV (warpgroup 0) or dK (warpgroup 1), 64 keys x HD
+    float acc[HDP / 2];  // dV (warpgroup 0) or dK (warpgroup 1), 64 keys x HDP
 #pragma unroll
-    for (int x = 0; x < HD / 2; ++x) acc[x] = 0.f;
+    for (int x = 0; x < HDP / 2; ++x) acc[x] = 0.f;
     float sacc[32];  // S^T (warpgroup 0) or dP^T (warpgroup 1): 64 keys x 64 rows
 #pragma unroll
     for (int x = 0; x < 32; ++x) sacc[x] = 0.f;
@@ -755,10 +777,11 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dkdv_wgmma_kernel(
         } else {
 #pragma unroll
           for (int x = 0; x < 32; ++x) {
-            const int pos = pos0 + ((8 * (x / 4) + 2 * t + (x & 1)) >> log2g);
+            const int row = 8 * (x / 4) + 2 * t + (x & 1);  // packed query row
+            const int pos = pos0 + row / G;
             const int qp = q_offset + pos;
             float p = sacc[x], p_dv = p;
-            if (pos >= Sq) {
+            if (row >= PG || pos >= Sq) {
               p = p_dv = 0.f;
             } else if (row_empty(qp, Skv, causal, window, prefix_len)) {
               p = 0.f;  // no gradient to q or k
@@ -792,13 +815,15 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dkdv_wgmma_kernel(
       }
       // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1): B is the
       // stage's dO or Q tile, MN-major (head dims contiguous), 16 rows =
-      // 2048 bytes a step; the next tile's first product starts behind it
+      // 2048 bytes a step, over the padded HDP columns (whole 64-column
+      // atoms of the 128-byte swizzle); the next tile's first product starts
+      // behind it
       const uint8_t* b_tile = ring + 2 * s * TILE + (wg == 0 ? TILE : 0);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<HD, 1>(acc, pa[kk], smem_desc(b_tile + kk * 2048, fb::CHUNK, 1024), 1);
+        wgmma_rs<HDP, 1>(acc, pa[kk], smem_desc(b_tile + kk * 2048, fb::CHUNK, 1024), 1);
       wgmma_commit();
       if (i + 1 < n_tiles) launch_first(i + 1);
       wgmma_wait<0>();
@@ -811,7 +836,8 @@ __global__ void __launch_bounds__(384, 1) flash_bwd_dkdv_wgmma_kernel(
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
-    // epilogue: acc[4 jj + 2 h + c] is key[h], head dim 8 jj + 2 t + c
+    // epilogue: acc[4 jj + 2 h + c] is key[h], head dim 8 jj + 2 t + c; the
+    // HD real columns only
     const float mul = wg == 0 ? 1.f : scale;
     if (splits == 1) {
       __nv_bfloat16* out = wg == 0 ? dv : dk;
@@ -880,10 +906,11 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap do_map,
     const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
     const float* __restrict__ stat, __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H,
-    int KV, int log2g, int n_qt, float scale, float scale_log2, int causal, int window,
+    int KV, int G, int n_qt, float scale, float scale_log2, int causal, int window,
     int prefix_len, int q_offset) {
   using namespace repro::sm90;
-  constexpr int CH = HD / 64;
+  constexpr int HDP = tile_columns(HD);  // columns of a tile; TMA reads zeros past HD
+  constexpr int CH = HDP / 64;
   constexpr int TILE = CH * fb::CHUNK;  // one 64-row tile: Q, dO, K or V
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -900,7 +927,7 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_dq_wgmma_kernel(
   const int n_z = gridDim.x / n_qt;
   const int qt = n_qt - 1 - int(blockIdx.x) / n_z, z = int(blockIdx.x) % n_z;
   const int kvh = z % KV, b = z / KV;
-  const int G = 1 << log2g, P = fb::ROWS >> log2g;
+  const int P = fb::ROWS / G, PG = P * G;  // packed rows the Q / dO boxes fill
   const int pos0 = qt * P;
   const int nq = min(P, Sq - pos0);
   const int qp_lo = q_offset + pos0, qp_hi = q_offset + pos0 + nq - 1;
@@ -917,12 +944,16 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_dq_wgmma_kernel(
     }
     fence_barrier_init();
   }
+  if (PG < fb::ROWS) {  // rows PG..63 of the Q and dO tiles: zero, never loaded
+    zero_box_tails(q_tile, 2 * CH, fb::CHUNK, PG);
+    fence_proxy_async();
+  }
   __syncthreads();
 
   if (wg == 1) {
     // producer: Q, dO and the row stats once, then the ring of K / V tiles
     if (threadIdx.x == 128) {
-      mbar_arrive_expect_tx(q_full, 2 * TILE + fb::STAT_BYTES);
+      mbar_arrive_expect_tx(q_full, 2 * CH * PG * 128 + fb::STAT_BYTES);
       for (int ch = 0; ch < CH; ++ch) {
         tma_load_5d(q_tile + ch * fb::CHUNK, &q_map, q_full, ch * 64, 0, kvh, pos0, b);
         tma_load_5d(do_tile + ch * fb::CHUNK, &do_map, q_full, ch * 64, 0, kvh, pos0, b);
@@ -945,21 +976,22 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_dq_wgmma_kernel(
     // this thread's two rows of the 64: warp * 16 + lane / 4 (+ 8)
     int pos[2], qp[2], head[2];
     float lse2[2], dd[2];
-    bool live[2];  // a row that exists and attends some key
+    bool real[2], live[2];  // a row the Q box fills; one that also exists and attends
     mbar_wait(q_full, 0);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = warp * 16 + lane / 4 + 8 * h;
-      pos[h] = pos0 + (r >> log2g);
+      pos[h] = pos0 + r / G;
       qp[h] = q_offset + pos[h];
-      head[h] = kvh * G + (r & (G - 1));
+      head[h] = kvh * G + r % G;
       lse2[h] = lds(stats + r);
       dd[h] = lds(stats + fb::ROWS + r);
-      live[h] = pos[h] < Sq && !row_empty(qp[h], Skv, causal, window, prefix_len);
+      real[h] = r < PG && pos[h] < Sq;
+      live[h] = real[h] && !row_empty(qp[h], Skv, causal, window, prefix_len);
     }
-    float dqacc[HD / 2];
+    float dqacc[HDP / 2];  // columns past HD stay 0 (K's are) and are not stored
 #pragma unroll
-    for (int x = 0; x < HD / 2; ++x) dqacc[x] = 0.f;
+    for (int x = 0; x < HDP / 2; ++x) dqacc[x] = 0.f;
     float sacc[32], dpacc[32];  // S, then dS; dP: 64 rows x 64 keys
 #pragma unroll
     for (int x = 0; x < 32; ++x) sacc[x] = dpacc[x] = 0.f;
@@ -1032,13 +1064,14 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_dq_wgmma_kernel(
       zero_scores();
       if (i + 1 < n_tiles) mbar_wait(&full[(i + 1) % fb::STAGES], ((i + 1) / fb::STAGES) & 1);
       // dQ += dS K: K is N-major (head dims contiguous), 16 keys = 2048 bytes
-      // a step; the next tile's S and dP start behind it
+      // a step, over the padded HDP columns; the next tile's S and dP start
+      // behind it
       const uint8_t* k_s = ring + 2 * s * TILE;
       fence_regs(dqacc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<HD, 1>(dqacc, pa[kk], smem_desc(k_s + kk * 2048, fb::CHUNK, 1024), 1);
+        wgmma_rs<HDP, 1>(dqacc, pa[kk], smem_desc(k_s + kk * 2048, fb::CHUNK, 1024), 1);
       wgmma_commit();
       if (i + 1 < n_tiles) launch_scores(i + 1);
       wgmma_wait<0>();
@@ -1055,7 +1088,7 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_dq_wgmma_kernel(
     // epilogue: dqacc[4 jj + 2 h + c] is row h, head dim 8 jj + 2 t + c
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      if (pos[h] >= Sq) continue;
+      if (!real[h]) continue;
       __nv_bfloat16* row = dq + ((size_t(b) * Sq + pos[h]) * H + head[h]) * HD;
 #pragma unroll
       for (int jj = 0; jj < HD / 8; ++jj)
@@ -1084,13 +1117,12 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
   }();
   if (attr != cudaSuccess) return attr;
   const int G = H / KV;
-  int log2g = 0;
-  while ((1 << log2g) < G) ++log2g;
   const int P = fb::ROWS / G;
   const int n_qt = (Sq + P - 1) / P, n_kt = (Skv + fb::BKV - 1) / fb::BKV;
   CUtensorMap q_map, do_map, k_map, v_map;
   const uint64_t e = 2;  // bytes of a bf16
-  // q, dO: (B, Sq, KV, G, HD) read in boxes of (1, P, 1, G, 64): 64 packed rows of 128 bytes
+  // q, dO: (B, Sq, KV, G, HD) read in boxes of (1, P, 1, G, 64): P * G packed
+  // rows of 128 bytes; a box's columns past HD read zeros
   const uint64_t q_sizes[5] = {uint64_t(HD), uint64_t(G), uint64_t(KV), uint64_t(Sq), uint64_t(B)};
   const uint64_t q_strides[5] = {e, e * HD, e * HD * G, e * HD * H, e * HD * H * Sq};
   const uint32_t q_box[5] = {64, uint32_t(G), 1, uint32_t(P), 1};
@@ -1115,7 +1147,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dkdv<<<dim3(n_kt, splits, B * KV), 384, dkdv_bytes, stream>>>(
-      q_map, do_map, k_map, v_map, stat, partial, dk_t, dv_t, Sq, Skv, KV, log2g, n_qt, scale,
+      q_map, do_map, k_map, v_map, stat, partial, dk_t, dv_t, Sq, Skv, KV, G, n_qt, scale,
       scale_log2, causal, window, prefix_len, q_offset, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1127,7 +1159,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
     if (err != cudaSuccess) return err;
   }
   dqk<<<n_qt * KV * B, 256, dq_bytes, stream>>>(q_map, do_map, k_map, v_map, stat, dq_t, Sq,
-                                                    Skv, H, KV, log2g, n_qt, scale, scale_log2,
+                                                    Skv, H, KV, G, n_qt, scale, scale_log2,
                                                     causal, window, prefix_len, q_offset);
   return cudaGetLastError();
 }
@@ -1138,9 +1170,10 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
 // hd); lse: fp32 (B, H, Sq); contiguous, one dtype (0 fp32, 1 bf16) for the
 // rest; q_offset >= 0. `variant` 0 simt: `delta` is fp32 scratch of (B, H,
 // Sq); `partial`, `chunk` and `splits` are unused. 1 wgmma (bf16; hd 64 /
-// 128 / 256; H / KV divides 64; every pointer 16-byte aligned): `delta` is
-// fp32 scratch of B * KV * n_qt * 128 floats (n_qt = ceil(Sq / (64 / G))
-// query tiles of 64 packed rows), a dK/dV walk covers at most `chunk` query
+// 80 / 112 / 128 / 160 / 256; G = H / KV at most 64; every pointer 16-byte
+// aligned): `delta` is fp32 scratch of B * KV * n_qt * 128 floats (n_qt =
+// ceil(Sq / P) query tiles of P = 64 / G positions, 64 packed rows with
+// padding), a dK/dV walk covers at most `chunk` query
 // tiles, `splits` >= ceil(n_qt / chunk) is the grid's split dimension and,
 // when above 1, `partial` is fp32 scratch of splits * B * KV * ceil(Skv /
 // 64) * 64 * 2 * hd floats. Three (simt) or three to four (wgmma) launches
@@ -1157,8 +1190,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   if (variant == 1) {
     using repro::sm90::aligned16;
     const int G = H / KV;
-    if (dtype != repro::kBFloat16 || G > fb::ROWS || fb::ROWS % G != 0)
-      return int(cudaErrorInvalidValue);
+    if (dtype != repro::kBFloat16 || G > fb::ROWS) return int(cudaErrorInvalidValue);
     const int n_qt = (Sq + fb::ROWS / G - 1) / (fb::ROWS / G);
     if (chunk < 1 || splits < 1 || size_t(splits) * chunk < size_t(n_qt) ||
         (splits > 1 && partial == nullptr))
@@ -1174,7 +1206,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                splits, s));
     switch (hd) {
       REPRO_BWD_WGMMA(64)
+      REPRO_BWD_WGMMA(80)
+      REPRO_BWD_WGMMA(112)
       REPRO_BWD_WGMMA(128)
+      REPRO_BWD_WGMMA(160)
       REPRO_BWD_WGMMA(256)
       default:
         return int(cudaErrorInvalidValue);

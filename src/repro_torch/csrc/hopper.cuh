@@ -130,6 +130,29 @@ __device__ __forceinline__ uint64_t smem_desc(const void* tile, uint32_t lbo, ui
          (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// Columns of a bf16 tile of head_dim `hd` built from 64-column TMA boxes of
+// 128 bytes (the 128-byte swizzle's row): 80 and 112 -> 128, 160 -> 192.
+__host__ __device__ constexpr int tile_columns(int hd) { return (hd + 63) / 64 * 64; }
+
+// Makes this thread's ordinary stores to shared memory visible to the async
+// proxy (TMA, and the operand reads of `wgmma`); follow with a barrier
+// before the async accesses.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Zeroes rows [rows, 64) of `n` consecutive 64-row, 128-byte-row boxes
+// (`box_bytes` apart, 16-byte aligned): the rows of a tile that its TMA box
+// does not cover, which the tile's products still read. The whole block
+// calls it, then `fence_proxy_async` and a barrier.
+__device__ __forceinline__ void zero_box_tails(uint8_t* base, int n, uint32_t box_bytes,
+                                               int rows) {
+  const int per_box = (64 - rows) * 8;  // 16-byte stores a box
+  for (int e = threadIdx.x; e < n * per_box; e += blockDim.x)
+    *reinterpret_cast<uint4*>(base + (e / per_box) * box_bytes + rows * 128 +
+                              (e % per_box) * 16) = make_uint4(0, 0, 0, 0);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }

@@ -6,15 +6,20 @@ The forward replaces the reference's Pallas TPU kernel
 variants, and `variant` picks one by an explicit rule (nothing is caught and
 retried):
 
-* ``wgmma``: bf16, head_dim 64 / 128 / 256, query heads per KV head dividing
-  64, q, k, v 16-byte aligned: both products on the tensor cores, K/V tiles
-  delivered by TMA; the query heads that share a KV head share each K/V
-  tile. Every gemma3 prefill at full width takes it. `consumer_warpgroups`
-  picks one or two consumer warpgroups a block by the grid's size.
-* ``simt``: everything else (fp32, whose 2e-5 parity TF32 would break; head
-  dims 16 and 32 of the REDUCED configs, 80 of `examples/train_100m_torch.py`,
-  112 of zamba2-7b, 160 of stablelm-12b): scalar fp32 FMA, 32 query rows a
-  block.
+* ``wgmma``: bf16, head_dim 64 / 80 / 112 / 128 / 160 / 256, at most 64
+  query heads per KV head, q, k, v 16-byte aligned: both products on the
+  tensor cores, K/V tiles delivered by TMA; the query heads that share a KV
+  head share each K/V tile. A consumer warpgroup's 64 rows hold 64 // G
+  whole positions (48 rows for granite-20b's 48 heads a group, 60 for
+  grok-1's 6; the rest are zero padding), and head dims that are not a
+  multiple of 64 are padded to one in shared memory (80 and 112 to 128, 160
+  to 192). Every bf16 prefill of the full-width configs takes it.
+  `consumer_warpgroups` picks one or two consumer warpgroups a block by the
+  grid's size.
+* ``simt``: everything else (fp32, whose 2e-5 parity TF32 would break, such
+  as `examples/train_100m_torch.py` at hd 80; head dims 16 and 32 of the
+  REDUCED configs; more than 64 query heads per KV head): scalar fp32 FMA,
+  32 query rows a block.
 
 Head dims outside `SUPPORTED_HEAD_DIMS` raise: each is an instantiation of
 the CUDA templates, and the build instantiates only these.
@@ -36,15 +41,16 @@ the forward's rule:
 
 * ``wgmma``: every product on the tensor cores (S and dP by `wgmma` from
   TMA-fed shared memory, dV, dK and dQ with P or dS as the bf16 A operand in
-  registers); at gemma3-1b's training shape its bound is the tensor cores'
-  rate, and it runs at about 5x that bound (PERF.md, section 6). The dK/dV
-  walk of one key tile over its query tiles may be split
-  over several blocks (`backward_plan`, from the mask geometry and the
-  card's SM count) whose fp32 partials a second pass adds in a fixed order;
-  the wrapper allocates that scratch and the row stats' (`backward_scratch`).
+  registers), at the forward's head dims and group sizes; at gemma3-1b's
+  training shape its bound is the tensor cores' rate, and it runs at about
+  5x that bound (PERF.md, section 6). The dK/dV walk of one key tile over
+  its query tiles may be split over several blocks (`backward_plan`, from
+  the mask geometry and the card's SM count) whose fp32 partials a second
+  pass adds in a fixed order; the wrapper allocates that scratch and the
+  row stats' (`backward_scratch`).
 * ``simt``: scalar fp32 FMA, tiles of 32 (fp32, which must stay exact for
-  the REDUCED parity and the resume test; hd 16, 32, 80, 112, 160;
-  granite's 48 query heads over 1).
+  the REDUCED parity and the resume test; hd 16 and 32; more than 64 query
+  heads per KV head).
 
 Both are deterministic (no atomics) and both take rows with no key (the
 reference's uniform average, no gradient to q or k).
@@ -70,7 +76,8 @@ from . import build
 #: (`examples/train_100m_torch.py`), 112 (zamba2-7b, kimi-k2), 160 (stablelm-12b),
 #: 64, 128, 256
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160, 256)
-WGMMA_HEAD_DIMS = (64, 128, 256)
+#: head dims the tensor-core variants take: tiles of whole 64-column boxes
+WGMMA_HEAD_DIMS = (64, 80, 112, 128, 160, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODES = {"simt": 0, "wgmma": 1}
 #: (position, query head) rows of one consumer warpgroup of the wgmma variant.
@@ -109,7 +116,7 @@ def _backward_entry():
 
 def _tensor_core_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     hd, groups = q.shape[3], q.shape[2] // k.shape[2]
-    return (q.dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS and WGMMA_ROWS % groups == 0
+    return (q.dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS and groups <= WGMMA_ROWS
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 
@@ -122,11 +129,11 @@ def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 def backward_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The variant `flash_attention_backward` launches for these operands:
-    ``wgmma`` for bf16 at head_dim 64 / 128 / 256 with query heads per KV
-    head dividing 64 and q, k, v 16-byte aligned, ``simt`` otherwise (fp32,
-    and hd 80 of either dtype, among them). A rule on dtype, head_dim,
-    group size and alignment only: both variants take every mask, rows with
-    no key included."""
+    ``wgmma`` for bf16 at head_dim 64 / 80 / 112 / 128 / 160 / 256 with at
+    most 64 query heads per KV head and q, k, v 16-byte aligned, ``simt``
+    otherwise (fp32, hd 16 and 32, and groups over 64, among them). A rule
+    on dtype, head_dim, group size and alignment only: both variants take
+    every mask, rows with no key included."""
     return "wgmma" if _tensor_core_operands(q, k, v) else "simt"
 
 
@@ -186,7 +193,8 @@ def backward_plan(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True, wind
 
 def backward_scratch(q: torch.Tensor, k: torch.Tensor, chunk: int, splits: int):
     """fp32 scratch of the wgmma backward, on q's device: (the row stats:
-    each query tile's 64 lse and 64 D, B * KV * n_qt * 128 floats; the
+    each query tile's 64 lse and 64 D, padding rows included when the group
+    does not divide 64, B * KV * n_qt * 128 floats; the
     partial dK / dV of split walks, (splits, B * KV, key tiles * 64, 2, hd),
     or None when no walk is split), as the C entry point requires."""
     B, Sq, H, hd = q.shape

@@ -13,7 +13,8 @@ needs.
 * `quickstart_torch`: its deterministic lines;
 * the card examples raise without a card unless asked for the CPU;
 * flash at head_dim 80: the wrappers' checks take it (what raises on the
-  CPU is the device), and both directions name `simt` for it.
+  CPU is the device), and both directions name `simt` for the example's
+  fp32 (`wgmma` for bf16 at its widths).
 """
 import importlib.util
 import os
@@ -175,7 +176,10 @@ def test_flash_wrappers_refuse_head_dims_not_built(hd):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_head_dim_80_runs_simt_both_ways(dtype):
+    """The example's fp32 stays on simt both ways; its widths in bf16 take
+    the tensor cores (tiles padded to 128 columns), forward and backward."""
     q = torch.empty((4, 256, 8, 80), dtype=dtype)
     k = torch.empty((4, 256, 2, 80), dtype=dtype)
-    assert tflash.variant(q, k, k) == "simt"
-    assert tflash.backward_variant(q, k, k) == "simt"
+    want = "simt" if dtype == torch.float32 else "wgmma"
+    assert tflash.variant(q, k, k) == want
+    assert tflash.backward_variant(q, k, k) == want

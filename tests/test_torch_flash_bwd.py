@@ -6,7 +6,9 @@ from the forward's log-sum-exp, in plain PyTorch) is held against autograd
 through `ref.attention` and against `jax.grad` of the reference's oracle
 `repro.kernels.ref.attention` (the reference trains through it: its Pallas
 flash has no VJP), in fp32 within 1e-5, over causal, window, prefix-LM and
-q_offset masks (rows with no key included) and G in {1, 4}.
+q_offset masks (rows with no key included) and G in {1, 4}; `ops.attention`
+and its gradient likewise at the shapes the tensor-core variants took in
+their second redesign (head_dim 80, 112, 160; G = 6 and 48).
 `FlashAttentionFn` runs with the plain forward and backward, so the wiring
 is tested where no kernel runs; so are the backward's variant rule, the
 split of its dK/dV walks and its scratch, which decide on the host. Tests
@@ -85,6 +87,38 @@ def test_plain_backward_matches_autograd_and_jax(B, Sq, Skv, H, KV, hd, kw):
     for name, a, b in zip("qkv", got, vjp(jnp.asarray(do))):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=TOL, atol=TOL,
                                    err_msg=f"d{name} vs jax.grad")
+
+
+# Shapes the tensor-core variants take since their head dims were padded to
+# whole 64-column tiles and their rows to whole positions: head_dim 80, 112,
+# 160 and groups that do not divide 64 (6, 48), at small sizes
+TENSOR_CORE_CASES = [
+    pytest.param(1, 20, 20, 6, 1, 112, {}, id="hd112-g6"),
+    pytest.param(2, 17, 17, 4, 4, 112, {"window": 5}, id="hd112-window"),
+    pytest.param(1, 23, 23, 12, 2, 80, {"prefix_len": 6}, id="hd80-g6-prefix"),
+    pytest.param(1, 11, 19, 6, 1, 160, {"q_offset": 8}, id="hd160-g6-offset"),
+    pytest.param(1, 9, 9, 48, 1, 112, {}, id="hd112-g48"),
+    pytest.param(2, 13, 13, 6, 1, 112, {"causal": False}, id="hd112-g6-bidirectional"),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,kw", TENSOR_CORE_CASES)
+def test_attention_and_gradient_match_jax_at_tensor_core_shapes(B, Sq, Skv, H, KV, hd, kw):
+    """`ops.attention` and its gradient on the CPU (the plain versions both
+    kernels are held to) against the reference's oracle and `jax.vjp` of
+    it, in fp32 within 1e-5; in bf16 on the card these operands take the
+    `wgmma` variants both ways."""
+    q, k, v, do = _inputs(Sq * 5 + hd, B, Sq, Skv, H, KV, hd)
+    assert tflash.variant(*(torch.from_numpy(x).bfloat16() for x in (q, k, v))) == "wgmma"
+    out, got = _autograd(tops.attention, q, k, v, do, kw)
+    if jref is None:
+        return
+    want, vjp = jax.vjp(lambda a, b, c: jref.attention(a, b, c, **kw),
+                        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    for name, a, b in zip("qkv", got, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=TOL, atol=TOL,
+                                   err_msg=f"d{name} vs jax.vjp")
 
 
 def test_lse_is_the_rows_logsumexp():
@@ -268,15 +302,18 @@ def _unaligned(shape, dtype):
     ("bfloat16", 8, 1, 256, "aligned", "wgmma"),     # paligemma-3b
     ("bfloat16", 12, 12, 64, "aligned", "wgmma"),    # whisper-small
     ("bfloat16", 32, 8, 128, "aligned", "wgmma"),    # minitron-8b
-    ("bfloat16", 48, 1, 128, "aligned", "simt"),     # granite-20b: 48 heads a group
-    ("bfloat16", 48, 8, 128, "aligned", "simt"),     # grok-1-314b: 6 heads a group
-    ("bfloat16", 32, 8, 160, "aligned", "simt"),     # stablelm-12b: hd 160
-    ("bfloat16", 64, 8, 112, "aligned", "simt"),     # kimi-k2: hd 112
-    ("bfloat16", 32, 32, 112, "aligned", "simt"),    # zamba2-7b: hd 112
+    ("bfloat16", 48, 1, 128, "aligned", "wgmma"),    # granite-20b: one position, 48 rows
+    ("bfloat16", 48, 8, 128, "aligned", "wgmma"),    # grok-1-314b: 10 positions, 60 rows
+    ("bfloat16", 32, 8, 160, "aligned", "wgmma"),    # stablelm-12b: hd 160, tiles of 192
+    ("bfloat16", 64, 8, 112, "aligned", "wgmma"),    # kimi-k2: hd 112, tiles of 128
+    ("bfloat16", 32, 32, 112, "aligned", "wgmma"),   # zamba2-7b: hd 112
     # ... REDUCED (fp32, hd 16), fp32 at a tensor-core shape, and alignment
     ("float32", 4, 1, 16, "aligned", "simt"),
     ("float32", 4, 1, 256, "aligned", "simt"),
+    ("float32", 8, 2, 80, "aligned", "simt"),        # train_100m: fp32 stays exact
+    ("bfloat16", 8, 2, 80, "aligned", "wgmma"),
     ("bfloat16", 64, 1, 64, "aligned", "wgmma"),     # 64 heads: one position a tile
+    ("bfloat16", 72, 1, 64, "aligned", "simt"),      # more heads than a tile's rows
     ("bfloat16", 4, 1, 256, "unaligned-q", "simt"),
     ("bfloat16", 4, 1, 256, "unaligned-k", "simt"),
 ])
@@ -319,7 +356,8 @@ MASKS = [
 
 @pytest.mark.parametrize("kw", MASKS)
 @pytest.mark.parametrize("Sq,Skv,G", [(1024, 1024, 4), (288, 288, 8), (40, 50, 4),
-                                      (64, 1500, 1), (300, 300, 64)])
+                                      (64, 1500, 1), (300, 300, 64), (1024, 1024, 48),
+                                      (300, 300, 6), (77, 90, 6), (40, 50, 48)])
 def test_backward_walks_cover_the_mask(kw, Sq, Skv, G):
     """Every query tile with a row that may attend a key of a key tile, or
     with a row that attends no key at all (it spreads over every key), lies
@@ -352,6 +390,12 @@ def test_backward_walks_cover_the_mask(kw, Sq, Skv, G):
     # a card of 1000 SMs splits more; one of 64 does not split gemma3's 64 blocks
     (4, 1024, 1024, 4, 1, {}, 1000, (3, 22)),
     (4, 1024, 1024, 4, 1, {}, 64, (64, 1)),
+    # granite-20b's 48 heads a group (1024 query tiles of one position: 16
+    # blocks unsplit), and zamba2-7b's training shape (1024 blocks: a wave
+    # unsplit)
+    (1, 1024, 1024, 48, 1, {}, H100_SMS, (70, 15)),
+    (4, 300, 300, 48, 1, {"window": 64}, H100_SMS, (18, 17)),
+    (2, 1024, 1024, 32, 32, {}, H100_SMS, (16, 1)),
 ])
 def test_backward_plan_rule(monkeypatch, B, Sq, Skv, H, KV, kw, sms, want):
     monkeypatch.setattr(tbuild, "sm_count", lambda device: sms)
@@ -374,6 +418,10 @@ def test_backward_plan_rule(monkeypatch, B, Sq, Skv, H, KV, kw, sms, want):
     (2, 288, 288, 8, 1, 256, 3, 12),
     (1, 40, 50, 4, 1, 64, 1, 3),
     (2, 1500, 1500, 12, 12, 64, 24, 1),
+    (1, 1024, 1024, 48, 1, 128, 70, 15),   # granite-20b: a tile of one position
+    (1, 1024, 1024, 48, 8, 128, 21, 5),    # grok-1: tiles of 10 positions
+    (2, 1024, 1024, 32, 32, 112, 16, 1),   # zamba2-7b's training shape
+    (1, 77, 77, 6, 1, 160, 3, 5),          # hd 160: partials of the real 160 columns
 ])
 def test_backward_scratch_matches_the_entry_points_contract(B, Sq, Skv, H, KV, hd, chunk,
                                                             splits):
@@ -429,6 +477,16 @@ def cuda():
     (torch.bfloat16, 1, 40, 4, 1, 64, {"q_offset": 30, "window": 8, "skv": 50}),
     # gemma3-1b's training shape, one batch row
     (torch.bfloat16, 1, 1024, 4, 1, 256, {"window": 512}),
+    # head dims padded to whole 64-column tiles, groups that do not divide
+    # 64 (padding rows in every query tile), ragged Sq and Skv
+    (torch.bfloat16, 1, 300, 32, 8, 160, {"window": 64}),
+    (torch.bfloat16, 2, 77, 6, 1, 112, {}),
+    (torch.bfloat16, 1, 130, 6, 1, 80, {"causal": False, "skv": 77}),
+    (torch.bfloat16, 1, 257, 48, 1, 128, {}),
+    (torch.bfloat16, 2, 100, 48, 8, 112, {"prefix_len": 30}),
+    (torch.bfloat16, 1, 40, 48, 1, 160, {"q_offset": 30, "window": 8, "skv": 50}),
+    (torch.bfloat16, 2, 129, 32, 32, 112, {}),  # zamba2-7b's heads, ragged
+    (torch.float32, 1, 100, 48, 1, 112, {}),     # fp32 at those shapes stays on simt
 ])
 def test_backward_kernel_matches_plain_on_card(cuda, dtype, B, S, H, KV, hd, kw):
     kw = dict(kw)
@@ -445,7 +503,8 @@ def test_backward_kernel_matches_plain_on_card(cuda, dtype, B, S, H, KV, hd, kw)
     want = tref.attention_backward(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     assert tflash.backward.variant_launches[kind] == before + 1
-    assert kind == ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 256) else "simt")
+    assert kind == ("wgmma" if dtype == torch.bfloat16 and H // KV <= 64 and hd >= 64
+                    else "simt")
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     for name, a, b in zip("qkv", got, want):
         assert bool(torch.isfinite(a).all()), f"d{name} not finite"
@@ -466,6 +525,28 @@ def test_backward_wgmma_gives_the_same_bits_every_run_on_card(cuda):
     first = tflash.flash_attention_backward(q, k, v, out, lse, do)
     second = tflash.flash_attention_backward(q, k, v, out, lse, do)
     for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,H,KV,hd", [(1024, 48, 1, 128), (300, 48, 1, 112), (257, 6, 1, 160)],
+                         ids=["granite-g48", "g48-hd112-ragged", "g6-hd160-ragged"])
+def test_backward_wgmma_at_padded_rows_gives_the_same_bits_every_run_on_card(cuda, S, H, KV,
+                                                                             hd):
+    """Groups that do not divide 64 leave padding rows in every query tile;
+    the walks stay split into fixed-order partials: no atomics, the same
+    bits every run."""
+    gen = torch.Generator(device=cuda).manual_seed(H + hd)
+    q, do = (torch.randn((1, S, H, hd), generator=gen, device=cuda).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((1, S, KV, hd), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = tflash.flash_attention_with_lse(q, k, v)
+    assert tflash.backward_variant(q, k, v) == "wgmma"
+    first = tflash.flash_attention_backward(q, k, v, out, lse, do)
+    second = tflash.flash_attention_backward(q, k, v, out, lse, do)
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a).all())
         assert torch.equal(a, b)
 
 

@@ -585,11 +585,24 @@ def test_fused_linear_variant_rule(monkeypatch, dtype, M, K, N, layout, sms, wan
     ("bfloat16", 8, 2, 128, "aligned", "wgmma"),
     ("bfloat16", 4, 4, 64, "aligned", "wgmma"),
     ("bfloat16", 64, 1, 64, "aligned", "wgmma"),        # 64 heads: one position a warpgroup
-    ("bfloat16", 3, 1, 64, "aligned", "simt"),          # 3 heads a group do not divide 64 rows
+    ("bfloat16", 3, 1, 64, "aligned", "wgmma"),         # 21 positions of 3 heads: 63 rows
     ("bfloat16", 4, 1, 32, "aligned", "simt"),          # REDUCED head dims
     ("bfloat16", 4, 1, 16, "aligned", "simt"),
     ("bfloat16", 4, 1, 256, "unaligned-q", "simt"),
     ("float32", 4, 1, 256, "aligned", "simt"),          # fp32 stays exact: no TF32
+    # head dims padded to whole 64-column tiles, and groups that do not divide
+    # 64 (64 // G whole positions a warpgroup)
+    ("bfloat16", 32, 32, 112, "aligned", "wgmma"),      # zamba2-7b
+    ("bfloat16", 32, 8, 160, "aligned", "wgmma"),       # stablelm-12b
+    ("bfloat16", 48, 1, 128, "aligned", "wgmma"),       # granite-20b: 48 rows of 64
+    ("bfloat16", 48, 8, 128, "aligned", "wgmma"),       # grok-1-314b: 60 rows of 64
+    ("bfloat16", 64, 8, 112, "aligned", "wgmma"),       # kimi-k2-1t-a32b
+    ("bfloat16", 8, 2, 80, "aligned", "wgmma"),         # train_100m's widths in bf16
+    ("float32", 8, 2, 80, "aligned", "simt"),           # train_100m itself: fp32
+    ("float32", 32, 32, 112, "aligned", "simt"),
+    ("bfloat16", 65, 1, 128, "aligned", "simt"),        # more heads than a warpgroup's rows
+    ("bfloat16", 96, 1, 112, "aligned", "simt"),
+    ("bfloat16", 6, 1, 160, "unaligned-q", "simt"),
 ])
 def test_flash_variant_rule(dtype, H, KV, hd, layout, want):
     dt = TDT[dtype]
@@ -597,6 +610,22 @@ def test_flash_variant_rule(dtype, H, KV, hd, layout, want):
     q = _unaligned(shape, dt) if layout == "unaligned-q" else torch.empty(shape, dtype=dt)
     k = torch.empty((1, 9, KV, hd), dtype=dt)
     assert tflash.variant(q, k, k) == want
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hd", [80, 112, 160])
+@pytest.mark.parametrize("H,KV", [(4, 4), (16, 4), (6, 1), (16, 2), (48, 1), (130, 2)],
+                         ids=["G1", "G4", "G6", "G8", "G48", "G65"])
+def test_flash_variant_rule_at_padded_head_dims(dtype, hd, H, KV):
+    """bf16 at head dims padded to whole 64-column tiles takes the tensor
+    cores at every group of at most 64 query heads a KV head, the forward
+    and the backward alike; fp32 and larger groups stay on simt."""
+    dt = TDT[dtype]
+    q = torch.empty((1, 9, H, hd), dtype=dt)
+    k = torch.empty((1, 9, KV, hd), dtype=dt)
+    want = "wgmma" if dtype == "bfloat16" and H // KV <= 64 else "simt"
+    assert tflash.variant(q, k, k) == want
+    assert tflash.backward_variant(q, k, k) == want
 
 
 @pytest.mark.parametrize("B,Sq,H,KV,sms,want", [
@@ -607,6 +636,9 @@ def test_flash_variant_rule(dtype, H, KV, hd, layout, want):
     (8, 1024, 4, 1, H100_SMS, 2),
     (1, 1024, 4, 1, 32, 2),         # the same prompt on a 32-SM card
     (3, 9, 64, 1, H100_SMS, 1),     # 64 heads: one position a warpgroup, 27 blocks
+    (1, 1024, 48, 1, H100_SMS, 2),  # granite-20b: one position of 48 rows, 1024 blocks
+    (1, 100, 48, 8, H100_SMS, 1),   # grok-1: 10 positions of 6 heads, 10 x 8 blocks
+    (1, 1024, 48, 8, H100_SMS, 2),  # 103 x 8 blocks
 ])
 def test_flash_consumer_warpgroups_rule(monkeypatch, B, Sq, H, KV, sms, want):
     monkeypatch.setattr(tbuild, "sm_count", lambda device: sms)
@@ -770,12 +802,14 @@ def test_flash_kernel_matches_plain_on_card(cuda, Sq, window, kw, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32"])
 @pytest.mark.parametrize("hd,H,KV,Sq", [(112, 32, 32, 1024), (112, 32, 32, 77), (160, 32, 8, 300),
                                         (80, 8, 2, 256), (80, 8, 2, 257)],
                          ids=["zamba2-prefill", "zamba2-ragged", "hd160-gqa", "hd80-train100m",
                               "hd80-ragged"])
 def test_flash_simt_at_wide_head_dims_matches_plain_on_card(cuda, hd, H, KV, Sq, dtype):
+    """The simt kernel at the head dims between the powers of two, through
+    fp32 operands (bf16 there takes wgmma: the next test)."""
     gen = torch.Generator(device=cuda).manual_seed(hd + Sq)
     q = torch.randn((1, Sq, H, hd), generator=gen, device=cuda).to(TDT[dtype])
     k = torch.randn((1, Sq, KV, hd), generator=gen, device=cuda).to(TDT[dtype])
@@ -785,6 +819,44 @@ def test_flash_simt_at_wide_head_dims_matches_plain_on_card(cuda, hd, H, KV, Sq,
     want = tref.attention(q, k, v)
     torch.cuda.synchronize()
     tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,kw", [
+    (1, 1024, 1024, 32, 32, 112, {}),             # zamba2-7b's prefill
+    (2, 77, 77, 32, 32, 112, {}),
+    (1, 1024, 1024, 32, 8, 160, {}),              # stablelm-12b's
+    (1, 300, 300, 8, 2, 160, {"window": 64}),
+    (1, 1024, 1024, 48, 1, 128, {}),              # granite-20b's: 48 rows of 64
+    (2, 77, 77, 48, 1, 128, {}),
+    (1, 300, 300, 48, 8, 128, {}),                # grok-1's: 60 rows of 64
+    (1, 64, 300, 48, 8, 128, {"q_offset": 236, "prefix_len": 250}),
+    (1, 300, 300, 64, 8, 112, {}),                # kimi-k2's
+    (4, 256, 256, 8, 2, 80, {}),                  # train_100m's widths in bf16
+    (2, 257, 257, 6, 1, 80, {}),
+    (1, 130, 77, 6, 1, 112, {"causal": False}),
+    (1, 50, 20, 6, 1, 160, {"window": 8}),        # rows with no key
+    (8, 512, 512, 48, 8, 128, {}),                # two consumer warpgroups a block
+], ids=["zamba2", "zamba2-ragged", "stablelm", "hd160-window", "granite", "granite-ragged",
+        "grok", "grok-offset-prefix", "kimi", "hd80", "hd80-g6-ragged", "hd112-g6-bidirectional",
+        "hd160-g6-empty-rows", "grok-b8"])
+def test_flash_wgmma_at_padded_head_dims_and_groups_matches_plain_on_card(cuda, B, Sq, Skv, H,
+                                                                          KV, hd, kw):
+    """The tensor-core forward at head dims padded to whole 64-column tiles
+    and at groups that do not divide 64, ragged Sq and Skv included, against
+    the plain version at the reference's bf16 tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + Sq + H)
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((B, Skv, KV, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((B, Skv, KV, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    assert tflash.variant(q, k, v) == "wgmma"
+    before = tflash.variant_launches["wgmma"]
+    got = tops.attention(q, k, v, **kw)
+    want = tref.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tflash.variant_launches["wgmma"] == before + 1
+    tol = ATTN_TOL["bfloat16"]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
