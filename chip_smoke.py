@@ -51,15 +51,16 @@ nothing of JAX or of the JAX package. Phases:
    work itself, and its kernels' `-Xptxas -v` lines printed; zamba2-7b's
    shapes: flash at head_dim 112 (and 160, G=4; and 80,
    `examples/train_100m_torch.py`'s, in fp32 on simt, bf16 on wgmma, and
-   ragged) and the decode core's simt walk at 32 heads of 112, both beside
+   ragged) and the decode core at 32 heads of 112 (simt, mma beside it), both beside
    SDPA, the scan at
    Mamba2's tick and ragged prefill with the operands laid out as
    `mamba_forward` makes them; the paged kernel with window 512 through the
    full table (the prefix cache's local layers); the dense family's shapes:
    flash at granite-20b's prefill (48 query heads over 1, hd 128),
    minitron-8b's (32 over 8) and stablelm-12b's (hd 160), all wgmma, the
-   decode core's simt walk at stablelm-12b's tick (hd 160) and the paged
-   kernel at granite-20b's tick (six head groups: mma), each held against
+   decode core's mma walk at stablelm-12b's tick (hd 160, dense and paged)
+   and the paged kernel at granite-20b's tick (six head groups: mma), the
+   mma walk beside the simt walk on the same operands, each held against
    its plain version and timed warm and with its inputs cold in L2 (flash
    and the dense decode beside SDPA); the remaining families' shapes: flash
    at paligemma-3b's prefix-LM prefill (B=8, 256 + 32 positions, wgmma, SDPA
@@ -71,22 +72,26 @@ nothing of JAX or of the JAX package. Phases:
    operands (`_fwd_simt`), and wgmma must beat it; the decode core at
    grok's dense
    tick, paligemma's and whisper's ticks (mma) and the paged kernel at
-   grok's (mma) and kimi's (simt) ticks; and rows that are not whole
+   grok's and kimi's ticks (mma, beside simt on the same operands); the
+   mma walk at hd 80 / 112 / 160, G = 1, 4 and 8, with and without a
+   window, paged bitwise equal to dense on one cache; and rows that are not whole
    16-byte loads (fp32 hd 18, bf16 hd 36: element loads on the simt walk),
    dense and paged; the flash backward kernel (`flash_attention_bwd`)
    against `ref.attention_backward` at gemma3-1b's training shape (B=4,
    S=1024, 4 query heads over 1 at hd 256, bf16, a global and a local
    layer), a group of 4 at hd 128, hd 112 and 160, a prefix-LM mask, fp32
-   at hd 16 and rows with no key (max |d| / max |plain| within 2e-2 bf16,
-   1e-4 fp32; the forward's log-sum-exp within 1e-3), each case on the
-   variant `backward_variant` names (wgmma: bf16 at hd 64 / 80 / 112 / 128 /
-   160 / 256 with at most 64 query heads per KV head; simt: the rest), with
+   at every head dim and rows with no key (max |d| / max |plain| within
+   2e-2 bf16, 2e-5 fp32 on tf32x3, the same bits twice; the forward's
+   log-sum-exp within 1e-3), each case on the variant `backward_variant`
+   names (wgmma: bf16 at hd 64 / 80 / 112 / 128 / 160 / 256 with at most 64
+   query heads per KV head; tf32x3: fp32; simt: the rest), with
    granite-20b's G = 48 and grok-1's G = 6 at B=1 x 1024, zamba2-7b's
    training shape (B=2 x 1024, 32 over 32, hd 112), whisper-small's
    encoder (1500 frames) and cross-attention (64 against 1500 keys) and
    bf16 rows with no key among them, and `examples/train_100m_torch.py`'s
    shape (B=4, S=256, 8 query heads over 2 at hd 80, fp32, a global and a
-   local layer: `simt`; bf16 on wgmma, and ragged S = 257 too); at
+   local layer: `tf32x3`, timed beside `simt`, SDPA and cold; bf16 on
+   wgmma, and ragged S = 257 too); at
    gemma3-1b's training shape, hd 112, hd 160 G=4, G=48, G=6 and zamba2-7b's
    training shape the wgmma variant timed warm (twice) and cold beside the
    simt variant on the same operands (which it must beat), its plain version
@@ -157,7 +162,8 @@ nothing of JAX or of the JAX package. Phases:
    block after every 6, d_model 3584, 32 heads of 112, bf16, seeded) serves
    phase 5's 16 requests through the dense scheduler (max_len 1088), then
    the serial engine (8 x 512, 32 steps): flash on wgmma and the decode
-   kernel on its simt walk (hd 112) once per group, the scan once per layer
+   kernel on its simt walk (hd 112, one query head a KV head) once per
+   group, the scan once per layer
    (prefills `mma`, ticks `step`), peak memory;
 17. reduced-dense-family: granite-20b, minitron-8b and stablelm-12b REDUCED
    in fp32 on the card against the CPU: prefill plus 16 teacher-forced
@@ -169,8 +175,8 @@ nothing of JAX or of the JAX package. Phases:
    on 4 of them; tok/s, TTFT, peak memory; flash and the decode kernels on
    the variants their rules name (flash wgmma for all three: granite's 48
    query heads a KV head in 48-row tiles, stablelm's hd 160 in 192-column
-   tiles; paged decode mma in 6 head groups for granite, mma for minitron,
-   simt at hd 160 for stablelm); each config's weights freed before the next;
+   tiles; paged decode mma in 6 head groups for granite, mma for minitron
+   and at hd 160 for stablelm); each config's weights freed before the next;
 19. conformance: the `torchdev` manager contracts on the card (execute's
    Future resolves and carries errors, memcpy Events land host to device,
    device to device and device to host, alloc / register / free);
@@ -194,7 +200,7 @@ nothing of JAX or of the JAX package. Phases:
    paged scheduler, grok also through the dense one (whose ticks keep the
    reference's per-slot capacity: no row dropped); tok/s, TTFT, peak memory,
    rows dropped by capacity, exact launches on the variants the rules name
-   (flash wgmma for both; paged mma for grok, simt for kimi at hd 112);
+   (flash wgmma for both; paged mma for both, kimi's at hd 112);
 25. reduced-vlm: REDUCED paligemma-3b in fp32 through its bundle on the card
    against the CPU: prefill logits within 1e-4, 16 greedy tokens equal;
 26. generate-paligemma: the full 18-layer paligemma-3b (bf16, seeded), 8
@@ -210,7 +216,7 @@ nothing of JAX or of the JAX package. Phases:
    against the CPU (metrics within rtol 1e-5, gradients rtol 1e-4 / atol
    1e-6, updated parameters rtol 1e-4 / atol 1e-5), every attention's
    forward and backward on the kernels (the forward twice: `remat_policy`
-   "minimal" recomputes it in the backward);
+   "minimal" recomputes it in the backward; every backward on tf32x3);
 30. train: full-width gemma3-1b (fp32 masters, bf16 compute, AdamW), B=4 x
    S=1024, 6 steps through `launch/train.py`: finite losses, every
    parameter's step-1 gradient finite and non-zero, the step-0 loss within
@@ -224,7 +230,7 @@ nothing of JAX or of the JAX package. Phases:
 32. reduced-train-families: one AdamW step of every family REDUCED in fp32
    on the card against the CPU (29's tolerances; xlstm's and zamba2's
    gradients max |d| / max |cpu| <= 1e-4 per leaf), every attention and
-   scan forward and backward on the kernels;
+   scan forward and backward on the kernels (flash's backward on tf32x3);
 33. train-xlstm: full-width xlstm-125m, B=4 x S=2048, 6 steps through the
    launcher: 29's and 30's checks (the step-0 loss against the plain scan's),
    9 scan forward and 9 backward launches a step, all on `mma`; ms a step,
@@ -267,7 +273,7 @@ nothing of JAX or of the JAX package. Phases:
    defaults (30 steps, B=4 x 256, a checkpoint at 25) through its `train`
    (the spmd compute manager over an NCCL world of one that it starts and
    destroys): finite, falling losses, `expected_train_launches` flash
-   forward and backward launches a step all on simt, ms a step, training
+   forward (simt) and backward (tf32x3) launches a step, ms a step, training
    tok/s, peak memory; a second run resumes at 25 and its step-30 loss
    equals the first's within 1e-5 relative (bit equality reported). The
    flash forward and backward at its shape are timed in phase 3 beside the
@@ -461,12 +467,13 @@ def _flash_case(torch, gen, *, Sq, Skv, H, KV, hd, dtype, B=1, causal=True, wind
 def _tensor_core_case(dtype_name: str, case: dict) -> bool:
     """Whether flash's rule gives a case's operands the `wgmma` variants
     (forward and backward): bf16 at a head_dim of whole or padded 64-column
-    tiles, at most 64 query heads a KV head (16-byte alignment holds for
-    fresh tensors)."""
+    tiles, at most 64 query heads a KV head, 16-byte aligned (as fresh
+    tensors are, unless the case asks for an unaligned q)."""
     from repro_torch.kernels import flash_attention
 
     return (dtype_name == "bfloat16" and case["hd"] in flash_attention.WGMMA_HEAD_DIMS
-            and case["H"] // case["KV"] <= flash_attention.WGMMA_ROWS)
+            and case["H"] // case["KV"] <= flash_attention.WGMMA_ROWS
+            and not case.get("unaligned_q"))
 
 
 def check_flash(torch, gen) -> dict:
@@ -794,6 +801,10 @@ def _flash_timing(torch, gen, label, want_kind, *, Sq, H, KV, hd, B=1, Skv=None,
 #: order); and the forward's log-sum-exp against the plain version's
 #: (absolute: fp32 sums of the same bf16 products in another order)
 BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: the fp32 backward's `tf32x3` variant (three TF32 products a product) is
+#: held to fp32's own tolerance (tests/test_kernels.py: 2e-5), and must give
+#: the same bits on a second run
+TF32X3_REL_TOL = 2e-5
 LSE_ATOL = 1e-3
 
 #: (label, shape) of the backward's checked cases: gemma3-1b's training shape
@@ -835,6 +846,25 @@ BWD_CASES = (
     ("G=48 hd 160, empty rows", dict(B=1, Sq=40, Skv=50, H=48, KV=1, hd=160, dtype="bfloat16",
                                      q_offset=30, window=8)),
     ("zamba2-7b train", dict(B=2, Sq=1024, H=32, KV=32, hd=112, dtype="bfloat16")),
+    # fp32 on tf32x3 at every other head dim it takes: REDUCED's hd 32, a
+    # prefix-LM mask, 48 query heads a KV head, a window, a bidirectional
+    # ragged Skv, hd 256 (16-row query tiles), rows with no key at hd 80
+    ("REDUCED fp32 hd 32", dict(B=2, Sq=64, H=8, KV=2, hd=32, dtype="float32")),
+    ("fp32 hd 64 prefix-LM", dict(B=2, Sq=200, H=4, KV=1, hd=64, dtype="float32",
+                                  prefix_len=50)),
+    ("fp32 hd 112 G=48", dict(B=1, Sq=100, H=48, KV=1, hd=112, dtype="float32")),
+    ("fp32 hd 128 window", dict(B=1, Sq=300, H=8, KV=2, hd=128, dtype="float32", window=64)),
+    ("fp32 hd 160 bidirectional", dict(B=1, Sq=100, Skv=77, H=4, KV=1, hd=160,
+                                       dtype="float32", causal=False)),
+    ("fp32 hd 256", dict(B=1, Sq=130, H=4, KV=1, hd=256, dtype="float32")),
+    ("fp32 hd 80, empty rows", dict(B=1, Sq=40, Skv=50, H=8, KV=2, hd=80, dtype="float32",
+                                    q_offset=30, window=8)),
+    # what the rule leaves to simt, held at BWD_REL_TOL: bf16 at hd 32 and
+    # with 72 query heads a KV head, fp32 with q off 16 bytes
+    ("bf16 hd 32 (simt)", dict(B=2, Sq=64, H=8, KV=2, hd=32, dtype="bfloat16", window=16)),
+    ("bf16 G=72 (simt)", dict(B=1, Sq=100, H=72, KV=1, hd=64, dtype="bfloat16")),
+    ("fp32 unaligned q (simt)", dict(B=2, Sq=257, H=8, KV=2, hd=80, dtype="float32",
+                                     window=64, unaligned_q=True)),
 )
 #: the cases timed (warm, cold, beside simt on the same operands, the plain
 #: version and SDPA's backward): gemma3-1b's two layers, and the shapes
@@ -844,14 +874,17 @@ BWD_TIMED = ("gemma3-1b train, global", "gemma3-1b train, local", "hd 112", "hd 
 
 
 def _bwd_case(torch, gen, *, B, Sq, H, KV, hd, dtype, Skv=None, causal=True, window=0,
-              prefix_len=0, q_offset=0):
-    """Seeded q, k, v, dO on the card, the forward with its log-sum-exp, and
+              prefix_len=0, q_offset=0, unaligned_q=False):
+    """Seeded q (one element into a larger buffer with `unaligned_q`: off
+    16 bytes), k, v, dO on the card, the forward with its log-sum-exp, and
     the masks' keywords."""
     from repro_torch.kernels import flash_attention
 
     dt = getattr(torch, dtype)
     Skv = Skv or Sq
     q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dt)
+    if unaligned_q:
+        q = torch.cat([q.new_zeros(1), q.flatten()])[1:].view(q.shape)
     k = torch.randn((B, Skv, KV, hd), generator=gen, device="cuda").to(dt)
     v = torch.randn((B, Skv, KV, hd), generator=gen, device="cuda").to(dt)
     do = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dt)
@@ -908,6 +941,16 @@ def check_flash_bwd(torch, gen) -> dict:
     call."""
     from repro_torch.kernels import flash_attention, ref
 
+    tiling = []
+    for hd in flash_attention.SUPPORTED_HEAD_DIMS:  # the host plan's copy of the tiling
+        rows, per_sm, resident = flash_attention.tf32x3_tiling(hd)
+        host = (flash_attention.tf32x3_walk_rows(hd), flash_attention.tf32x3_blocks_per_sm(hd))
+        require((rows, per_sm) == host and resident >= per_sm,
+                f"tf32x3 at hd {hd}: the kernels take {rows} query rows a visit and {per_sm} "
+                f"blocks an SM ({resident} resident), the host plan {host}")
+        tiling.append(f"hd {hd}: {rows} rows, {per_sm} blocks an SM ({resident} resident)")
+    log("[kernels] flash_attention_bwd tf32x3 tiling as built, equal to the host plan's: "
+        + "; ".join(tiling))
     worst_abs, worst_rel, worst_tol = 0.0, 0.0, None
     for label, case in BWD_CASES:
         q, k, v, out, lse, do, kw = _bwd_case(torch, gen, **case)
@@ -916,10 +959,13 @@ def check_flash_bwd(torch, gen) -> dict:
         lse_err = float((lse - lse_plain)[live].abs().max().item())
         kind = flash_attention.backward_variant(q, k, v)
         tc = _tensor_core_case(case["dtype"], case)
-        require(kind == ("wgmma" if tc else "simt"), f"backward ({label}) takes {kind}")
+        want_kind = ("wgmma" if tc else "tf32x3" if case["dtype"] == "float32"
+                     and not case.get("unaligned_q") else "simt")
+        require(kind == want_kind, f"backward ({label}) takes {kind}, not {want_kind}")
         plan = ""
-        if kind == "wgmma":
-            chunk, splits = flash_attention.backward_plan(q, k, **kw)
+        if kind in ("wgmma", "tf32x3"):
+            chunk, splits = (flash_attention.backward_plan if kind == "wgmma"
+                             else flash_attention.tf32x3_plan)(q, k, **kw)
             plan = f", chunk {chunk}, splits {splits}"
         results = []
         ran = launched_variant(flash_attention.backward, lambda: results.append(
@@ -928,13 +974,19 @@ def check_flash_bwd(torch, gen) -> dict:
         got = results[0]
         want = ref.attention_backward(q, k, v, out, lse, do, **kw)
         torch.cuda.synchronize()
+        if kind == "tf32x3":  # no atomics: a second run gives the same bits
+            again = flash_attention.flash_attention_backward(q, k, v, out, lse, do, **kw)
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"flash_attention_backward ({label}, tf32x3) changed bits on a second run")
+            plan += ", the same bits twice"
+            del again
         rel = {}
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             diff = float((a.float() - b.float()).abs().max().item())
             rel[name] = diff / max(float(b.float().abs().max().item()), 1e-30)
             require(bool(torch.isfinite(a).all().item()), f"{label}: {name} not finite")
             worst_abs = max(worst_abs, diff)
-        tol = BWD_REL_TOL[case["dtype"]]
+        tol = TF32X3_REL_TOL if kind == "tf32x3" else BWD_REL_TOL[case["dtype"]]
         ok = max(rel.values()) <= tol and lse_err <= LSE_ATOL
         desc = ", ".join(f"{n}={x}" for n, x in case.items() if n != "dtype")
         log(f"[kernels] flash_attention_bwd {case['dtype']} {label} ({desc}; {kind}{plan}): max "
@@ -1053,12 +1105,15 @@ TRAIN_100M_ATTENTION = dict(B=4, Sq=256, H=8, KV=2, hd=80)
 
 
 def time_flash_hd80(torch, gen) -> tuple:
-    """The flash forward and backward at `TRAIN_100M_ATTENTION` in fp32,
-    each on `simt`, timed (CUDA events and the profiler's device time)
-    beside the plain version and SDPA (its backward through autograd, the
-    same output gradient), with the bound from the pairs the causal mask
-    keeps. Returns (forward row, backward row) for the two kernels'
-    `other_timings`."""
+    """The flash forward (`simt`) and backward (`tf32x3`) at
+    `TRAIN_100M_ATTENTION` in fp32, timed (CUDA events and the profiler's
+    device time) beside the plain version and SDPA (its backward through
+    autograd, the same output gradient), the backward also twice, cold, and
+    beside the `simt` backward on the same operands (the rule's old
+    variant, through the C entry point), with the bound from the pairs the
+    causal mask keeps (the backward's both ways: at the fp32 FMA peak, and
+    as three products at the TF32 peak). Returns (forward row, backward
+    row) for the two kernels' `other_timings`."""
     from repro_torch.kernels import flash_attention, ref
     from repro_torch.kernels.ref import _build_mask
 
@@ -1068,8 +1123,8 @@ def time_flash_hd80(torch, gen) -> tuple:
     bwd = lambda: flash_attention.flash_attention_backward(  # noqa: E731
         q, k, v, out, lse, do, **kw)
     require(launched_variant(flash_attention, fwd) == "simt"
-            and launched_variant(flash_attention.backward, bwd) == "simt",
-            "flash at train_100m's shape did not run simt both ways")
+            and launched_variant(flash_attention.backward, bwd) == "tf32x3",
+            "flash at train_100m's shape did not run simt forward and tf32x3 backward")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -1085,9 +1140,16 @@ def time_flash_hd80(torch, gen) -> tuple:
     f_flops = 4 * hd * H * pairs
     fb_bytes = f_bytes / PEAK_BYTES_PER_S * 1e3
     fb_ops = f_flops / PEAK_FLOPS["float32"] * 1e3
-    b_bound, b_by, b_bytes, b_flops = _bwd_bound_ms(q, k, lse, kw)
+    fma_bound, fma_by, b_bytes, b_flops = _bwd_bound_ms(q, k, lse, kw)
+    tb_bytes = b_bytes / PEAK_BYTES_PER_S * 1e3
+    tb_ops = 3 * b_flops / PEAK_FLOPS["tfloat32"] * 1e3
+    # the least time is the lower of the two ways to do the work: fp32 FMA,
+    # or three TF32 products a product on the tensor cores (tf32x3's way)
+    tf32_bound = max(tb_bytes, tb_ops)
+    tf32_by = "bytes" if tb_bytes >= tb_ops else "operations"
+    b_bound, b_by = min((tf32_bound, tf32_by), (fma_bound, fma_by))
     shape = (f"train_100m: B={B} Sq=Skv={Sq} H={H} KV={k.shape[2]} hd={hd} fp32 causal "
-             f"(simt)")
+             f"(forward simt, backward tf32x3)")
     with torch.no_grad():
         fwd_row = dict(
             shape=shape, variant="simt", ms=time_ms(torch, fwd), device_ms=device_ms(torch, fwd),
@@ -1097,15 +1159,25 @@ def time_flash_hd80(torch, gen) -> tuple:
             library_err=float((lib_fwd().transpose(1, 2) - want).abs().max().item()),
             bound_ms=max(fb_bytes, fb_ops), bytes=f_bytes, flops=f_flops,
             bound_by="bytes" if fb_bytes >= fb_ops else "operations")
+    simt_bwd = lambda: _bwd_simt(torch, q, k, v, out, lse, do, **kw)  # noqa: E731
     bwd_row = dict(
-        shape=shape, variant="simt", ms=time_ms(torch, bwd, iters=10),
+        shape=shape, variant="tf32x3", ms=time_ms(torch, bwd, iters=10),
         device_ms=device_ms(torch, bwd, iters=10),
+        simt_device_ms=device_ms(torch, simt_bwd, iters=5),
         plain_ms=time_ms(torch, plain_bwd, iters=3, warmup=1),
         plain_device_ms=device_ms(torch, plain_bwd, iters=3),
         library_ms=time_ms(torch, lib_bwd, iters=10),
         library_device_ms=device_ms(torch, lib_bwd, iters=10),
         library_dq_err=float((lib_bwd()[0].transpose(1, 2) - want_dq).abs().max().item()),
-        bound_ms=b_bound, bound_by=b_by, bytes=b_bytes, flops=b_flops)
+        simt_dq_err=float((simt_bwd()[0] - want_dq).abs().max().item()),
+        kernel_dq_err=float((bwd()[0] - want_dq).abs().max().item()),
+        device_ms_again=device_ms(torch, bwd, iters=10),
+        cold_device_ms=cold_device_ms(
+            torch, lambda *xs: flash_attention.flash_attention_backward(*xs, **kw),
+            (q, k, v, out, lse, do), sum(x.nbytes for x in (q, k, v, out, lse, do))),
+        plan=flash_attention.tf32x3_plan(q, k, **kw),
+        bound_ms=b_bound, bound_by=b_by, bytes=b_bytes, flops=b_flops,
+        bound_tf32x3_ms=tf32_bound, bound_fp32_fma_ms=fma_bound)
     for name, row in (("flash_attention", fwd_row), ("flash_attention_bwd", bwd_row)):
         row["tflops"] = row["flops"] / (row["device_ms"] * 1e-3) / 1e12
         log(f"[kernels] {name} timing {shape}: kernel {row['ms']:.4f} ms, device "
@@ -1115,6 +1187,23 @@ def time_flash_hd80(torch, gen) -> tuple:
             f"{row.get('library_err', row.get('library_dq_err')):.3e}); bound "
             f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {row['bytes']} B, "
             f"{row['flops']} FLOP); {row['tflops']:.3f} TFLOP/s on the device time")
+    log(f"[kernels] flash_attention_bwd tf32x3 at train_100m: device {bwd_row['device_ms']:.4f} "
+        f"/ again {bwd_row['device_ms_again']:.4f} ms, cold {bwd_row['cold_device_ms']:.4f} ms "
+        f"(chunk, splits {bwd_row['plan']}); simt on the same operands "
+        f"{bwd_row['simt_device_ms']:.4f} ms; SDPA's backward {bwd_row['library_device_ms']:.4f}"
+        f" ms; dq max err vs plain: tf32x3 {bwd_row['kernel_dq_err']:.3e}, simt "
+        f"{bwd_row['simt_dq_err']:.3e}, SDPA {bwd_row['library_dq_err']:.3e}; bound "
+        f"{b_bound * 1e3:.2f} us, the lower of {tf32_bound * 1e3:.2f} us as three products at "
+        f"the TF32 peak and {fma_bound * 1e3:.2f} us at the fp32 FMA peak")
+    dq_scale = max(float(want_dq.abs().max().item()), 1e-30)
+    for kind_, key, tol in (("tf32x3", "kernel_dq_err", TF32X3_REL_TOL),
+                            ("simt", "simt_dq_err", BWD_REL_TOL["float32"])):
+        require(bwd_row[key] / dq_scale <= tol,
+                f"the {kind_} backward's dq at train_100m is off its plain version by "
+                f"{bwd_row[key] / dq_scale:.3e} (tol {tol})")
+    require(max(bwd_row["device_ms"], bwd_row["device_ms_again"]) < bwd_row["simt_device_ms"],
+            f"the tf32x3 backward at train_100m ({bwd_row['device_ms']:.4f} ms) is not faster "
+            f"than simt's {bwd_row['simt_device_ms']:.4f} ms on the same operands")
     del q, k, v, out, lse, do, qt, kt, vt, lib_out
     return fwd_row, bwd_row
 
@@ -1131,7 +1220,8 @@ def decode_ptxas(rows: str, dtype, hd: int, groups: int, kind: str) -> str:
     from repro_torch.kernels import build, decode_core
 
     bf16 = str(dtype).endswith("bfloat16")
-    hdp = next(b for b in (16, 32, 64, 128, 256) if hd <= b)
+    # the mma walk is instantiated at each of its head dims, simt's at buckets
+    hdp = hd if kind == "mma" else next(b for b in (16, 32, 64, 128, 256) if hd <= b)
     gmax = next(b for b in (1, 2, 4, 8) if decode_core.block_group(groups) <= b)
     kernel = "decode_mma_kernel" if kind == "mma" else "decode_kernel"
     want = (f"{kernel}<{hdp}, {gmax}, {rows}>" if kind == "mma"
@@ -1201,13 +1291,20 @@ def check_paged(torch, gen) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for H in (12, 48):
             cases.append(dict(pos=uneven, dtype=dtype, H=H, hd=128, window=0))
-    # the dense family's ticks: minitron-8b (32 over 8, hd 128: mma) and
-    # stablelm-12b (32 over 8, hd 160: the simt walk)
+    # the dense family's ticks: minitron-8b (32 over 8, hd 128) and
+    # stablelm-12b (32 over 8, hd 160), both mma (fp32 hd 160: simt)
     for hd in (128, 160):
         cases.append(dict(pos=uneven, dtype=torch.bfloat16, H=32, KV=8, hd=hd))
     cases.append(dict(pos=uneven, dtype=torch.float32, H=32, KV=8, hd=160))
-    # the MoE family's ticks: grok-1 (48 over 8, hd 128: mma) and kimi-k2 (64
-    # over 8, hd 112: simt); rows that are not whole 16-byte loads (fp32 hd
+    # the mma walk at the dims between the powers of two (padded ring rows):
+    # G = 1, 4 and 8, windows shorter and longer than a block's share
+    cases += [dict(pos=uneven, dtype=torch.bfloat16, H=8, KV=8, hd=80, window=100),
+              dict(pos=uneven, dtype=torch.bfloat16, H=8, KV=2, hd=80),
+              dict(pos=uneven, dtype=torch.bfloat16, H=4, KV=4, hd=112, window=5),
+              dict(pos=uneven, dtype=torch.bfloat16, H=32, KV=8, hd=160, window=300),
+              dict(pos=uneven, dtype=torch.bfloat16, H=8, KV=1, hd=160, window=512)]
+    # the MoE family's ticks: grok-1 (48 over 8, hd 128) and kimi-k2 (64 over
+    # 8, hd 112), both mma; rows that are not whole 16-byte loads (fp32 hd
     # 18, bf16 hd 36: element loads on the simt walk)
     cases += [dict(pos=uneven, dtype=torch.bfloat16, H=48, KV=8, hd=128),
               dict(pos=uneven, dtype=torch.bfloat16, H=64, KV=8, hd=112),
@@ -1272,11 +1369,16 @@ def check_paged(torch, gen) -> dict:
     # groups of 8 (mma)
     granite = _paged_timing(torch, gen, uneven, "granite-20b decode", "mma", H=48, KV=1, hd=128)
     grok = _paged_timing(torch, gen, uneven, "grok-1-314b decode", "mma", H=48, KV=8, hd=128)
-    kimi = _paged_timing(torch, gen, uneven, "kimi-k2-1t-a32b decode", "simt", H=64, KV=8,
+    kimi = _paged_timing(torch, gen, uneven, "kimi-k2-1t-a32b decode", "mma", H=64, KV=8,
                          hd=112)
+    stablelm = _paged_timing(torch, gen, uneven, "stablelm-12b decode", "mma", H=32, KV=8,
+                             hd=160)
     for k in ("mma", "simt"):
         log(f"[kernels] paged_decode_attention ptxas: "
             f"{decode_ptxas('PagedRows', q.dtype, hd, H // KV, k)}")
+    for hd_, G_ in ((80, 4), (112, 8), (160, 4)):
+        log(f"[kernels] paged_decode_attention ptxas: "
+            f"{decode_ptxas('PagedRows', q.dtype, hd_, G_, 'mma')}")
     return {
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -1300,15 +1402,37 @@ def check_paged(torch, gen) -> dict:
         "variant": kind,
         "timed_shape": f"B={B} H={H} KV={KV} hd={hd} page=16 n_pages=68 bf16 window=0",
         "other_timings": [{"shape": "the same, window=512 through the full table",
-                           "device_ms": d_window, "bound_ms": w_bound}, granite, grok, kimi],
+                           "device_ms": d_window, "bound_ms": w_bound}, granite, grok, kimi,
+                          stablelm],
     }
+
+
+def _with_decode_rule(attr: str, value, call):
+    """`call()` with the rule `attr` of `decode_core` swapped for `value`
+    (restored after): operands timed on what the rule does not give them
+    (no path runs it), for the record."""
+    from repro_torch.kernels import decode_core
+
+    saved = getattr(decode_core, attr)
+    setattr(decode_core, attr, value)
+    try:
+        return call()
+    finally:
+        setattr(decode_core, attr, saved)
+
+
+def _walk_beside(torch, call, walk: str) -> float:
+    """Device ms of `call` with the decode core's walk rule swapped for
+    `walk` on the same operands."""
+    return _with_decode_rule("variant", lambda q_, k_: walk, lambda: device_ms(torch, call))
 
 
 def _paged_timing(torch, gen, pos, label, want_kind, *, H, KV, hd) -> dict:
     """The paged kernel at one serving tick's shape (8 slots, 16-position
     pages, `pos` positions, bf16), warm and with the pools cold in L2,
-    beside its plain version, with the bound; no single PyTorch call
-    computes the paged gather and attention together."""
+    beside its plain version (and, on `mma`, the `simt` walk on the same
+    operands), with the bound; no single PyTorch call computes the paged
+    gather and attention together."""
     from repro_torch.kernels import decode_core, paged_decode_attention, ref
 
     q, kp, vp, tbl, pos_t = _paged_case(torch, gen, pos=pos, dtype=torch.bfloat16, H=H, KV=KV,
@@ -1325,6 +1449,8 @@ def _paged_timing(torch, gen, pos, label, want_kind, *, H, KV, hd) -> dict:
     d_cold = cold_device_ms(
         torch, lambda k_, v_: paged_decode_attention.paged_decode_attention(q, k_, v_, tbl, pos_t),
         (kp, vp), kp.nbytes + vp.nbytes)
+    d_simt = (_walk_beside(torch, lambda: paged_decode_attention.paged_decode_attention(
+        q, kp, vp, tbl, pos_t), "simt") if kind == "mma" else None)
     B = q.shape[0]
     n_valid = sum(p + 1 for p in pos)
     elem = q.element_size()
@@ -1335,10 +1461,12 @@ def _paged_timing(torch, gen, pos, label, want_kind, *, H, KV, hd) -> dict:
              f"({kind}, {decode_core.head_groups(H // KV)} head groups, cluster of "
              f"{decode_core.cluster_size(q, kp)})")
     log(f"[kernels] paged_decode_attention timing {shape}: max_abs_err={err:.3e}; device time "
-        f"per call: kernel {d_kernel:.4f} ms ({d_cold:.4f} ms with the pools cold in L2), plain "
+        f"per call: kernel {d_kernel:.4f} ms ({d_cold:.4f} ms with the pools cold in L2), simt "
+        f"walk on the same operands {d_simt if d_simt is None else f'{d_simt:.4f}'} ms, plain "
         f"{d_plain:.4f} ms; bound {max(b_bytes, b_ops) * 1e3:.3f} us ({n_bytes} B, {flops} FLOP)")
     return dict(shape=shape, variant=kind, max_abs_err=err, device_ms=d_kernel,
-                cold_device_ms=d_cold, plain_device_ms=d_plain, library_device_ms=None,
+                cold_device_ms=d_cold, simt_device_ms=d_simt, plain_device_ms=d_plain,
+                library_device_ms=None,
                 bound_ms=max(b_bytes, b_ops),
                 bound_by="bytes" if b_bytes >= b_ops else "operations")
 
@@ -1376,12 +1504,15 @@ def check_decode(torch, gen) -> dict:
             dict(pos=uneven, dtype=dtype, H=12, hd=128),
             dict(pos=uneven, dtype=dtype, H=48, hd=128),
             # zamba2-7b's shared block: 32 heads over 32, head_dim 112 (224-byte
-            # bf16 rows, 14 loads of 16 B), on the simt walk
+            # bf16 rows, 14 loads of 16 B; one head a KV head: simt)
             dict(pos=uneven, dtype=dtype, H=32, KV=32, hd=112),
-            # the dense family: stablelm-12b (32 over 8, hd 160: the simt walk
-            # at 20 loads of 16 B a bf16 row) and minitron-8b (32 over 8, hd 128)
+            # the dense family: stablelm-12b (32 over 8, hd 160: 20 loads of 16
+            # B a bf16 row) and minitron-8b (32 over 8, hd 128)
             dict(pos=uneven, dtype=dtype, H=32, KV=8, hd=160),
             dict(pos=uneven, dtype=dtype, H=32, KV=8, hd=128),
+            # hd 80 (train_100m's widths), G = 4; hd 112 at G = 8 (kimi-k2's)
+            dict(pos=uneven, dtype=dtype, H=8, KV=2, hd=80, poison=True),
+            dict(pos=[299, 0, 150, 77], dtype=dtype, B=4, S=300, H=64, KV=8, hd=112),
             # the remaining families' ticks: grok-1's dense serve (48 over 8,
             # hd 128), paligemma-3b (8 over 1, hd 256, 352-deep caches),
             # whisper-small (12 over 12, hd 64, 144-deep)
@@ -1444,6 +1575,16 @@ def check_decode(torch, gen) -> dict:
         paged_out = paged_decode_attention.paged_decode_attention(q, *args, pos)
         require(torch.equal(paged_out, dense_out),
                 f"paged kernel ({name}) not bitwise equal to the dense kernel on one cache")
+    # the same at the mma walk's padded ring rows (hd 80, 112, 160; G = 4, 2, 8)
+    for H_, KV_, hd_ in ((8, 2, 80), (8, 4, 112), (64, 8, 112), (32, 8, 160)):
+        q_, k_, v_, pos_ = _decode_case(torch, gen, pos=uneven, dtype=torch.bfloat16, H=H_,
+                                        KV=KV_, hd=hd_)
+        require(decode_core.variant(q_, k_) == "mma", f"hd {hd_} does not take mma")
+        pk, pv = (x.view(B * n_pages, 16, KV_, hd_) for x in (k_, v_))
+        require(torch.equal(paged_decode_attention.paged_decode_attention(q_, pk, pv, tbl16, pos_),
+                            decode_attention.decode_attention(q_, k_, v_, pos_)),
+                f"paged kernel at hd {hd_}, {H_} over {KV_} not bitwise equal to the dense one")
+        del q_, k_, v_, pk, pv
     d_paged = device_ms(torch, lambda: paged_decode_attention.paged_decode_attention(
         q, pool_k, pool_v, tbl16, pos))
     cluster, kind = decode_core.cluster_size(q, k), decode_core.variant(q, k)
@@ -1453,19 +1594,16 @@ def check_decode(torch, gen) -> dict:
         # the same two calls with a rule of `decode_core` swapped, for the
         # record: clusters of 16 (the non-portable size) in place of the cap
         # of 8, or the exact-FMA walk in place of the tensor cores
-        saved = getattr(decode_core, attr)
-        setattr(decode_core, attr, value)
-        try:
-            return (device_ms(torch, lambda: decode_attention.decode_attention(q, k, v, pos)),
-                    device_ms(torch, lambda: paged_decode_attention.paged_decode_attention(
-                        q, pool_k, pool_v, tbl16, pos)))
-        finally:
-            setattr(decode_core, attr, saved)
+        return _with_decode_rule(attr, value, lambda: (
+            device_ms(torch, lambda: decode_attention.decode_attention(q, k, v, pos)),
+            device_ms(torch, lambda: paged_decode_attention.paged_decode_attention(
+                q, pool_k, pool_v, tbl16, pos))))
 
     d16, d16_paged = timed_with("MAX_CLUSTER", 16)
     d_simt, d_simt_paged = timed_with("variant", lambda q_, k_: "simt")
     zamba2 = _decode_timing(torch, gen, uneven, "zamba2-7b decode", H=32, KV=32, hd=112)
-    stablelm = _decode_timing(torch, gen, uneven, "stablelm-12b decode", H=32, KV=8, hd=160)
+    stablelm = _decode_timing(torch, gen, uneven, "stablelm-12b decode", H=32, KV=8, hd=160,
+                              want_kind="mma")
     grok = _decode_timing(torch, gen, uneven, "grok-1-314b dense decode", H=48, KV=8, hd=128,
                           want_kind="mma")
     paligemma = _decode_timing(torch, gen, [320] * 8, "paligemma-3b decode", H=8, KV=1, hd=256,
@@ -1497,6 +1635,9 @@ def check_decode(torch, gen) -> dict:
     for k_ in ("mma", "simt"):
         log(f"[kernels] decode_attention ptxas: "
             f"{decode_ptxas('DenseRows', q.dtype, hd, H // KV, k_)}")
+    for hd_, G_ in ((80, 4), (112, 1), (160, 4)):
+        log(f"[kernels] decode_attention ptxas: "
+            f"{decode_ptxas('DenseRows', q.dtype, hd_, G_, 'mma')}")
     return {
         "name": "decode_attention",
         "route": "cuda",
@@ -1529,7 +1670,8 @@ def _decode_timing(torch, gen, pos, label, *, H, KV, hd, S=1088, want_kind="simt
                    dtype=None) -> dict:
     """The dense kernel at a decode tick's shape (8 slots, `S`-deep caches,
     bf16 unless `dtype`) on the walk `want_kind`, beside its plain version
-    and SDPA, with the bound."""
+    and SDPA and, where the operands could take both walks (bf16 at the
+    `mma` head dims), the other walk on the same operands, with the bound."""
     from repro_torch.kernels import decode_attention, decode_core, ref
 
     dtype = dtype or torch.bfloat16
@@ -1545,6 +1687,10 @@ def _decode_timing(torch, gen, pos, label, *, H, KV, hd, S=1088, want_kind="simt
     d_cold = cold_device_ms(
         torch, lambda k_, v_: decode_attention.decode_attention(q, k_, v_, pos_t), (k, v),
         k.nbytes + v.nbytes)
+    other = {"mma": "simt", "simt": "mma"}[kind]
+    both = dtype == torch.bfloat16 and hd in decode_core.MMA_HEAD_DIMS
+    d_other = (_walk_beside(torch, lambda: decode_attention.decode_attention(q, k, v, pos_t),
+                            other) if both else None)
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     qt, kt, vt = q[:, :, None, :], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
@@ -1559,11 +1705,13 @@ def _decode_timing(torch, gen, pos, label, *, H, KV, hd, S=1088, want_kind="simt
     shape = (f"{label}: B={B} S={S} H={H} KV={KV} hd={hd} {name}, {n_valid} valid "
              f"positions ({kind}, cluster of {decode_core.cluster_size(q, k)})")
     log(f"[kernels] decode_attention timing {shape}: max_abs_err={err:.3e}; device time per call: kernel "
-        f"{d_kernel:.4f} ms, plain {d_plain:.4f} ms, sdpa {d_lib:.4f} ms; kernel with the "
-        f"caches cold in L2 {d_cold:.4f} ms; bound {max(b_bytes, b_ops) * 1e3:.3f} us "
-        f"({n_bytes} B, {flops} FLOP)")
+        f"{d_kernel:.4f} ms, {other} walk on the same operands "
+        f"{d_other if d_other is None else f'{d_other:.4f}'} ms, plain {d_plain:.4f} ms, sdpa "
+        f"{d_lib:.4f} ms; kernel with the caches cold in L2 {d_cold:.4f} ms; bound "
+        f"{max(b_bytes, b_ops) * 1e3:.3f} us ({n_bytes} B, {flops} FLOP)")
     return dict(shape=shape, variant=kind, max_abs_err=err, device_ms=d_kernel,
-                plain_device_ms=d_plain, cold_device_ms=d_cold, library_device_ms=d_lib,
+                **{f"{other}_device_ms": d_other}, plain_device_ms=d_plain,
+                cold_device_ms=d_cold, library_device_ms=d_lib,
                 bound_ms=max(b_bytes, b_ops),
                 bound_by="bytes" if b_bytes >= b_ops else "operations")
 
@@ -3352,6 +3500,7 @@ def phase_serve_zamba2(torch) -> tuple:
         require(counts == want, f"zamba2 serve launches {counts}, expected {want}")
         require_variant(variants, "flash_attention", "wgmma", want["flash_attention"],
                         "zamba2 serve")
+        # one query head a KV head at hd 112: the SIMT walk (decode_core.variant)
         require_variant(variants, "decode_attention", "simt", want["decode_attention"],
                         "zamba2 serve")
         scan = variants["gated_linear_scan"]
@@ -3400,6 +3549,8 @@ def phase_serve_zamba2(torch) -> tuple:
     require(serial_counts == want, f"zamba2 serial launches {serial_counts}, expected {want}")
     require_variant(serial_variants, "flash_attention", "wgmma", want["flash_attention"],
                     "zamba2 serial")
+    require_variant(serial_variants, "decode_attention", "simt", want["decode_attention"],
+                    "zamba2 serial")
     require(serial_variants["gated_linear_scan"] == {
         "simt": 0, "mma": cfg.num_layers, "step": cfg.num_layers * steps},
         f"zamba2 serial scan launches by variant {serial_variants['gated_linear_scan']}")
@@ -3419,10 +3570,10 @@ DENSE_FAMILY = ("granite-20b", "minitron-8b", "stablelm-12b")
 #: the variants each config's full-width paged serve launches, by the
 #: kernels' rules: (flash, paged decode). Every prefill takes flash's wgmma
 #: (granite's 48 query heads a KV head fill 48 of a warpgroup's 64 rows;
-#: stablelm's head_dim 160 pads to 192 columns); stablelm's head_dim 160 is
-#: not a power of two, so its decode core walks simt
+#: stablelm's head_dim 160 pads to 192 columns); every decode tick takes the
+#: decode core's mma walk (stablelm's hd 160 at its own width)
 DENSE_FAMILY_VARIANTS = {"granite-20b": ("wgmma", "mma"), "minitron-8b": ("wgmma", "mma"),
-                         "stablelm-12b": ("wgmma", "simt")}
+                         "stablelm-12b": ("wgmma", "mma")}
 
 
 def phase_reduced_dense_family(torch) -> None:
@@ -3628,7 +3779,7 @@ def _serve_dense_config(torch, arch: str) -> dict:
             require(serial == want, f"{arch} serial launches {serial}, expected {want}")
             require_variant(serial_variants, "flash_attention", "wgmma", want["flash_attention"],
                             f"{arch} serial")
-            require_variant(serial_variants, "decode_attention", "simt",
+            require_variant(serial_variants, "decode_attention", decode_kind,
                             want["decode_attention"], f"{arch} serial")
             log(f"{tag} serial ServeEngine.generate on {len(few)} requests one at a time "
                 f"(prompts {[len(r.prompt) for r in few]}): {n_steps} tokens in {wall:.3f}s: "
@@ -4077,9 +4228,9 @@ MOE_FAMILY = ("grok-1-314b", "kimi-k2-1t-a32b")
 MOE_LAYERS = {"grok-1-314b": 8, "kimi-k2-1t-a32b": 1}
 #: (flash, decode core) variants their serves launch: both prefills take
 #: flash's wgmma (grok's 6 query heads a KV head: 10 positions, 60 of 64
-#: rows; kimi's hd 112 pads to 128 columns); grok's hd 128 takes the decode
-#: core's mma walk, kimi's hd 112, not a power of two, its simt walk
-MOE_VARIANTS = {"grok-1-314b": ("wgmma", "mma"), "kimi-k2-1t-a32b": ("wgmma", "simt")}
+#: rows; kimi's hd 112 pads to 128 columns); both ticks take the decode
+#: core's mma walk (kimi's hd 112 at its own width)
+MOE_VARIANTS = {"grok-1-314b": ("wgmma", "mma"), "kimi-k2-1t-a32b": ("wgmma", "mma")}
 #: kv modes each full-width MoE config serves (grok also the dense per-slot
 #: decoder, whose MoE keeps the reference's per-slot capacity: no drop)
 MOE_MODES = {"grok-1-314b": ("paged", "dense"), "kimi-k2-1t-a32b": ("paged",)}
@@ -4562,7 +4713,7 @@ def phase_reduced_train(torch) -> None:
     batch = SyntheticTokenStream(cfg, ShapeConfig("t", 32, 4, "train")).next_batch()
     ops.reset_launch_counts()
     card = _one_train_step(torch, cfg, params, batch, "cuda")
-    counts = ops.launch_counts()
+    counts, variants = ops.launch_counts(), ops.variant_counts()
     cpu = _one_train_step(torch, cfg, params, batch, "cpu")
     keys = ("loss", "ce_loss", "grad_norm", "lr")
     metric_err = max(abs(card[2][k] - cpu[2][k]) / max(abs(cpu[2][k]), 1e-30) for k in keys)
@@ -4580,6 +4731,7 @@ def phase_reduced_train(torch) -> None:
     require(counts["flash_attention"] == fwd and counts["flash_attention_bwd"] == bwd,
             f"the step did not run every attention through the kernels ({fwd} forward launches "
             f"with remat_policy={cfg.remat_policy!r}'s recompute, {bwd} backward): {counts}")
+    require_variant(variants, "flash_attention_bwd", "tf32x3", bwd, "reduced-train")
 
 
 def expected_train_launches(cfg) -> tuple:
@@ -4824,7 +4976,7 @@ def phase_reduced_train_families(torch) -> None:
                                  ShapeConfig("t", 64, 2, "train"))
         ops.reset_launch_counts()
         card = _one_train_step(torch, cfg, params, batch, "cuda")
-        counts = ops.launch_counts()
+        counts, variants = ops.launch_counts(), ops.variant_counts()
         cpu = _one_train_step(torch, cfg, params, batch, "cpu")
         keys = ("loss", "ce_loss", "grad_norm", "lr")
         metric_err = max(abs(card[2][k] - cpu[2][k]) / max(abs(cpu[2][k]), 1e-30) for k in keys)
@@ -4851,6 +5003,8 @@ def phase_reduced_train_families(torch) -> None:
         require(not bad, f"{arch}: zero or non-finite gradients: {bad}")
         require(got == want and sum(counts.values()) == sum(want),
                 f"{arch}: launches {counts}, expected {want}")
+        require_variant(variants, "flash_attention_bwd", "tf32x3", want[1],
+                        f"reduced-train-families {arch}")
 
 
 def _first_grads_hook(torch):
@@ -5469,7 +5623,7 @@ def phase_example_train_100m(torch, card: str) -> dict:
     (30 steps, B=4 x 256, a checkpoint at 25) through its own `train`: the
     SPMD compute manager over an NCCL world of one that the run starts and
     destroys. Losses finite and falling; exactly `expected_train_launches`
-    flash forward and backward launches a step, all on `simt`; ms a step,
+    flash forward (`simt`) and backward (`tf32x3`) launches a step; ms a step,
     training tok/s, peak memory. Then a second run of 30 steps on the same
     directory resumes at 25, and its step-30 loss equals the first run's
     within 1e-5 relative (bit equality reported); one more step is traced
@@ -5544,7 +5698,7 @@ def phase_example_train_100m(torch, card: str) -> dict:
                 f"example-train-100m {tag}: {got}, expected {fwd} forward and {bwd} backward "
                 f"flash launches a step")
         require_variant(kinds, "flash_attention", "simt", fwd * n, f"example-train-100m {tag}")
-        require_variant(kinds, "flash_attention_bwd", "simt", bwd * n,
+        require_variant(kinds, "flash_attention_bwd", "tf32x3", bwd * n,
                         f"example-train-100m {tag}")
     last, again = first.history[-1]["loss"], resumed.history[-1]["loss"]
     log(f"[example-train-100m] resumed at step {resumed.start_step}: steps "

@@ -48,9 +48,10 @@ H100 = ChipSpec(
 )
 
 #: the same datasheet's other peaks that bounds need: fp32 arithmetic on the
-#: CUDA cores (67 TFLOP/s dense), and the L2 cache (50 MB): inputs cycled
-#: past twice this are read cold
-PEAK_FLOPS = {"bfloat16": H100.peak_flops_bf16, "float32": 67e12}
+#: CUDA cores (67 TFLOP/s dense), TF32 on the tensor cores (495 TFLOP/s
+#: dense: the fp32 flash backward's products, three TF32 products each), and
+#: the L2 cache (50 MB): inputs cycled past twice this are read cold
+PEAK_FLOPS = {"bfloat16": H100.peak_flops_bf16, "float32": 67e12, "tfloat32": 495e12}
 L2_BYTES = 50 * 2**20
 
 #: GPUs a node (one NVLink domain)

@@ -17,7 +17,8 @@
 //   window, last = min(pos, capacity - 1)), rounded to the block's load
 //   granule: the work follows the actual positions without a host sync, and
 //   positions past pos (null-page padding included) are never read. The
-//   wrapper picks C from the card's SM count (`decode_core.cluster_size`).
+//   wrapper picks C from the card's SM count (`decode_core.cluster_size`:
+//   as many blocks as still fit one wave of one block an SM).
 //   A block holds at most MAX_GROUP query heads; a KV head with more splits
 //   them into head groups (`block_group`), a grid axis, each group's
 //   cluster re-reading the KV head's rows. With 8 or fewer there is one.
@@ -34,14 +35,18 @@
 //   each warp keeps (m, l, acc) per query head in registers and q beside
 //   them, so the walk has no block barrier; all G query heads share each
 //   loaded K/V row (GQA). Two walks, picked by the wrapper's rule
-//   (`decode_core.variant`): bf16 rows of 16..256 dims (a power of two) go
-//   to the tensor cores (`decode_mma_kernel`: S = Q K^T and O += P V as
-//   mma.sync m16n8k16 tiles, eight positions a warp step); fp32 and other
-//   head dims take exact fp32 FMA (`decode_kernel`: a lane holds 16 bytes of
-//   a row, a batch's U x G dot products summed over the lanes by one
-//   reduce-scatter / all-gather). On this card the walk, not the bytes, sets
-//   the time: the cluster cap puts a slot's rows on at most 8 SMs, and there
-//   the SIMT walk issues ~260 instructions a row.
+//   (`decode_core.variant`): bf16 rows of 16, 32, 64, 80, 112, 128, 160 or
+//   256 dims (but one query head a KV head at 80, 112 or 160, where one of
+//   a tile's 16 rows is real) go to the tensor cores (`decode_mma_kernel`:
+//   S = Q K^T and O += P V as mma.sync m16n8k16 tiles, eight positions a
+//   warp step, at the row's own width: k16 steps and n8 tiles need no
+//   padding at these dims); fp32 and other head dims take exact fp32 FMA
+//   (`decode_kernel`: a lane holds 16 bytes of a row, a batch's U x G dot
+//   products summed over the lanes by one reduce-scatter / all-gather, rows
+//   rounded up to a power of two). On this
+//   card the walk, not the bytes, sets the time: the cluster cap puts a
+//   slot's rows on at most 8 SMs, and there the SIMT walk issues ~260
+//   instructions a row.
 // * Merges in a fixed order, so results are deterministic: the warps of a
 //   block in shared memory, then the blocks of the cluster through
 //   distributed shared memory (pushed before one cluster barrier), each
@@ -73,7 +78,7 @@ constexpr int MAX_CLUSTER = 16;  // above 8 needs the non-portable attribute
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 // the walk: exact fp32 FMA (`decode_kernel`), or bf16 tensor-core tiles
-// (`decode_mma_kernel`, hd 16, 32, 64, 128 or 256)
+// (`decode_mma_kernel`, hd 16, 32, 64, 80, 112, 128, 160 or 256)
 enum Variant : int { kSimt = 0, kMma = 1 };
 
 struct Params {
@@ -267,23 +272,34 @@ __host__ __device__ constexpr size_t smem_floats(int G, int hs) {
          + merge_floats(G, hs);
 }
 
-// The tensor-core walk (bf16, hd = HDP): a warp takes TR = 8 positions a
-// step, their K and V rows copied by cp.async into a 3-stage ring of 8-row
-// tiles, each row's 16-byte chunks placed at chunk ^ (row % 8) so that
-// ldmatrix reads eight rows without bank conflicts. Everything is unrolled
-// at compile time, with no runtime guard, so a tile's ldmatrix loads issue
-// ahead of their products.
+// The tensor-core walk (bf16, hd = HDP, a multiple of 16): a warp takes TR
+// = 8 positions a step, their K and V rows copied by cp.async into a
+// 3-stage ring of 8-row tiles, each row's 16-byte chunks placed at chunk ^
+// (row % 8) so that ldmatrix reads eight rows without bank conflicts. A
+// ring row spans RS chunks: the row's NCH rounded up to whole 8-chunk
+// (128-byte) groups once it has 8 or more (hd 80 and 112: 16 chunks, hd
+// 160: 24), so the swizzle of a chunk stays inside its own group of 8, and
+// so inside the row, and the eight rows ldmatrix reads at one chunk fall on
+// eight distinct 16-byte bank groups; the padding is never written or read.
+// A copy instruction moves RPI whole rows, one chunk a lane; the lanes past
+// RPI * NCH (hd 80: 2, 112: 4, 160: 12) copy nothing. Everything is
+// unrolled at compile time, with no runtime guard, so a tile's ldmatrix
+// loads issue ahead of their products. `kernels/decode_core.py::
+// mma_ring_slot` is this layout on the host, for the tests.
 template <int HDP>
 struct MmaGeo {
+  static_assert(HDP % 16 == 0 && HDP <= 256, "whole k16 steps of at most 256 dims");
   static constexpr int TR = 8;                    // positions a warp scores per step
   static constexpr int NCH = HDP / 8;             // 16-byte chunks of a bf16 row (<= 32)
+  static constexpr int RS = NCH <= 8 ? NCH : (NCH + 7) / 8 * 8;  // chunks a ring row spans
   static constexpr int RPI = 32 / NCH;            // rows a warp copies per instruction
-  static constexpr int CPT = RPI >= TR ? 1 : TR / RPI;  // copy instructions per tile
-  static constexpr int SW = (NCH < 8 ? NCH : 8) - 1;    // chunk swizzle mask
+  static constexpr int COPIERS = RPI * NCH;       // lanes that copy
+  static constexpr int CPT = (TR + RPI - 1) / RPI;  // copy instructions per tile
+  static constexpr int SW = (NCH < 8 ? NCH : 8) - 1;  // chunk swizzle mask
   static constexpr int KS = HDP / 16;             // k16 steps of S = Q K^T
   static constexpr int N8 = HDP / 8;              // n8 tiles of O = P V
   static constexpr int STAGES = 3;
-  static constexpr int TILE = TR * HDP * 2;       // bytes of a K or a V tile
+  static constexpr int TILE = TR * RS * 16;       // bytes of a K or a V tile
   static constexpr int RING = STAGES * 2 * TILE;  // bytes of a warp's ring
 };
 // The rings, which the warps' acc (at most NW * 8 * HDP floats) reuses
@@ -601,8 +617,8 @@ template <int HDP, int GMAX, class Rows>
 __global__ void __launch_bounds__(NT, 1) decode_mma_kernel(const Params p) {
   using bf16 = __nv_bfloat16;
   using Mg = MmaGeo<HDP>;
-  constexpr int TR = Mg::TR, NCH = Mg::NCH, RPI = Mg::RPI, CPT = Mg::CPT, SW = Mg::SW;
-  constexpr int KS = Mg::KS, N8 = Mg::N8, STAGES = Mg::STAGES, TILE = Mg::TILE;
+  constexpr int TR = Mg::TR, NCH = Mg::NCH, RS = Mg::RS, RPI = Mg::RPI, CPT = Mg::CPT;
+  constexpr int SW = Mg::SW, KS = Mg::KS, N8 = Mg::N8, STAGES = Mg::STAGES, TILE = Mg::TILE;
   constexpr int WSTEP = NW * TR;  // positions between a warp's steps
 
   cluster_arrive_relaxed();
@@ -660,7 +676,8 @@ __global__ void __launch_bounds__(NT, 1) decode_mma_kernel(const Params p) {
     const int rl = lane / NCH, ch = lane % NCH;  // copies: row of an instruction, chunk
     const int mr = lane & 7, mj = lane >> 3;     // ldmatrix: row this lane addresses, matrix
     // the byte offset of (row, chunk) in a tile, and this lane's ldmatrix row
-    auto at = [](int row, int chunk) { return (row * NCH + (chunk ^ (row & SW))) * 16; };
+    auto at = [](int row, int chunk) { return (row * RS + (chunk ^ (row & SW))) * 16; };
+    const bool copier = lane < Mg::COPIERS;
 
     // tile j of this warp (positions tw + j WSTEP ...) into stage st
     auto issue = [&](int j, int st) {
@@ -670,7 +687,7 @@ __global__ void __launch_bounds__(NT, 1) decode_mma_kernel(const Params p) {
 #pragma unroll
       for (int i = 0; i < CPT; ++i) {
         const int r = i * RPI + rl;
-        if (r < TR) {
+        if (copier && r < TR) {
           const bool valid = t0 + r < hi;
           const long long row = valid ? cur.row() : 0;
           cp_async16(kt + at(r, ch), valid ? kp + row * HDP + ch * 8 : kp, valid);
@@ -686,20 +703,21 @@ __global__ void __launch_bounds__(NT, 1) decode_mma_kernel(const Params p) {
       const char* vt = kt + TILE;
       // S = Q K^T: rows = heads, columns = the tile's 8 positions; even and
       // odd k16 steps in two accumulators to halve the dependent chain
+      // (pairs of k16 steps by ldmatrix.x4, an odd last step by .x2)
       float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
-      if constexpr (KS == 1) {
-        uint32_t r[2];
-        sm80::ldsm_x2(r, kt + at(mr, mj & 1));
-        sm80::mma_bf16(s0, qa[0][0], 0u, qa[0][1], 0u, r[0], r[1]);
-      } else {
-        uint32_t r[KS / 2][4];
+      {
+        constexpr int K2 = KS / 2;
+        uint32_t r[K2 > 0 ? K2 : 1][4], rt[2];
 #pragma unroll
-        for (int k2 = 0; k2 < KS / 2; ++k2) sm80::ldsm_x4(r[k2], kt + at(mr, 4 * k2 + mj));
+        for (int k2 = 0; k2 < K2; ++k2) sm80::ldsm_x4(r[k2], kt + at(mr, 4 * k2 + mj));
+        if constexpr (KS % 2) sm80::ldsm_x2(rt, kt + at(mr, 4 * K2 + (mj & 1)));
 #pragma unroll
-        for (int k2 = 0; k2 < KS / 2; ++k2) {
+        for (int k2 = 0; k2 < K2; ++k2) {
           sm80::mma_bf16(s0, qa[2 * k2][0], 0u, qa[2 * k2][1], 0u, r[k2][0], r[k2][1]);
           sm80::mma_bf16(s1, qa[2 * k2 + 1][0], 0u, qa[2 * k2 + 1][1], 0u, r[k2][2], r[k2][3]);
         }
+        if constexpr (KS % 2)
+          sm80::mma_bf16(s0, qa[KS - 1][0], 0u, qa[KS - 1][1], 0u, rt[0], rt[1]);
       }
       const float sc[2] = {s0[0] + s1[0], s0[1] + s1[1]};
       // online softmax of row g over positions t0 + c2, t0 + c2 + 1 (the
@@ -724,20 +742,22 @@ __global__ void __launch_bounds__(NT, 1) decode_mma_kernel(const Params p) {
       }
       // O += P V: P (bf16) as the A fragment a0 (row g, positions c2, c2+1);
       // V rows transposed by ldmatrix into B fragments, 8 dims a tile
+      // (four n8 tiles a ldmatrix.x4, a last pair by .x2)
       const uint32_t pa = sm80::pack_bf16x2(p0, p1);
-      if constexpr (N8 == 2) {
+      constexpr int N4 = N8 / 4 * 4;
+#pragma unroll
+      for (int n4 = 0; n4 < N4; n4 += 4) {
+        uint32_t r[4];
+        sm80::ldsm_x4_t(r, vt + at(mr, n4 + mj));
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sm80::mma_bf16(o[n4 + q], pa, 0u, 0u, 0u, r[q], 0u);
+      }
+      if constexpr (N8 % 4) {
+        static_assert(N8 % 4 == 2, "n8 tiles come in pairs");
         uint32_t r[2];
-        sm80::ldsm_x2_t(r, vt + at(mr, mj & 1));
+        sm80::ldsm_x2_t(r, vt + at(mr, N4 + (mj & 1)));
 #pragma unroll
-        for (int q = 0; q < 2; ++q) sm80::mma_bf16(o[q], pa, 0u, 0u, 0u, r[q], 0u);
-      } else {
-#pragma unroll
-        for (int n4 = 0; n4 < N8; n4 += 4) {
-          uint32_t r[4];
-          sm80::ldsm_x4_t(r, vt + at(mr, n4 + mj));
-#pragma unroll
-          for (int q = 0; q < 4; ++q) sm80::mma_bf16(o[n4 + q], pa, 0u, 0u, 0u, r[q], 0u);
-        }
+        for (int q = 0; q < 2; ++q) sm80::mma_bf16(o[N4 + q], pa, 0u, 0u, 0u, r[q], 0u);
       }
     };
 
@@ -786,13 +806,24 @@ inline int block_group(int GT) {
   return (GT + ngrp - 1) / ngrp;
 }
 
+// The SIMT walk's row width for hd: hd rounded up to a power of two.
 inline int head_dim_bucket(int hd) {
   return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
 }
 
+// The tensor-core walk's head dims (`decode_core.MMA_HEAD_DIMS`), each its own
+// instantiation at the row's width.
+inline bool is_mma_head_dim(int hd) {
+  switch (hd) {
+    case 16: case 32: case 64: case 80: case 112: case 128: case 160: case 256: return true;
+    default: return false;
+  }
+}
+
 template <typename T, int HDP, int GMAX, bool MMA>
 constexpr size_t smem_floats_of(int G, int hs) {
-  return MMA ? mma_smem_floats<HDP>(G, hs) : smem_floats<T, HDP, GMAX>(G, hs);
+  if constexpr (MMA) return mma_smem_floats<HDP>(G, hs);
+  else return smem_floats<T, HDP, GMAX>(G, hs);
 }
 
 // hd rounded up to whole 16-byte loads of `elem`-byte elements.
@@ -805,7 +836,10 @@ namespace {  // internal linkage: each library keeps its own launch state
 
 template <typename T, int HDP, int GMAX, class Rows, bool MMA>
 cudaError_t launch_kernel(const Params& p, int B, int cluster, cudaStream_t stream) {
-  auto kernel = MMA ? decode_mma_kernel<HDP, GMAX, Rows> : decode_kernel<T, HDP, GMAX, Rows>;
+  auto kernel = [] {  // only the walk asked for is instantiated
+    if constexpr (MMA) return decode_mma_kernel<HDP, GMAX, Rows>;
+    else return decode_kernel<T, HDP, GMAX, Rows>;
+  }();
   // once per instantiation: room for its largest shared-memory need and the
   // non-portable cluster size (the wrappers pick at most 8)
   static const cudaError_t setup = [&] {
@@ -855,20 +889,43 @@ auto with_head_dim(int hd, int G, F&& f) {
   }
 }
 
+// The SIMT walk's instantiation for dtype, hd (by its bucket), G.
 template <class F>
 auto dispatch(int dtype, int hd, int G, F&& f) {
   if (dtype == kFloat32) return with_head_dim<float>(hd, G, f);
   return with_head_dim<__nv_bfloat16>(hd, G, f);
 }
 
-// Dynamic shared memory a launch for these operands asks for.
+// The tensor-core walk's instantiation for hd (one of `is_mma_head_dim`), G.
+template <class F>
+auto dispatch_mma(int hd, int G, F&& f) {
+  using T = __nv_bfloat16;
+  switch (hd) {
+    case 16: return with_group<T, 16>(G, f);
+    case 32: return with_group<T, 32>(G, f);
+    case 64: return with_group<T, 64>(G, f);
+    case 80: return with_group<T, 80>(G, f);
+    case 112: return with_group<T, 112>(G, f);
+    case 128: return with_group<T, 128>(G, f);
+    case 160: return with_group<T, 160>(G, f);
+    default: return with_group<T, 256>(G, f);
+  }
+}
+
+// Dynamic shared memory a launch for these operands asks for (0 for the
+// tensor-core walk at operands it does not take).
 inline size_t smem_bytes(int dtype, int G, int hd, int variant) {
+  if (variant == kMma) {
+    if (dtype != kBFloat16 || !is_mma_head_dim(hd)) return 0;
+    return dispatch_mma(hd, G, [&](auto, auto hdp, auto gmax) {
+      constexpr int H = decltype(hdp)::value, M = decltype(gmax)::value;
+      return sizeof(float) * smem_floats_of<__nv_bfloat16, H, M, true>(G, hd);
+    });
+  }
   return dispatch(dtype, hd, G, [&](auto t, auto hdp, auto gmax) {
     using T = decltype(t);
     constexpr int H = decltype(hdp)::value, M = decltype(gmax)::value;
-    const int hs = row_floats(hd, int(sizeof(T)));
-    return sizeof(float) * (variant == kMma ? smem_floats_of<T, H, M, true>(G, hs)
-                                            : smem_floats_of<T, H, M, false>(G, hs));
+    return sizeof(float) * smem_floats_of<T, H, M, false>(G, row_floats(hd, int(sizeof(T))));
   });
 }
 
@@ -889,18 +946,18 @@ cudaError_t run(Params p, int B, int dtype, float scale, int cluster, int varian
     return cudaErrorMisalignedAddress;
   if (cluster < 1 || cluster > MAX_CLUSTER || (cluster & (cluster - 1)) != 0)
     return cudaErrorInvalidValue;
-  if (variant == kMma && (dtype != kBFloat16 || p.hd < 16 || head_dim_bucket(p.hd) != p.hd ||
-                          !p.vec_rows))
+  if (variant == kMma && (dtype != kBFloat16 || !is_mma_head_dim(p.hd) || !p.vec_rows))
     return cudaErrorInvalidValue;
   if (variant != kMma && variant != kSimt) return cudaErrorInvalidValue;
   p.qscale = scale * LOG2E;
+  if (variant == kMma)
+    return dispatch_mma(p.hd, p.G, [&](auto, auto hdp, auto gmax) {
+      constexpr int H = decltype(hdp)::value, M = decltype(gmax)::value;
+      return launch_kernel<__nv_bfloat16, H, M, Rows, true>(p, B, cluster, s);
+    });
   return dispatch(dtype, p.hd, p.G, [&](auto t, auto hdp, auto gmax) {
-    using T = decltype(t);
     constexpr int H = decltype(hdp)::value, M = decltype(gmax)::value;
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      if (variant == kMma) return launch_kernel<T, H, M, Rows, true>(p, B, cluster, s);
-    }
-    return launch_kernel<T, H, M, Rows, false>(p, B, cluster, s);
+    return launch_kernel<decltype(t), H, M, Rows, false>(p, B, cluster, s);
   });
 }
 

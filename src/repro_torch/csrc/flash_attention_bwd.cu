@@ -17,7 +17,7 @@
 //
 // A row with no key it may attend (a window past the last key) is the
 // reference's uniform average: P = 1 / Skv on every key, no gradient to q or
-// k. With q_offset >= 0 that is the only such row. Both variants below take
+// k. With q_offset >= 0 that is the only such row. Every variant below takes
 // these rows, so the variant rule looks at the operands only. K and V are
 // never repeated for the G query heads of a KV head, and ragged Sq / Skv are
 // masked here.
@@ -25,7 +25,7 @@
 // What bounds it on the H100: at gemma3-1b's training shape (B=4, S=1024,
 // 4 query heads over 1 at head_dim 256, causal, bf16) the five products
 // over half the score matrix are 21.5 GFLOP, 21.7 us at the tensor cores'
-// 989 TFLOP/s, against ~42 MB of bytes (12.5 us): operations. Two variants,
+// 989 TFLOP/s, against ~42 MB of bytes (12.5 us): operations. Three variants,
 // chosen by an explicit rule in the wrapper
 // (`kernels/flash_attention.py::backward_variant`):
 //
@@ -83,9 +83,34 @@
 //   stage starts, and never written by another instruction inside one:
 //   ptxas otherwise reuses its registers as scratch and serialises every
 //   wgmma of the kernel (its warning C7515).
-// * simt (fp32, whose exactness the REDUCED parity and the resume test
-//   depend on; head dims 16 and 32; more than 64 query heads per KV head):
-//   scalar fp32 FMA on the CUDA cores.
+// * tf32x3 (fp32: every supported head dim and group size, 16-byte-aligned
+//   operands): every product on the tensor cores by `mma.sync` m16n8k8 TF32
+//   tiles, each fp32 operand split into a TF32 high part and the TF32 of its
+//   remainder and each product taken as three (lo hi + hi lo + hi hi, fp32
+//   accumulation; the lo lo term, ~2^-22 of the product, is dropped):
+//   CUTLASS's OpMultiplyAddFastF32 scheme: a product is off by about 2^-21 of
+//   its size, where one TF32 product would be off by 2^-11. At
+//   `examples/train_100m_torch.py`'s shape (B=4, S=256, 8 query heads over 2,
+//   hd 80, causal) its bound is 12.6 us of operations at the fp32 FMA peak,
+//   5.1 us as three products at the TF32 peak. Three or four launches: D =
+//   rowsum(dO * o) as simt's; dK/dV, a block per (key tile of 64, split of
+//   its walk, b * KV + kvh) whose eight warps pair up on 16 keys each (one
+//   computes S^T = K Q^T, P^T and dV += P^T dO, hands P^T over in shared
+//   memory; the other dP^T = V dO^T, dS^T and dK += dS^T Q), walking (query
+//   head, query tile of 32) pairs whose Q and dO tiles are split once as they
+//   are staged; walks longer than `chunk` pairs are split over blocks when
+//   the unsplit grid leaves the card's SMs idle
+//   (`flash_attention.tf32x3_plan`), fp32 partials added in split order by a
+//   reduce launch; dQ, a block per (64 query rows, query head, batch) whose
+//   warps take half of each 64-key tile (32 at hd 160, 16 at 256), the
+//   halves' dQ added in a fixed order. P and dS never leave registers but for
+//   the one hand-over: a product's accumulator is the next product's A
+//   fragment as it stands (the k order inside each step of 8 is permuted to
+//   match). Rows of hd + 4 floats keep every fragment load free of bank
+//   conflicts. No atomics.
+// * simt (bf16 at head dims 16 and 32, more than 64 query heads per KV head
+//   or unaligned operands; fp32 only when unaligned): scalar fp32 FMA on the
+//   CUDA cores.
 //   Three launches: D = rowsum(dO * o), one warp a (b, position, head) row;
 //   dK/dV, one block per (key tile of 32, KV head, batch), walking every
 //   query tile that can see its keys for all G query heads of its KV group,
@@ -1164,7 +1189,539 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// tf32x3: fp32 on the tensor cores, three TF32 products a product
+// ---------------------------------------------------------------------------
+
+namespace tx {
+constexpr int KT = 64;  // keys of a dK/dV block: 16 a warp, in each half of its 8 warps
+constexpr int QR = 64;  // query rows of a dQ block: 16 a row group of two warps
+// Query rows a dK/dV visit stages, and keys a dQ visit stages: the tiles
+// that keep a block in the shared memory (two blocks an SM up to hd 80).
+template <int HD>
+__host__ __device__ constexpr int walk_rows() { return HD <= 160 ? 32 : 16; }
+template <int HD>
+__host__ __device__ constexpr int blocks_per_sm() { return HD <= 80 ? 2 : 1; }
+// Keys a dQ visit stages: 64 up to hd 128, then fewer, so that the block's
+// tiles fit the shared memory.
+template <int HD>
+__host__ __device__ constexpr int dq_keys() { return HD <= 128 ? 64 : walk_rows<HD>(); }
+template <int HD>
+constexpr size_t dkdv_smem() {  // K, V; Q and dO as (hi, lo); P^T; lse, D, row state
+  constexpr int BQ = walk_rows<HD>();
+  return sizeof(float) * (size_t(2 * KT + 4 * BQ) * (HD + 4) + size_t(KT) * (BQ + 8) + 3 * BQ);
+}
+template <int HD>
+constexpr size_t dq_smem() {  // Q, dO; K and V as (hi, lo); lse, D, row state
+  return sizeof(float) * (size_t(2 * QR + 4 * dq_keys<HD>()) * (HD + 4) + 3 * QR);
+}
+
+// x rounded to TF32 (10 mantissa bits): half an ulp added to the magnitude,
+// then the low 13 bits cleared (round to nearest, ties away), so the
+// tensor core reads the value exactly. `tests/test_torch_flash_bwd.py::
+// _tf32_round` is the same on the host.
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = hi + lo to about 2^-22 of |x|: hi = TF32(x), lo = TF32(x - hi)
+// (x - hi is exact in fp32).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+// d += a b, one m16n8k8 TF32 tile with fp32 accumulation. Fragments (lane l,
+// g = l / 4, c = l % 4): a0 (row g, k c), a1 (g + 8, c), a2 (g, c + 4), a3
+// (g + 8, c + 4); b0 (k c, n g), b1 (k c + 4, n g); d0, d1 (row g, n 2c, 2c
+// + 1), d2, d3 (row g + 8).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a b in three TF32 products, the small terms first: a_lo b_hi + a_hi
+// b_lo + a_hi b_hi (a_lo b_lo, about 2^-22 of |a b|, is dropped).
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                     uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+
+// acc[j] += A B^T over HD for one warp: A is 16 fp32 rows at `a` (split into
+// TF32 parts here), B is NJ x 8 rows at bh / bl, already split. Rows of
+// HD + 4 floats: the lanes' loads hit 32 distinct banks. The hi hi products
+// and the two small ones accumulate apart, added at the end: 2 NJ chains of
+// dependent products instead of NJ.
+template <int HD, int NJ>
+__device__ __forceinline__ void prod_rows(float (&acc)[NJ][4], const float* a, const float* bh,
+                                          const float* bl, int lane) {
+  constexpr int LD = HD + 4;
+  const int g = lane >> 2, c = lane & 3;
+  float small[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) small[j][0] = small[j][1] = small[j][2] = small[j][3] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < HD; kk += 8) {
+    uint32_t ah[4], al[4];
+    split(a[g * LD + kk + c], ah[0], al[0]);
+    split(a[(g + 8) * LD + kk + c], ah[1], al[1]);
+    split(a[g * LD + kk + c + 4], ah[2], al[2]);
+    split(a[(g + 8) * LD + kk + c + 4], ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int r = (8 * j + g) * LD + kk + c;
+      const uint32_t bh0 = bits(bh[r]), bh1 = bits(bh[r + 4]);
+      mma_tf32(small[j], al, bh0, bh1);
+      mma_tf32(small[j], ah, bits(bl[r]), bits(bl[r + 4]));
+      mma_tf32(acc[j], ah, bh0, bh1);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += small[j][e];
+}
+
+// acc (16 rows x HD) += P B for one warp: P is the 16 x (NJ x 8) product
+// `prod_rows` left in registers (its accumulator layout), B is NJ x 8 rows
+// of HD at bh / bl. The k order inside each step of 8 is permuted, slot c
+// being column 2c and slot c + 4 column 2c + 1, so that P's accumulator
+// registers are its A fragment as they stand and B's rows follow the same
+// permutation: no shuffle.
+template <int HD, int NJ>
+__device__ __forceinline__ void prod_acc(float (&acc)[HD / 8][4], const float (&p)[NJ][4],
+                                         const float* bh, const float* bl, int lane) {
+  constexpr int LD = HD + 4;
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    uint32_t ah[4], al[4];
+    split(p[j][0], ah[0], al[0]);
+    split(p[j][2], ah[1], al[1]);
+    split(p[j][1], ah[2], al[2]);
+    split(p[j][3], ah[3], al[3]);
+    const int r = (8 * j + 2 * c) * LD + g;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      mma3(acc[n], ah, al, bits(bh[r + 8 * n]), bits(bh[r + LD + 8 * n]), bits(bl[r + 8 * n]),
+           bits(bl[r + LD + 8 * n]));
+  }
+}
+
+// Rows [0, n) of a (.., HD) fp32 tensor at `src` (rows `stride` floats
+// apart) into ROWS rows of HD + 4 floats, zeros past n; 16-byte loads.
+template <int HD, int ROWS>
+__device__ __forceinline__ void stage(float* dst, const float* src, size_t stride, int n) {
+  constexpr int V4 = HD / 4, LD = HD + 4;
+  for (int e = threadIdx.x; e < ROWS * V4; e += NT) {
+    const int r = e / V4, d = (e - r * V4) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < n) x = __ldg(reinterpret_cast<const float4*>(src + r * stride + d));
+    *reinterpret_cast<float4*>(dst + r * LD + d) = x;
+  }
+}
+// The same rows split into their TF32 parts, hi and lo.
+template <int HD, int ROWS>
+__device__ __forceinline__ void stage_split(float* hi, float* lo, const float* src, size_t stride,
+                                            int n) {
+  constexpr int V4 = HD / 4, LD = HD + 4;
+  for (int e = threadIdx.x; e < ROWS * V4; e += NT) {
+    const int r = e / V4, d = (e - r * V4) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < n) x = __ldg(reinterpret_cast<const float4*>(src + r * stride + d));
+    uint32_t h[4], l[4];
+    split(x.x, h[0], l[0]);
+    split(x.y, h[1], l[1]);
+    split(x.z, h[2], l[2]);
+    split(x.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(hi + r * LD + d) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + r * LD + d) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// lse, D and the row state (live, empty, absent) of query rows [i0, i0 + n)
+// of head h into ROWS entries each.
+template <int ROWS>
+__device__ __forceinline__ void stage_stats(float* lse_s, float* D_s, float* st_s,
+                                            const float* lse_h, const float* D_h, int i0, int n,
+                                            int Skv, int causal, int window, int prefix_len,
+                                            int q_offset) {
+  for (int x = threadIdx.x; x < ROWS; x += NT) {
+    const int i = i0 + x;
+    const bool in = x < n;
+    lse_s[x] = in ? lse_h[i] : 0.f;
+    D_s[x] = in ? D_h[i] : 0.f;
+    st_s[x] = !in ? ROW_ABSENT
+                  : (row_empty(q_offset + i, Skv, causal, window, prefix_len) ? ROW_EMPTY
+                                                                               : ROW_LIVE);
+  }
+}
+
+}  // namespace tx
+
+// dK, dV: a block per (key tile of 64, split of its walk, b * KV + kvh),
+// eight warps: warp w < 4 owns keys 16w .. 16w + 15 and computes S^T = K Q^T,
+// P^T and dV += P^T dO; warp w + 4 owns the same keys and computes dP^T = V
+// dO^T, dS^T = P^T (dP^T - D) (P^T from warp w through shared memory) and dK
+// += dS^T Q. The walk visits (query head, query tile of BQ) pairs, heads
+// outermost; a split block takes `chunk` of them and writes its fp32
+// partial (dK scaled), a tile walked whole is written by its one block.
+template <int HD>
+__global__ void __launch_bounds__(NT, tx::blocks_per_sm<HD>()) flash_bwd_dkdv_tf32x3_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+    float* __restrict__ partial, int Sq, int Skv, int H, int KV, float scale, int causal,
+    int window, int prefix_len, int q_offset, int chunk) {
+  constexpr int BQ = tx::walk_rows<HD>(), LD = HD + 4, LP = BQ + 8, NJ = BQ / 8, N8 = HD / 8;
+  constexpr int KT = tx::KT;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;           // [KT][LD]
+  float* Vs = Ks + KT * LD;   // [KT][LD]
+  float* Qh = Vs + KT * LD;   // [BQ][LD] each
+  float* Ql = Qh + BQ * LD;
+  float* Oh = Ql + BQ * LD;
+  float* Ol = Oh + BQ * LD;
+  float* Ps = Ol + BQ * LD;   // [KT][LP] P^T
+  float* lse_s = Ps + KT * LP;
+  float* D_s = lse_s + BQ;
+  float* st_s = D_s + BQ;
+
+  const int j = blockIdx.x, k0 = j * KT, split = blockIdx.y, z = blockIdx.z;
+  const int b = z / KV, kvh = z % KV, G = H / KV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const bool vwarp = warp < 4;
+  const int kw = 16 * (warp & 3);  // this warp's first key in the tile
+  const int nk = min(KT, Skv - k0);
+  int lo, hi;
+  query_tiles(j, Sq, Skv, BQ, causal, window, prefix_len, q_offset, &lo, &hi);
+  const int nq = hi - lo, pairs = G * nq;
+  const int splits = walk_splits(pairs, chunk);
+  if (split >= splits) return;  // the whole block: past this tile's walk
+  const int p_begin = splits > 1 ? split * chunk : 0;
+  const int p_end = splits > 1 ? min(pairs, p_begin + chunk) : pairs;
+
+  const size_t kv_row = size_t(KV) * HD, q_row = size_t(H) * HD;
+  tx::stage<HD, KT>(Ks, k + (size_t(b) * Skv + k0) * kv_row + size_t(kvh) * HD, kv_row, nk);
+  tx::stage<HD, KT>(Vs, v + (size_t(b) * Skv + k0) * kv_row + size_t(kvh) * HD, kv_row, nk);
+
+  float acc[N8][4];  // dV (warps 0-3) or dK (4-7) of this warp's 16 keys
+#pragma unroll
+  for (int n = 0; n < N8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float inv_skv = 1.f / float(Skv);
+
+  for (int p = p_begin; p < p_end; ++p) {
+    const int h = kvh * G + p / nq, i0 = (lo + p % nq) * BQ, nrow = min(BQ, Sq - i0);
+    __syncthreads();  // K / V staged, or the previous pair consumed
+    const size_t off = (size_t(b) * Sq + i0) * q_row + size_t(h) * HD;
+    tx::stage_split<HD, BQ>(Qh, Ql, q + off, q_row, nrow);
+    tx::stage_split<HD, BQ>(Oh, Ol, dout + off, q_row, nrow);
+    tx::stage_stats<BQ>(lse_s, D_s, st_s, lse + (size_t(b) * H + h) * Sq,
+                        delta + (size_t(b) * H + h) * Sq, i0, nrow, Skv, causal, window,
+                        prefix_len, q_offset);
+    __syncthreads();
+
+    // S^T = K Q^T (warps 0-3) or dP^T = V dO^T (4-7): keys kw + g (+ 8),
+    // queries 8 jj + 2c (+ 1)
+    float s[NJ][4];
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
+    if (vwarp)
+      tx::prod_rows<HD, NJ>(s, Ks + kw * LD, Qh, Ql, lane);
+    else
+      tx::prod_rows<HD, NJ>(s, Vs + kw * LD, Oh, Ol, lane);
+    if (vwarp) {
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + kw + g + (e >> 1) * 8, x = 8 * jj + 2 * c + (e & 1);
+          const float st = st_s[x];
+          float pv = 0.f;
+          if (key < Skv && st != ROW_ABSENT) {
+            if (st == ROW_EMPTY)
+              pv = inv_skv;
+            else if (allowed(q_offset + i0 + x, key, causal, window, prefix_len))
+              pv = expf(s[jj][e] * scale - lse_s[x]);
+          }
+          s[jj][e] = pv;
+        }
+        float* row = Ps + (kw + g) * LP + 8 * jj + 2 * c;
+        *reinterpret_cast<float2*>(row) = make_float2(s[jj][0], s[jj][1]);
+        *reinterpret_cast<float2*>(row + 8 * LP) = make_float2(s[jj][2], s[jj][3]);
+      }
+    }
+    __syncthreads();  // P^T handed over
+    if (vwarp) {
+      tx::prod_acc<HD, NJ>(acc, s, Oh, Ol, lane);  // dV += P^T dO
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const float* row = Ps + (kw + g) * LP + 8 * jj + 2 * c;
+        const float2 p0 = *reinterpret_cast<const float2*>(row);
+        const float2 p1 = *reinterpret_cast<const float2*>(row + 8 * LP);
+        const float pt[4] = {p0.x, p0.y, p1.x, p1.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // dS^T: 0 for masked pairs and rows without a key
+          const int x = 8 * jj + 2 * c + (e & 1);
+          s[jj][e] = st_s[x] == ROW_LIVE ? pt[e] * (s[jj][e] - D_s[x]) : 0.f;
+        }
+      }
+      tx::prod_acc<HD, NJ>(acc, s, Qh, Ql, lane);  // dK += dS^T Q
+    }
+  }
+
+  // this warp's 16 keys: rows kw + g (+ 8), columns 8n + 2c (+ 1)
+  const float mul = vwarp ? 1.f : scale;
+  if (splits == 1) {
+    float* out = vwarp ? dv : dk;
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {
+      const int key = kw + g + 8 * h8;
+      if (key >= nk) continue;
+      float* row = out + ((size_t(b) * Skv + k0 + key) * KV + kvh) * HD + 2 * c;
+#pragma unroll
+      for (int n = 0; n < N8; ++n)
+        *reinterpret_cast<float2*>(row + 8 * n) =
+            make_float2(acc[n][2 * h8] * mul, acc[n][2 * h8 + 1] * mul);
+    }
+  } else {
+    const size_t n_keys = size_t(gridDim.x) * KT;
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {
+      const int key = kw + g + 8 * h8;
+      float* row = partial + (((size_t(split) * gridDim.z + z) * n_keys + k0 + key) * 2 +
+                              (vwarp ? 1 : 0)) * HD + 2 * c;
+#pragma unroll
+      for (int n = 0; n < N8; ++n)
+        *reinterpret_cast<float2*>(row + 8 * n) =
+            make_float2(acc[n][2 * h8] * mul, acc[n][2 * h8 + 1] * mul);
+    }
+  }
+}
+
+// The split walks' partial dK, dV added in split order (the same bits every
+// run): a block per (slice of NT * 4 floats of a key tile's 64 x 2 x HD,
+// key tile, b * KV + kvh), one float4 a thread; tiles walked whole are done.
+template <int HD>
+__global__ void __launch_bounds__(NT) flash_bwd_reduce_tf32x3_kernel(
+    const float* __restrict__ partial, float* __restrict__ dk, float* __restrict__ dv, int Sq,
+    int Skv, int KV, int G, int causal, int window, int prefix_len, int q_offset, int chunk) {
+  constexpr int BQ = tx::walk_rows<HD>(), KT = tx::KT;
+  const int j = blockIdx.y, z = blockIdx.z, n_kt = gridDim.y;
+  int lo, hi;
+  query_tiles(j, Sq, Skv, BQ, causal, window, prefix_len, q_offset, &lo, &hi);
+  const int splits = walk_splits(G * (hi - lo), chunk);
+  const int e = (blockIdx.x * NT + threadIdx.x) * 4;  // float offset in the key tile's block
+  if (e >= KT * 2 * HD) return;
+  const int r = e / (2 * HD), which = (e / HD) % 2, d = e % HD;
+  const int key = j * KT + r;
+  if (splits == 1 || key >= Skv) return;
+  const int b = z / KV, kvh = z % KV;
+  const size_t split_stride = size_t(gridDim.z) * n_kt * KT * 2 * HD;
+  const float* src = partial + (size_t(z) * n_kt + j) * KT * 2 * HD + e;
+  float4 sum = *reinterpret_cast<const float4*>(src);
+  for (int s = 1; s < splits; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(src + s * split_stride);
+    sum.x += x.x;
+    sum.y += x.y;
+    sum.z += x.z;
+    sum.w += x.w;
+  }
+  float* out = (which == 0 ? dk : dv) + ((size_t(b) * Skv + key) * KV + kvh) * HD + d;
+  *reinterpret_cast<float4*>(out) = sum;
+}
+
+// dQ: a block per (64 query rows of one head, batch), eight warps: warp w
+// holds rows 16 (w % 4) .. + 15 and takes half w / 4 of every key tile of BK
+// (`tx::dq_keys`) it walks (the forward's key range): S = Q K^T, dP = dO V^T, dS = P (dP -
+// D), dQ += dS K, all in registers; the two halves' dQ are added in a fixed
+// order at the end. Query tiles outermost from the last, so that the
+// longest causal walks of every (batch, head) start first.
+template <int HD>
+__global__ void __launch_bounds__(NT, tx::blocks_per_sm<HD>()) flash_bwd_dq_tf32x3_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int Sq, int Skv, int H, int KV,
+    float scale, int causal, int window, int prefix_len, int q_offset, int n_qt, int B) {
+  constexpr int BK = tx::dq_keys<HD>(), LD = HD + 4, NJ = BK / 16, N8 = HD / 8;
+  constexpr int QR = tx::QR;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;          // [QR][LD]
+  float* Os = Qs + QR * LD;  // [QR][LD]
+  float* Kh = Os + QR * LD;  // [BK][LD] each
+  float* Kl = Kh + BK * LD;
+  float* Vh = Kl + BK * LD;
+  float* Vl = Vh + BK * LD;
+  float* lse_s = Vl + BK * LD;
+  float* D_s = lse_s + QR;
+  float* st_s = D_s + QR;
+
+  const int qt = n_qt - 1 - int(blockIdx.x / (H * B)), rest = blockIdx.x % (H * B);
+  const int h = rest % H, b = rest / H, kvh = h / (H / KV);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const int rg = 16 * (warp & 3), kb = (warp >> 2) * (BK / 2);  // rows, first key of the half
+  const int i0 = qt * QR, nrow = min(QR, Sq - i0);
+  const size_t q_row = size_t(H) * HD, kv_row = size_t(KV) * HD;
+  const size_t off = (size_t(b) * Sq + i0) * q_row + size_t(h) * HD;
+  tx::stage<HD, QR>(Qs, q + off, q_row, nrow);
+  tx::stage<HD, QR>(Os, dout + off, q_row, nrow);
+  tx::stage_stats<QR>(lse_s, D_s, st_s, lse + (size_t(b) * H + h) * Sq,
+                      delta + (size_t(b) * H + h) * Sq, i0, nrow, Skv, causal, window,
+                      prefix_len, q_offset);
+  int k_begin, k_end;
+  key_range(q_offset + i0, q_offset + i0 + nrow - 1, Skv, causal, window, prefix_len, &k_begin,
+            &k_end);
+
+  float acc[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int kt = k_begin; kt < k_end; kt += BK) {
+    const int nk = min(BK, k_end - kt);
+    __syncthreads();  // Q / dO staged, or the previous tile consumed
+    const size_t koff = (size_t(b) * Skv + kt) * kv_row + size_t(kvh) * HD;
+    tx::stage_split<HD, BK>(Kh, Kl, k + koff, kv_row, nk);
+    tx::stage_split<HD, BK>(Vh, Vl, v + koff, kv_row, nk);
+    __syncthreads();
+    float s[NJ][4], dp[NJ][4];
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.f;
+    tx::prod_rows<HD, NJ>(s, Qs + rg * LD, Kh + kb * LD, Kl + kb * LD, lane);
+    tx::prod_rows<HD, NJ>(dp, Os + rg * LD, Vh + kb * LD, Vl + kb * LD, lane);
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // rows rg + g (+ 8), keys kt + kb + 8 jj + 2c (+ 1)
+        const int x = rg + g + (e >> 1) * 8, kl = kb + 8 * jj + 2 * c + (e & 1);
+        float ds = 0.f;
+        if (kl < nk && st_s[x] == ROW_LIVE &&
+            allowed(q_offset + i0 + x, kt + kl, causal, window, prefix_len))
+          ds = expf(s[jj][e] * scale - lse_s[x]) * (dp[jj][e] - D_s[x]);
+        s[jj][e] = ds;
+      }
+    }
+    tx::prod_acc<HD, NJ>(acc, s, Kh + kb * LD, Kl + kb * LD, lane);  // dQ += dS K
+  }
+
+  // dQ = scale (first half + second half), over the K / V tiles' room
+  __syncthreads();
+  float* red = Kh;  // [QR][LD]: QR <= 4 * BK rows of the K / V room
+  if (warp >= 4) {
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      *reinterpret_cast<float2*>(red + (rg + g) * LD + 8 * n + 2 * c) =
+          make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(red + (rg + g + 8) * LD + 8 * n + 2 * c) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+  }
+  __syncthreads();
+  if (warp < 4) {
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {
+      const int x = rg + g + 8 * h8;
+      if (x >= nrow) continue;
+      float* row = dq + (size_t(b) * Sq + i0 + x) * q_row + size_t(h) * HD + 2 * c;
+      const float* other = red + x * LD + 2 * c;
+#pragma unroll
+      for (int n = 0; n < N8; ++n) {
+        const float2 o = *reinterpret_cast<const float2*>(other + 8 * n);
+        *reinterpret_cast<float2*>(row + 8 * n) = make_float2(
+            (acc[n][2 * h8] + o.x) * scale, (acc[n][2 * h8 + 1] + o.y) * scale);
+      }
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_tf32x3(const float* q, const float* k, const float* v, const float* o,
+                          const float* dout, const float* lse, float* delta, float* partial,
+                          float* dq, float* dk, float* dv, int B, int Sq, int Skv, int H, int KV,
+                          float scale, int causal, int window, int prefix_len, int q_offset,
+                          int chunk, int splits, cudaStream_t stream) {
+  static_assert(tx::QR <= 4 * tx::dq_keys<HD>(), "dQ's reduction fits the K / V room");
+  constexpr int BQ = tx::walk_rows<HD>();
+  const size_t pairs = size_t(H / KV) * ((Sq + BQ - 1) / BQ);
+  if (chunk < 1 || splits < 1 || size_t(splits) * chunk < pairs ||
+      (splits > 1 && partial == nullptr))
+    return cudaErrorInvalidValue;
+  static_assert(tx::KT == fb::BKV, "query_tiles walks key tiles of the wgmma variant's size");
+  constexpr size_t dkdv_bytes = tx::dkdv_smem<HD>(), dq_bytes = tx::dq_smem<HD>();
+  auto dkdv = flash_bwd_dkdv_tf32x3_kernel<HD>;
+  auto dqk = flash_bwd_dq_tf32x3_kernel<HD>;
+  static const cudaError_t attr = [&] {  // once a process: the port drives one card
+    cudaError_t e = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(dkdv_bytes));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                int(dq_bytes));
+  }();
+  if (attr != cudaSuccess) return attr;
+  const int rows = B * Sq * H;
+  flash_bwd_delta_kernel<float><<<(rows + NW - 1) / NW, NT, 0, stream>>>(o, dout, delta, rows,
+                                                                          Sq, H, HD);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n_kt = (Skv + tx::KT - 1) / tx::KT;
+  dkdv<<<dim3(n_kt, splits, B * KV), NT, dkdv_bytes, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, partial, Sq, Skv, H, KV, scale, causal, window,
+      prefix_len, q_offset, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (splits > 1) {
+    constexpr int slices = (tx::KT * 2 * HD / 4 + NT - 1) / NT;
+    flash_bwd_reduce_tf32x3_kernel<HD><<<dim3(slices, n_kt, B * KV), NT, 0, stream>>>(
+        partial, dk, dv, Sq, Skv, KV, H / KV, causal, window, prefix_len, q_offset, chunk);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int n_qt = (Sq + tx::QR - 1) / tx::QR;
+  dqk<<<n_qt * H * B, NT, dq_bytes, stream>>>(q, k, v, dout, lse, delta, dq, Sq, Skv, H, KV,
+                                              scale, causal, window, prefix_len, q_offset, n_qt,
+                                              B);
+  return cudaGetLastError();
+}
+
+// The tf32x3 tiling at HD as the kernels are built: query rows a dK/dV visit
+// stages, the blocks an SM its launch bounds ask for, and the dK/dV blocks
+// the card keeps resident on an SM with their shared memory.
+template <int HD>
+cudaError_t tiling_tf32x3(int* walk_rows, int* blocks_per_sm, int* resident) {
+  auto dkdv = flash_bwd_dkdv_tf32x3_kernel<HD>;
+  constexpr size_t dkdv_bytes = tx::dkdv_smem<HD>();
+  cudaError_t e = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(dkdv_bytes));
+  if (e != cudaSuccess) return e;
+  *walk_rows = tx::walk_rows<HD>();
+  *blocks_per_sm = tx::blocks_per_sm<HD>();
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, dkdv, NT, dkdv_bytes);
+}
+
 }  // namespace
+
+// The tf32x3 kernels' tiling at head dim `hd` (what the host's plan copies):
+// see `tiling_tf32x3`. Returns the first cudaError_t that is not success.
+extern "C" int flash_attention_bwd_tf32x3_tiling(int hd, int* walk_rows, int* blocks_per_sm,
+                                                 int* resident) {
+  switch (hd) {
+    case 16: return int(tiling_tf32x3<16>(walk_rows, blocks_per_sm, resident));
+    case 32: return int(tiling_tf32x3<32>(walk_rows, blocks_per_sm, resident));
+    case 64: return int(tiling_tf32x3<64>(walk_rows, blocks_per_sm, resident));
+    case 80: return int(tiling_tf32x3<80>(walk_rows, blocks_per_sm, resident));
+    case 112: return int(tiling_tf32x3<112>(walk_rows, blocks_per_sm, resident));
+    case 128: return int(tiling_tf32x3<128>(walk_rows, blocks_per_sm, resident));
+    case 160: return int(tiling_tf32x3<160>(walk_rows, blocks_per_sm, resident));
+    case 256: return int(tiling_tf32x3<256>(walk_rows, blocks_per_sm, resident));
+    default: return int(cudaErrorInvalidValue);
+  }
+}
 
 // C entry point. q, o, dout, dq: (B, Sq, H, hd); k, v, dk, dv: (B, Skv, KV,
 // hd); lse: fp32 (B, H, Sq); contiguous, one dtype (0 fp32, 1 bf16) for the
@@ -1176,8 +1733,13 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
 // padding), a dK/dV walk covers at most `chunk` query
 // tiles, `splits` >= ceil(n_qt / chunk) is the grid's split dimension and,
 // when above 1, `partial` is fp32 scratch of splits * B * KV * ceil(Skv /
-// 64) * 64 * 2 * hd floats. Three (simt) or three to four (wgmma) launches
-// on `stream`; returns the first cudaError_t that is not success.
+// 64) * 64 * 2 * hd floats. 2 tf32x3 (fp32; every supported hd and G; every
+// pointer 16-byte aligned): `delta` is fp32 scratch of (B, H, Sq), a dK/dV
+// walk covers at most `chunk` (query head, query tile of BQ =
+// tx::walk_rows<hd>) pairs, `splits` >= ceil(G * ceil(Sq / BQ) / chunk)
+// and, when above 1, `partial` is as for wgmma. Three (simt), three to
+// four (wgmma, tf32x3) launches on `stream`; returns the first cudaError_t
+// that is not success.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
                                    void* dk, void* dv, float* partial, int B, int Sq, int Skv,
@@ -1215,6 +1777,36 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
         return int(cudaErrorInvalidValue);
     }
 #undef REPRO_BWD_WGMMA
+  }
+  if (variant == 2) {
+    using repro::sm90::aligned16;
+    if (dtype != repro::kFloat32) return int(cudaErrorInvalidValue);
+    const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv};
+    for (const void* p : ptrs)
+      if (!aligned16(p)) return int(cudaErrorInvalidValue);
+    if (splits > 1 && !aligned16(partial)) return int(cudaErrorInvalidValue);
+    const float* f[] = {static_cast<const float*>(q), static_cast<const float*>(k),
+                        static_cast<const float*>(v), static_cast<const float*>(o),
+                        static_cast<const float*>(dout)};
+#define REPRO_BWD_TF32X3(N)                                                                 \
+  case N:                                                                                   \
+    return int(launch_tf32x3<N>(f[0], f[1], f[2], f[3], f[4], lse, delta, partial,          \
+                                static_cast<float*>(dq), static_cast<float*>(dk),           \
+                                static_cast<float*>(dv), B, Sq, Skv, H, KV, scale, causal,  \
+                                window, prefix_len, q_offset, chunk, splits, s));
+    switch (hd) {
+      REPRO_BWD_TF32X3(16)
+      REPRO_BWD_TF32X3(32)
+      REPRO_BWD_TF32X3(64)
+      REPRO_BWD_TF32X3(80)
+      REPRO_BWD_TF32X3(112)
+      REPRO_BWD_TF32X3(128)
+      REPRO_BWD_TF32X3(160)
+      REPRO_BWD_TF32X3(256)
+      default:
+        return int(cudaErrorInvalidValue);
+    }
+#undef REPRO_BWD_TF32X3
   }
   if (variant != 0) return int(cudaErrorInvalidValue);
   if (dtype == repro::kFloat32)

@@ -3,10 +3,14 @@ the dense and the paged decode kernels share, as pure functions the CPU
 tests reach, and the operand checks of both wrappers.
 
 * `cluster_size`: the blocks of the thread-block cluster that walks one
-  unit, a (slot, KV head, head group): the smallest power of two up to
-  `MAX_CLUSTER` with which the clusters fill one wave of the card's SMs, and
-  1 when the units alone fill it. Each block of a cluster takes an even
-  share of its slot's valid positions, read on the device.
+  unit, a (slot, KV head, head group): the largest power of two up to
+  `MAX_CLUSTER` with which the clusters still fit one wave of one block an
+  SM, and 1 when the units alone exceed it. Each block of a cluster takes
+  an even share of its slot's valid positions, read on the device. (The
+  smallest power of two that filled the wave put 256 blocks on 132 SMs at
+  64 units, the dense family's and the MoE family's ticks; clusters of 2
+  measured faster there on both walks, 11-30 % on ``mma``, and granite-20b's
+  48 units 5-11 % slower, PERF.md section 6.)
 * `head_groups` / `block_group`: a block holds at most `MAX_GROUP` query
   heads in registers; a KV head with more (granite-20b: 48 over 1) splits
   its heads into `head_groups` groups of `block_group` (the last may hold
@@ -18,12 +22,19 @@ tests reach, and the operand checks of both wrappers.
   head_dim 36, fp32 at 18: most rows start unaligned) by element loads, on
   the ``simt`` walk. The wrappers raise on any other layout.
 * `variant`: how a block walks its positions. ``mma``: bf16 at head_dim 16,
-  32, 64, 128 or 256, scores and P V on the tensor cores (`mma.sync`
-  m16n8k16, fp32 accumulation, P rounded to bf16 as the flash kernel's wgmma
-  variant does), eight positions a warp step; ``simt``: everything else
-  (fp32, whose 1e-5 parity bf16 products would break, and other head dims,
-  rows that are not whole 16-byte loads among them), exact fp32 FMA. Both
-  wrappers count their launches by variant.
+  32, 64, 80, 112, 128, 160 or 256 (`MMA_HEAD_DIMS`), scores and P V on the
+  tensor cores (`mma.sync` m16n8k16, fp32 accumulation, P rounded to bf16 as
+  the flash kernel's wgmma variant does), eight positions a warp step, each
+  head dim its own instantiation at the row's width; but one query head a
+  KV head at the padded dims 80, 112 and 160 stays on ``simt``, where one
+  row of the 16-row tiles is real and zamba2-7b's tick (32 over 32, hd 112)
+  measured 0.0228 ms on ``mma`` against 0.0218 on ``simt`` (PERF.md,
+  section 6); ``simt``: everything else (fp32, whose 1e-5 parity bf16
+  products would break, and other head dims, rows that are not whole
+  16-byte loads among them), exact fp32 FMA. Both wrappers count their
+  launches by variant.
+* `mma_ring_slot`: where the ``mma`` walk keeps a K / V row's 16-byte chunk
+  in its shared-memory tiles (`csrc/decode_core.cuh::MmaGeo`).
 """
 from __future__ import annotations
 
@@ -42,14 +53,44 @@ MAX_CLUSTER = 8
 LOAD_BYTES = 16  # a lane's load
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANT_CODES = {"simt": 0, "mma": 1}
-MMA_HEAD_DIMS = (16, 32, 64, 128, 256)  # whole k16 steps, unrolled at compile time
+#: Head dims of the tensor-core walk: whole k16 steps (and n8 tiles), each
+#: unrolled at compile time; 80, 112 and 160 are the configs' dims between
+#: the powers of two (train_100m; zamba2-7b and kimi-k2; stablelm-12b).
+MMA_HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160, 256)
+#: Of those, the dims whose ring rows are padded: at one query head a KV
+#: head they stay on the SIMT walk (see the module note).
+MMA_PADDED_DIMS = (80, 112, 160)
+#: Positions (rows) of one K or V tile of the ``mma`` walk.
+MMA_TILE_ROWS = 8
 
 
 def variant(q: torch.Tensor, k: torch.Tensor) -> str:
     """The walk `decode_attention` / `paged_decode_attention` launch for q
-    against K rows k (see the module note): a rule on dtype and head_dim
-    (every ``mma`` head dim is a whole number of 16-byte bf16 loads)."""
-    return "mma" if q.dtype == torch.bfloat16 and k.shape[-1] in MMA_HEAD_DIMS else "simt"
+    (B, H, hd) against K rows k (..., KV, hd) (see the module note): a rule
+    on dtype, head_dim and query heads a KV head (every ``mma`` head dim is
+    a whole number of 16-byte bf16 loads)."""
+    hd, groups = k.shape[-1], q.shape[1] // k.shape[-2]
+    if q.dtype != torch.bfloat16 or hd not in MMA_HEAD_DIMS:
+        return "simt"
+    return "simt" if groups == 1 and hd in MMA_PADDED_DIMS else "mma"
+
+
+def mma_row_chunks(head_dim: int) -> int:
+    """16-byte chunks a row of the ``mma`` walk's tiles spans in shared
+    memory: the bf16 row's hd / 8 chunks, rounded up to whole groups of 8
+    (128 bytes) once there are 8 or more (hd 80 and 112: 16, hd 160: 24)."""
+    n = head_dim // 8
+    return n if n <= 8 else -(-n // 8) * 8
+
+
+def mma_ring_slot(head_dim: int, row: int, chunk: int) -> int:
+    """The 16-byte slot of a tile at which the ``mma`` walk keeps `chunk`
+    of the tile's `row` (`csrc/decode_core.cuh::MmaGeo`): chunk ^ (row %
+    8) (the mask shrinks to the chunk count under 8) within the row's
+    `mma_row_chunks`, so that ldmatrix reads a chunk of eight rows from
+    eight distinct bank groups."""
+    n = head_dim // 8
+    return row * mma_row_chunks(head_dim) + (chunk ^ (row & (min(n, 8) - 1)))
 
 
 def head_groups(groups: int) -> int:
@@ -71,7 +112,7 @@ def cluster_size(q: torch.Tensor, k: torch.Tensor) -> int:
     units = q.shape[0] * KV * head_groups(q.shape[1] // KV)
     sms = build.sm_count(q.device)
     c = 1
-    while c < MAX_CLUSTER and units * c < sms:
+    while c < MAX_CLUSTER and units * c * 2 <= sms:
         c *= 2
     return c
 

@@ -37,7 +37,7 @@ whose gradient this reproduces). `FlashAttentionFn` wires it into autograd;
 is on and an input requires grad; called directly under grad mode with such
 an input, `flash_attention` raises rather than return an output that
 autograd would silently cut off. `backward_variant` picks its variant by
-the forward's rule:
+the forward's rule for bf16 and its own for fp32:
 
 * ``wgmma``: every product on the tensor cores (S and dP by `wgmma` from
   TMA-fed shared memory, dV, dK and dQ with P or dS as the bf16 A operand in
@@ -48,12 +48,20 @@ the forward's rule:
   the mask geometry and the card's SM count) whose fp32 partials a second
   pass adds in a fixed order; the wrapper allocates that scratch and the
   row stats' (`backward_scratch`).
-* ``simt``: scalar fp32 FMA, tiles of 32 (fp32, which must stay exact for
-  the REDUCED parity and the resume test; hd 16 and 32; more than 64 query
-  heads per KV head).
+* ``tf32x3``: fp32 (every supported head dim and group size, q, k, v,
+  out and d_out 16-byte aligned), every product on the tensor cores as three TF32
+  products of the operands' high and low TF32 parts (fp32 accumulation),
+  which keeps fp32's accuracy (a product off by ~2^-21 of its size; one
+  TF32 product, ~2^-11, would break the 2e-5 parity of the REDUCED
+  training and the example's resume). Its dK/dV walks over (query head,
+  query tile) pairs split over blocks like wgmma's (`tf32x3_plan`, scratch
+  from `tf32x3_scratch`).
+* ``simt``: scalar fp32 FMA, tiles of 32 (bf16 at hd 16 and 32 and with
+  more than 64 query heads per KV head; any dtype with q, k, v, out or
+  d_out unaligned).
 
-Both are deterministic (no atomics) and both take rows with no key (the
-reference's uniform average, no gradient to q or k).
+All three are deterministic (no atomics) and all take rows with no key
+(the reference's uniform average, no gradient to q or k).
 
 The wrappers check device, dtype, shape and contiguity, allocate outputs
 and scratch with `torch.empty`, launch on the current stream without
@@ -80,6 +88,7 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160, 256)
 WGMMA_HEAD_DIMS = (64, 80, 112, 128, 160, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODES = {"simt": 0, "wgmma": 1}
+_BACKWARD_VARIANT_CODES = {**_VARIANT_CODES, "tf32x3": 2}
 #: (position, query head) rows of one consumer warpgroup of the wgmma variant.
 WGMMA_ROWS = 64
 
@@ -88,8 +97,8 @@ launches = 0
 #: The same launches by variant.
 variant_launches = {name: 0 for name in _VARIANT_CODES}
 #: Calls of `flash_attention_backward`, and the same calls by variant.
-backward = build.LaunchCounter(tuple(_VARIANT_CODES))
-#: Keys of a dK/dV block's tile in the backward's wgmma variant.
+backward = build.LaunchCounter(tuple(_BACKWARD_VARIANT_CODES))
+#: Keys of a dK/dV block's tile in the backward's wgmma and tf32x3 variants.
 WGMMA_KEYS = 64
 #: A dK/dV block's fixed cost in query-tile visits: its K / V load, its
 #: partial's fp32 write and the second pass's read of it.
@@ -127,14 +136,52 @@ def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "wgmma" if _tensor_core_operands(q, k, v) else "simt"
 
 
-def backward_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+def backward_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     out: Optional[torch.Tensor] = None,
+                     d_out: Optional[torch.Tensor] = None) -> str:
     """The variant `flash_attention_backward` launches for these operands:
     ``wgmma`` for bf16 at head_dim 64 / 80 / 112 / 128 / 160 / 256 with at
-    most 64 query heads per KV head and q, k, v 16-byte aligned, ``simt``
-    otherwise (fp32, hd 16 and 32, and groups over 64, among them). A rule
-    on dtype, head_dim, group size and alignment only: both variants take
-    every mask, rows with no key included."""
-    return "wgmma" if _tensor_core_operands(q, k, v) else "simt"
+    most 64 query heads per KV head and q, k, v 16-byte aligned (the
+    forward's rule); ``tf32x3`` for fp32 with q, k, v 16-byte aligned (every
+    head dim and group size: the example's and REDUCED training); ``simt``
+    otherwise (bf16 at hd 16 and 32 or with groups over 64, and unaligned
+    operands). `out` and `d_out`, where given, must be 16-byte aligned too
+    for ``wgmma`` and ``tf32x3``. A rule on dtype, head_dim, group size and
+    alignment only: every variant takes every mask, rows with no key
+    included."""
+    if any(t is not None and t.data_ptr() % 16 for t in (out, d_out)):
+        return "simt"
+    if _tensor_core_operands(q, k, v):
+        return "wgmma"
+    if q.dtype == torch.float32 and all(t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        return "tf32x3"
+    return "simt"
+
+
+def tf32x3_walk_rows(head_dim: int) -> int:
+    """Query rows of a tf32x3 dK/dV visit: 32, or 16 at hd 256, so that a
+    block's tiles fit the shared memory."""
+    return 32 if head_dim <= 160 else 16
+
+
+def tf32x3_blocks_per_sm(head_dim: int) -> int:
+    """tf32x3 blocks an SM holds at once (the kernels' launch bounds): two
+    up to hd 80, whose tiles fit twice in the shared memory, else one."""
+    return 2 if head_dim <= 80 else 1
+
+
+def tf32x3_tiling(head_dim: int) -> tuple:
+    """(query rows a dK/dV visit, blocks an SM by the launch bounds, dK/dV
+    blocks the current card keeps resident on an SM) of the built tf32x3
+    kernels at `head_dim`: what `tf32x3_walk_rows` and
+    `tf32x3_blocks_per_sm` copy on the host, for a check on the card."""
+    fn = build.load().flash_attention_bwd_tf32x3_tiling
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    got = [ctypes.c_int() for _ in range(3)]
+    build.check(fn(head_dim, *(ctypes.byref(x) for x in got)),
+                f"flash_attention_bwd_tf32x3_tiling (hd {head_dim})")
+    return tuple(x.value for x in got)
 
 
 def _query_tiles_seen(Sq: int, Skv: int, P: int, causal: bool, window: int, prefix_len: int,
@@ -155,24 +202,42 @@ def _query_tiles_seen(Sq: int, Skv: int, P: int, causal: bool, window: int, pref
     return ranges
 
 
+def _split(walks: list, units: int, slots: int, total: int):
+    """(chunk, splits) of dK/dV walks of `walks` visits a key tile, for
+    `units` (batch, KV head) pairs on `slots` blocks at once, `total` being
+    the longest walk any key tile could have: unsplit ((total, 1)) when the
+    unsplit grid fills the slots, else the chunk that minimises waves x
+    (chunk + `SPLIT_OVERHEAD`), ties to the larger chunk (fewer partials)."""
+    longest = max(walks)
+    if len(walks) * units >= slots or longest <= 1:
+        return total, 1
+    best_cost, chunk = None, longest
+    for c in range(1, longest + 1):
+        blocks = units * sum(max(1, -(-n // c)) for n in walks)
+        cost = -(-blocks // slots) * (c + SPLIT_OVERHEAD)
+        if best_cost is None or cost <= best_cost:
+            best_cost, chunk = cost, c
+    if chunk >= longest:
+        return total, 1
+    return chunk, -(-total // chunk)
+
+
 @functools.lru_cache(maxsize=256)
 def _plan(B: int, Sq: int, Skv: int, KV: int, G: int, causal: bool, window: int,
           prefix_len: int, q_offset: int, sms: int):
     n_qt = -(-Sq // (WGMMA_ROWS // G))
     walks = [hi - lo for lo, hi in _query_tiles_seen(Sq, Skv, WGMMA_ROWS // G, causal, window,
                                                      prefix_len, q_offset)]
-    longest = max(walks)
-    if len(walks) * KV * B >= sms or longest <= 1:
-        return n_qt, 1
-    best_cost, chunk = None, longest
-    for c in range(1, longest + 1):  # ties go to the larger chunk: fewer partials
-        blocks = KV * B * sum(max(1, -(-n // c)) for n in walks)
-        cost = -(-blocks // sms) * (c + SPLIT_OVERHEAD)
-        if best_cost is None or cost <= best_cost:
-            best_cost, chunk = cost, c
-    if chunk >= longest:
-        return n_qt, 1
-    return chunk, -(-n_qt // chunk)
+    return _split(walks, KV * B, sms, n_qt)
+
+
+@functools.lru_cache(maxsize=256)
+def _tf32x3_plan(B: int, Sq: int, Skv: int, KV: int, G: int, hd: int, causal: bool,
+                 window: int, prefix_len: int, q_offset: int, sms: int):
+    P = tf32x3_walk_rows(hd)
+    walks = [G * (hi - lo) for lo, hi in _query_tiles_seen(Sq, Skv, P, causal, window,
+                                                           prefix_len, q_offset)]
+    return _split(walks, KV * B, sms * tf32x3_blocks_per_sm(hd), G * -(-Sq // P))
 
 
 def backward_plan(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True, window: int = 0,
@@ -189,6 +254,40 @@ def backward_plan(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True, wind
     Skv, KV = k.shape[1], k.shape[2]
     return _plan(B, Sq, Skv, KV, H // KV, bool(causal), int(window or 0), int(prefix_len),
                  int(q_offset), build.sm_count(q.device))
+
+
+def tf32x3_plan(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True, window: int = 0,
+                prefix_len: int = 0, q_offset: int = 0):
+    """(chunk, splits) of the tf32x3 backward's dK/dV launch: a block walks
+    at most `chunk` (query head, query tile of `tf32x3_walk_rows`) pairs of
+    its key tile of 64, heads outermost, and the grid has `splits` blocks a
+    key tile (those past a walk's end exit). Split as `backward_plan`
+    splits, against `tf32x3_blocks_per_sm` blocks on each of q's card's SMs;
+    (G * query tiles, 1) when no walk is split."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    return _tf32x3_plan(B, Sq, Skv, KV, H // KV, hd, bool(causal), int(window or 0),
+                        int(prefix_len), int(q_offset), build.sm_count(q.device))
+
+
+def tf32x3_scratch(q: torch.Tensor, k: torch.Tensor, chunk: int, splits: int):
+    """fp32 scratch of the tf32x3 backward, on q's device: (D = rowsum(dO *
+    o), (B, H, Sq); the partial dK / dV of split walks, (splits, B * KV, key
+    tiles * 64, 2, hd), or None when no walk is split), as the C entry point
+    requires."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    pairs = H // KV * -(-Sq // tf32x3_walk_rows(hd))
+    if chunk < 1 or splits < 1 or splits * chunk < pairs:
+        raise ValueError(f"flash_attention_backward: chunk {chunk} x splits {splits} does not "
+                         f"cover {pairs} (query head, query tile) pairs")
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    partial = None
+    if splits > 1:
+        n_keys = -(-Skv // WGMMA_KEYS) * WGMMA_KEYS
+        partial = torch.empty((splits, B * KV, n_keys, 2, hd), dtype=torch.float32,
+                              device=q.device)
+    return delta, partial
 
 
 def backward_scratch(q: torch.Tensor, k: torch.Tensor, chunk: int, splits: int):
@@ -316,16 +415,15 @@ def flash_attention_backward(
     if q_offset < 0:
         raise ValueError(f"flash_attention_backward: q_offset {q_offset} < 0")
     scale = scale if scale is not None else 1.0 / (hd**0.5)
-    kind = backward_variant(q, k, v)
+    kind = backward_variant(q, k, v, out, d_out)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    masks = dict(causal=causal, window=window, prefix_len=prefix_len, q_offset=q_offset)
     if kind == "wgmma":
-        for name, t in (("out", out), ("d_out", d_out)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"flash_attention_backward: {name} must be 16-byte aligned "
-                                 "for the wgmma variant")
-        chunk, splits = backward_plan(q, k, causal=causal, window=window,
-                                      prefix_len=prefix_len, q_offset=q_offset)
+        chunk, splits = backward_plan(q, k, **masks)
         delta, partial = backward_scratch(q, k, chunk, splits)
+    elif kind == "tf32x3":
+        chunk, splits = tf32x3_plan(q, k, **masks)
+        delta, partial = tf32x3_scratch(q, k, chunk, splits)
     else:
         chunk, splits, partial = 0, 0, None
         delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -335,7 +433,8 @@ def flash_attention_backward(
         partial.data_ptr() if partial is not None else None,
         B, Sq, Skv, H, KV, hd, _DTYPE_CODES[q.dtype], float(scale),
         int(bool(causal)), int(window or 0), int(prefix_len), int(q_offset),
-        _VARIANT_CODES[kind], chunk, splits, torch.cuda.current_stream(q.device).cuda_stream,
+        _BACKWARD_VARIANT_CODES[kind], chunk, splits,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, f"flash_attention_backward ({kind})")
     build.count_launch(backward, kind)

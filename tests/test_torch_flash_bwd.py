@@ -275,7 +275,8 @@ def test_backward_counts_add_up_across_threads():
         t.join(timeout=60)
     try:
         assert tops.launch_counts()["flash_attention_bwd"] == 2000
-        assert tops.variant_counts()["flash_attention_bwd"] == {"simt": 2000, "wgmma": 0}
+        assert tops.variant_counts()["flash_attention_bwd"] == {"simt": 2000, "wgmma": 0,
+                                                                 "tf32x3": 0}
         assert tops.launch_counts()["flash_attention"] == 0
     finally:
         tops.reset_launch_counts()
@@ -307,15 +308,25 @@ def _unaligned(shape, dtype):
     ("bfloat16", 32, 8, 160, "aligned", "wgmma"),    # stablelm-12b: hd 160, tiles of 192
     ("bfloat16", 64, 8, 112, "aligned", "wgmma"),    # kimi-k2: hd 112, tiles of 128
     ("bfloat16", 32, 32, 112, "aligned", "wgmma"),   # zamba2-7b: hd 112
-    # ... REDUCED (fp32, hd 16), fp32 at a tensor-core shape, and alignment
-    ("float32", 4, 1, 16, "aligned", "simt"),
-    ("float32", 4, 1, 256, "aligned", "simt"),
-    ("float32", 8, 2, 80, "aligned", "simt"),        # train_100m: fp32 stays exact
+    # ... REDUCED (fp32, hd 16), fp32 at a tensor-core shape, and alignment:
+    # fp32 takes three TF32 products a product (fp32's accuracy) at every
+    # head dim and group
+    ("float32", 4, 1, 16, "aligned", "tf32x3"),
+    ("float32", 4, 1, 256, "aligned", "tf32x3"),
+    ("float32", 8, 2, 80, "aligned", "tf32x3"),      # train_100m
+    ("float32", 130, 2, 32, "aligned", "tf32x3"),    # groups over 64
+    ("float32", 8, 2, 80, "unaligned-q", "simt"),
+    ("float32", 8, 2, 80, "unaligned-k", "simt"),
     ("bfloat16", 8, 2, 80, "aligned", "wgmma"),
     ("bfloat16", 64, 1, 64, "aligned", "wgmma"),     # 64 heads: one position a tile
     ("bfloat16", 72, 1, 64, "aligned", "simt"),      # more heads than a tile's rows
     ("bfloat16", 4, 1, 256, "unaligned-q", "simt"),
     ("bfloat16", 4, 1, 256, "unaligned-k", "simt"),
+    # an output or output gradient off 16 bytes (a contiguous view at an
+    # odd offset) sends aligned q, k, v to simt as well
+    ("float32", 8, 2, 80, "unaligned-out", "simt"),
+    ("float32", 8, 2, 80, "unaligned-d_out", "simt"),
+    ("bfloat16", 4, 1, 256, "unaligned-d_out", "simt"),
 ])
 def test_backward_variant_rule(dtype, H, KV, hd, layout, want):
     dt = getattr(torch, dtype)
@@ -324,22 +335,31 @@ def test_backward_variant_rule(dtype, H, KV, hd, layout, want):
     k = _unaligned((1, 9, KV, hd), dt) if layout == "unaligned-k" else torch.empty(
         (1, 9, KV, hd), dtype=dt)
     v = torch.empty((1, 9, KV, hd), dtype=dt)
-    assert tflash.backward_variant(q, k, v) == want
-    assert tflash.backward_variant(q, k, v) == tflash.variant(q, k, v)  # the forward's rule
+    out, d_out = (_unaligned(q.shape, dt) if layout == f"unaligned-{name}" else torch.empty_like(q)
+                  for name in ("out", "d_out"))
+    assert tflash.backward_variant(q, k, v, out, d_out) == want
+    if layout in ("unaligned-out", "unaligned-d_out"):
+        assert tflash.backward_variant(q, k, v) != "simt"  # q, k, v alone are aligned
+    elif dtype == "bfloat16":  # the forward's rule; fp32's forward stays on simt
+        assert tflash.backward_variant(q, k, v) == tflash.variant(q, k, v)
+    else:
+        assert tflash.variant(q, k, v) == "simt"
 
 
 def test_backward_counter_counts_by_variant():
     tops.reset_launch_counts()
     try:
-        assert set(tflash.backward.variant_launches) == {"simt", "wgmma"}
+        assert set(tflash.backward.variant_launches) == {"simt", "wgmma", "tf32x3"}
         tbuild.count_launch(tflash.backward, "wgmma")
         tbuild.count_launch(tflash.backward, "wgmma")
         tbuild.count_launch(tflash.backward, "simt")
-        assert tops.launch_counts()["flash_attention_bwd"] == 3
-        assert tops.variant_counts()["flash_attention_bwd"] == {"simt": 1, "wgmma": 2}
+        tbuild.count_launch(tflash.backward, "tf32x3")
+        assert tops.launch_counts()["flash_attention_bwd"] == 4
+        assert tops.variant_counts()["flash_attention_bwd"] == {"simt": 1, "wgmma": 2,
+                                                                 "tf32x3": 1}
     finally:
         tops.reset_launch_counts()
-    assert tops.variant_counts()["flash_attention_bwd"] == {"simt": 0, "wgmma": 0}
+    assert tops.variant_counts()["flash_attention_bwd"] == {"simt": 0, "wgmma": 0, "tf32x3": 0}
 
 
 MASKS = [
@@ -448,6 +468,172 @@ def test_backward_scratch_refuses_a_split_that_misses_tiles():
 
 
 # ---------------------------------------------------------------------------
+# the fp32 backward's tf32x3 variant: its walk split and its arithmetic
+# ---------------------------------------------------------------------------
+
+
+def _tf32_round(x):
+    """fp32 x rounded to TF32 as the tf32x3 kernels round it
+    (`csrc/flash_attention_bwd.cu::tx::tf32_bits`): half a TF32 ulp added to
+    the magnitude, then the low 13 mantissa bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32x3_walks(q, k, **kw):
+    """For each key tile of the tf32x3 dK/dV launch, the (split, [(query
+    head, query tile), ...]) its blocks walk, in the order they walk them:
+    the kernel's walk (`flash_bwd_dkdv_tf32x3_kernel`: pairs heads
+    outermost, split `walk_splits` ways) over the host's plan."""
+    B, Sq, H, hd = q.shape
+    G, P = H // k.shape[2], tflash.tf32x3_walk_rows(hd)
+    chunk, _ = tflash.tf32x3_plan(q, k, **kw)
+    out = []
+    for lo, hi in tflash._query_tiles_seen(Sq, k.shape[1], P, kw["causal"], kw["window"],
+                                           kw["prefix_len"], kw["q_offset"]):
+        nq = hi - lo
+        pairs = [(p // nq, lo + p % nq) for p in range(G * nq)]
+        n_splits = -(-len(pairs) // chunk) if len(pairs) > chunk else 1
+        out.append([(s, pairs[s * chunk:(s + 1) * chunk]) for s in range(n_splits)])
+    return out
+
+
+@pytest.mark.parametrize("kw", MASKS)
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,sms", [
+    (4, 256, 256, 8, 2, 80, H100_SMS),     # examples/train_100m_torch.py
+    (4, 32, 32, 4, 1, 16, H100_SMS),       # REDUCED gemma3-1b's training batch
+    (2, 64, 64, 8, 2, 32, H100_SMS),
+    (1, 300, 300, 8, 2, 256, H100_SMS),    # walks of 16-row query tiles
+    (2, 77, 90, 6, 1, 160, H100_SMS),
+    (4, 256, 256, 8, 2, 80, 16),           # a small card: fewer splits
+])
+def test_tf32x3_walks_cover_every_pair_once(monkeypatch, kw, B, Sq, Skv, H, KV, hd, sms):
+    """The tf32x3 dK/dV walks (`_tf32x3_walks`): each key tile's splits
+    take, in split order, every (query head, query tile) pair
+    whose tile its walk covers exactly once, heads outermost, at most
+    `chunk` a split and within the grid's `splits`; every query tile with a
+    row that may attend one of the tile's keys, or with a row that attends
+    none, is in the walk."""
+    monkeypatch.setattr(tbuild, "sm_count", lambda device: sms)
+    q = torch.empty((B, Sq, H, hd))
+    k = torch.empty((B, Skv, KV, hd))
+    full = dict(causal=True, window=0, prefix_len=0, q_offset=0)
+    full.update(kw)
+    chunk, splits = tflash.tf32x3_plan(q, k, **full)
+    G, P = H // KV, tflash.tf32x3_walk_rows(hd)
+    assert chunk * splits >= G * -(-Sq // P)
+    walks = _tf32x3_walks(q, k, **full)
+    mask = tref._build_mask(Sq, Skv, **full)
+    empty = ~mask.any(dim=1)
+    assert len(walks) == -(-Skv // tflash.WGMMA_KEYS)
+    for j, parts in enumerate(walks):
+        assert [s for s, _ in parts] == list(range(len(parts))) and len(parts) <= splits
+        assert all(len(pairs) <= chunk for _, pairs in parts) or len(parts) == 1
+        pairs = [x for _, part in parts for x in part]
+        tiles = sorted({t for _, t in pairs})
+        assert pairs == [(g, t) for g in range(G) for t in tiles]  # each once, heads outermost
+        assert tiles == list(range(tiles[0], tiles[-1] + 1)) if tiles else True
+        seen = mask[:, 64 * j:64 * (j + 1)].any(dim=1) | empty
+        need = {int(i) // P for i in torch.nonzero(seen).flatten()}
+        assert need <= set(tiles), (j, sorted(need), tiles)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,kw,sms,want", [
+    # train_100m: 4 key tiles x 8 (batch, KV head) units, walks of 32, 24, 16
+    # and 8 pairs, two blocks an SM at hd 80
+    (4, 256, 256, 8, 2, 80, {}, H100_SMS, (3, 11)),
+    (4, 256, 256, 8, 2, 80, {"window": 256}, H100_SMS, (3, 11)),
+    # REDUCED gemma3-1b (B=4 x 32, 4 heads over 1, hd 16): one key tile, its
+    # four (head, query tile) pairs on four blocks
+    (4, 32, 32, 4, 1, 16, {}, H100_SMS, (1, 4)),
+    # a grid that fills the card is not split: (G x query tiles, 1)
+    (64, 256, 256, 8, 2, 80, {}, H100_SMS, (32, 1)),
+    # hd 256: one block an SM, 16-row query tiles (76 pairs for key tile 0)
+    (1, 300, 300, 8, 2, 256, {}, H100_SMS, (4, 19)),
+])
+def test_tf32x3_plan_rule(monkeypatch, B, Sq, Skv, H, KV, hd, kw, sms, want):
+    monkeypatch.setattr(tbuild, "sm_count", lambda device: sms)
+    q = torch.empty((B, Sq, H, hd))
+    k = torch.empty((B, Skv, KV, hd))
+    assert tflash.tf32x3_plan(q, k, **kw) == want
+    delta, partial = tflash.tf32x3_scratch(q, k, *want)
+    assert delta.shape == (B, H, Sq) and delta.dtype == torch.float32
+    if want[1] == 1:
+        assert partial is None
+    else:
+        assert partial.shape == (want[1], B * KV, -(-Skv // 64) * 64, 2, hd)
+        assert partial.dtype == torch.float32 and partial.data_ptr() % 16 == 0
+
+
+def test_tf32x3_scratch_refuses_a_split_that_misses_pairs():
+    q = torch.empty((4, 256, 8, 80))
+    k = torch.empty((4, 256, 2, 80))
+    with pytest.raises(ValueError, match="does not cover 32"):
+        tflash.tf32x3_scratch(q, k, 3, 10)
+
+
+def test_tf32_round_clears_the_low_mantissa_bits_to_nearest():
+    x = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 2.0**-12, 1.0 + 3 * 2.0**-12, -1.0 - 2.0**-12,
+                      3.14159265, -2.0**-20 * 1.7])
+    r = _tf32_round(x)
+    assert (r.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((r - x).abs() <= x.abs() * 2.0**-11).all()  # half a TF32 ulp
+    # TF32's ulp at 1 is 2^-10: half an ulp goes away from zero, a quarter
+    # down, three quarters up; the sign stays
+    assert r[1] == 1.0 + 2.0**-10 and r[2] == 1.0 and r[3] == 1.0 + 2.0**-10 and r[4] == -1.0
+
+
+def _tf32x3_backward(q, k, v, out, lse, do, *, passes, scale, **kw):
+    """The tf32x3 kernels' arithmetic in plain torch: every product of the
+    backward as three TF32 products of the operands' high and low parts
+    (`passes=3`; `passes=1`: one TF32 product), fp32 accumulation; P and dS
+    as the kernels form them. No rows without a key."""
+    def parts(x):
+        hi = _tf32_round(x)
+        return hi, _tf32_round(x - hi)
+
+    def mm(a, b):
+        ah, al = parts(a)
+        bh, bl = parts(b)
+        return ah @ bh if passes == 1 else ah @ bh + (al @ bh + ah @ bl)
+
+    B, Sq, H, hd = q.shape
+    G = H // k.shape[2]
+    qh, doh, oh = (x.transpose(1, 2) for x in (q, do, out))
+    kh, vh = (x.transpose(1, 2).repeat_interleave(G, dim=1) for x in (k, v))
+    mask = tref._build_mask(Sq, k.shape[1], **kw)
+    p = torch.where(mask, torch.exp(mm(qh, kh.transpose(-1, -2)) * scale - lse[..., None]), 0.0)
+    dp = mm(doh, vh.transpose(-1, -2))
+    ds = p * (dp - (doh * oh).sum(-1, keepdim=True))
+    dq = mm(ds, kh) * scale
+    dk = (mm(ds.transpose(-1, -2), qh) * scale).unflatten(1, (-1, G)).sum(2)
+    dv = mm(p.transpose(-1, -2), doh).unflatten(1, (-1, G)).sum(2)
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True, window=0, prefix_len=0, q_offset=0),
+                                dict(causal=True, window=24, prefix_len=0, q_offset=0),
+                                dict(causal=True, window=0, prefix_len=20, q_offset=0)],
+                         ids=["causal", "window", "prefix"])
+def test_three_tf32_products_keep_fp32_parity(kw):
+    """At the example's widths (8 query heads over 2, hd 80) and a small
+    depth, the tf32x3 arithmetic stays within 2e-5 of the fp32 plain
+    backward (max |d| / max |plain|) where one TF32 product a product does
+    not: the premise of the variant."""
+    B, S, H, KV, hd = 2, 64, 8, 2, 80
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(11, B, S, S, H, KV, hd))
+    out, lse = tref.attention_with_lse(q, k, v, **kw)
+    want = tref.attention_backward(q, k, v, out, lse, do, **kw)
+    for passes, bound in ((3, 2e-5), (1, None)):
+        got = _tf32x3_backward(q, k, v, out, lse, do, passes=passes, scale=hd**-0.5, **kw)
+        errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want)]
+        if bound is not None:
+            assert max(errs) <= bound, errs
+        else:
+            assert max(errs) > 2e-5, errs
+
+
+# ---------------------------------------------------------------------------
 # on the card (skips without a GPU)
 # ---------------------------------------------------------------------------
 
@@ -486,13 +672,28 @@ def cuda():
     (torch.bfloat16, 2, 100, 48, 8, 112, {"prefix_len": 30}),
     (torch.bfloat16, 1, 40, 48, 1, 160, {"q_offset": 30, "window": 8, "skv": 50}),
     (torch.bfloat16, 2, 129, 32, 32, 112, {}),  # zamba2-7b's heads, ragged
-    (torch.float32, 1, 100, 48, 1, 112, {}),     # fp32 at those shapes stays on simt
+    (torch.float32, 1, 100, 48, 1, 112, {}),     # fp32 at those shapes: tf32x3
+    # fp32 on tf32x3 at every head dim, split walks, prefix-LM, no-key rows
+    (torch.float32, 4, 256, 8, 2, 80, {}),       # train_100m's shape: split dK/dV walks
+    (torch.float32, 2, 200, 4, 1, 64, {"prefix_len": 50}),
+    (torch.float32, 1, 300, 8, 2, 128, {"window": 64}),
+    (torch.float32, 1, 100, 4, 1, 160, {"causal": False, "skv": 77}),
+    (torch.float32, 1, 130, 4, 1, 256, {}),
+    (torch.float32, 1, 40, 4, 1, 112, {"q_offset": 30, "window": 8, "skv": 50}),
+    # what the rule leaves to simt: bf16 at hd 32, bf16 with more than 64
+    # query heads a KV head, fp32 with q off 16 bytes
+    (torch.bfloat16, 2, 64, 8, 2, 32, {"window": 16}),
+    (torch.bfloat16, 1, 100, 72, 1, 64, {}),
+    (torch.float32, 2, 257, 8, 2, 80, {"window": 64, "unaligned_q": True}),
 ])
 def test_backward_kernel_matches_plain_on_card(cuda, dtype, B, S, H, KV, hd, kw):
     kw = dict(kw)
     Skv = kw.pop("skv", S + kw.get("q_offset", 0) // 3)
+    unaligned = kw.pop("unaligned_q", False)
     gen = torch.Generator(device=cuda).manual_seed(S + hd)
     q = torch.randn((B, S, H, hd), generator=gen, device=cuda).to(dtype)
+    if unaligned:  # the same values one element into a larger buffer
+        q = torch.cat([q.new_zeros(1), q.flatten()])[1:].view(q.shape)
     k = torch.randn((B, Skv, KV, hd), generator=gen, device=cuda).to(dtype)
     v = torch.randn((B, Skv, KV, hd), generator=gen, device=cuda).to(dtype)
     do = torch.randn((B, S, H, hd), generator=gen, device=cuda).to(dtype)
@@ -503,13 +704,24 @@ def test_backward_kernel_matches_plain_on_card(cuda, dtype, B, S, H, KV, hd, kw)
     want = tref.attention_backward(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     assert tflash.backward.variant_launches[kind] == before + 1
-    assert kind == ("wgmma" if dtype == torch.bfloat16 and H // KV <= 64 and hd >= 64
-                    else "simt")
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert kind == ("simt" if unaligned else "tf32x3" if dtype == torch.float32 else
+                    "wgmma" if H // KV <= 64 and hd >= 64 else "simt")
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5 if kind == "tf32x3" else 1e-4
     for name, a, b in zip("qkv", got, want):
         assert bool(torch.isfinite(a).all()), f"d{name} not finite"
         err = float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
         assert err <= tol, f"d{name}: {err}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", tflash.SUPPORTED_HEAD_DIMS)
+def test_tf32x3_tiling_matches_the_host_copy_on_card(cuda, hd):
+    """The host's plan copies the kernels' query rows a visit and blocks an
+    SM; the built kernels give theirs, and the card holds that many."""
+    rows, per_sm, resident = tflash.tf32x3_tiling(hd)
+    assert rows == tflash.tf32x3_walk_rows(hd)
+    assert per_sm == tflash.tf32x3_blocks_per_sm(hd)
+    assert resident >= per_sm
 
 
 @pytest.mark.gpu

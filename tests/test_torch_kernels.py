@@ -619,13 +619,15 @@ def test_flash_variant_rule(dtype, H, KV, hd, layout, want):
 def test_flash_variant_rule_at_padded_head_dims(dtype, hd, H, KV):
     """bf16 at head dims padded to whole 64-column tiles takes the tensor
     cores at every group of at most 64 query heads a KV head, the forward
-    and the backward alike; fp32 and larger groups stay on simt."""
+    and the backward alike; larger groups stay on simt; fp32's forward stays
+    on simt and its backward takes the three-pass TF32 tensor-core walk at
+    every group."""
     dt = TDT[dtype]
     q = torch.empty((1, 9, H, hd), dtype=dt)
     k = torch.empty((1, 9, KV, hd), dtype=dt)
     want = "wgmma" if dtype == "bfloat16" and H // KV <= 64 else "simt"
     assert tflash.variant(q, k, k) == want
-    assert tflash.backward_variant(q, k, k) == want
+    assert tflash.backward_variant(q, k, k) == ("tf32x3" if dtype == "float32" else want)
 
 
 @pytest.mark.parametrize("B,Sq,H,KV,sms,want", [
@@ -649,14 +651,16 @@ def test_flash_consumer_warpgroups_rule(monkeypatch, B, Sq, H, KV, sms, want):
 
 @pytest.mark.parametrize("units,sms,want", [
     (1, H100_SMS, 8), (8, H100_SMS, 8),    # gemma3's 8 slots x 1 KV head: the cap of 8
-    (64, H100_SMS, 4), (512, H100_SMS, 1),  # 64 x 2 = 128 blocks would not fill 132 SMs
-    (1, 114, 8), (8, 114, 8), (64, 114, 2), (512, 114, 1),
+    (64, H100_SMS, 2), (512, H100_SMS, 1),  # 64 x 4 = 256 blocks would need a second wave
+    (1, 114, 8), (8, 114, 8), (64, 114, 1), (512, 114, 1),
     (132, H100_SMS, 1), (33, H100_SMS, 4), (3, 2, 1),
+    (48, H100_SMS, 2), (96, H100_SMS, 1), (66, H100_SMS, 2), (67, H100_SMS, 1),
 ])
 def test_decode_cluster_size_rule(monkeypatch, units, sms, want):
-    """Blocks a cluster per (slot, KV head): the smallest power of two up to
-    8 whose clusters fill one wave of the card's SMs, 1 when the (slot, KV
-    head) pairs alone fill it; the same for the dense and the paged layout."""
+    """Blocks a cluster per (slot, KV head): the largest power of two up to
+    8 whose clusters still fit one wave of one block an SM, 1 when the
+    (slot, KV head) pairs alone exceed it; the same for the dense and the
+    paged layout."""
     monkeypatch.setattr(tbuild, "sm_count", lambda device: sms)
     for B, KV in ((units, 1), (1, units)):
         q = torch.empty((B, 2 * KV, 16), dtype=torch.bfloat16)
@@ -688,7 +692,7 @@ def test_decode_head_groups_rule(monkeypatch, groups, n_groups, per_block):
     q = torch.empty((8, groups, 128), dtype=torch.bfloat16)
     k = torch.empty((8, 64, 1, 128), dtype=torch.bfloat16)
     units = 8 * n_groups
-    want = next(c for c in (1, 2, 4, 8) if c == 8 or units * c >= H100_SMS)
+    want = max(c for c in (1, 2, 4, 8) if c == 1 or units * c <= H100_SMS)
     assert tcore.cluster_size(q, k) == want
 
 
@@ -734,8 +738,15 @@ def test_decode_layout_rule(dtype, H, KV, hd, layout, want):
     ("bfloat16", 256, "mma"),    # gemma3-1b at full width
     ("bfloat16", 128, "mma"), ("bfloat16", 64, "mma"), ("bfloat16", 32, "mma"),
     ("bfloat16", 16, "mma"),     # REDUCED in bf16: one k16 step
-    ("bfloat16", 112, "simt"),   # the tensor-core walk is unrolled for powers of two
-    ("bfloat16", 48, "simt"),
+    # the configs' dims between the powers of two, each its own unrolled walk
+    ("bfloat16", 112, "mma"),    # zamba2-7b, kimi-k2
+    ("bfloat16", 80, "mma"),     # train_100m's widths
+    ("bfloat16", 160, "mma"),    # stablelm-12b
+    ("float32", 80, "simt"),     # fp32 stays exact at every head dim
+    ("float32", 112, "simt"),
+    ("float32", 160, "simt"),
+    ("bfloat16", 48, "simt"),    # not a dim of the repo's configs: not instantiated
+    ("bfloat16", 96, "simt"),
     ("bfloat16", 8, "simt"),     # not a whole k16 step
     ("bfloat16", 40, "simt"),
     ("bfloat16", 36, "simt"),    # rows not whole 16-byte loads: element loads
@@ -744,12 +755,52 @@ def test_decode_layout_rule(dtype, H, KV, hd, layout, want):
     ("float32", 16, "simt"),     # REDUCED serving in fp32
 ])
 def test_decode_variant_rule(dtype, hd, want):
-    """bf16 rows of 16 to 256 dims, a power of two, are scored on the tensor
-    cores, the rest by exact fp32 FMA; the same rule for the dense and the
-    paged layout."""
+    """bf16 rows of 16, 32, 64, 80, 112, 128, 160 or 256 dims are scored on
+    the tensor cores, the rest by exact fp32 FMA; the same rule for the
+    dense and the paged layout."""
     q = torch.empty((2, 4, hd), dtype=TDT[dtype])
     assert tcore.variant(q, torch.empty((2, 32, 1, hd), dtype=TDT[dtype])) == want
     assert tcore.variant(q, torch.empty((9, 16, 1, hd), dtype=TDT[dtype])) == want
+
+
+@pytest.mark.parametrize("hd,H,KV,want", [
+    (112, 32, 32, "simt"),   # zamba2-7b: one head a KV head, one real row of 16
+    (80, 8, 8, "simt"), (160, 4, 4, "simt"),
+    (112, 64, 8, "mma"),     # kimi-k2
+    (160, 32, 8, "mma"),     # stablelm-12b
+    (112, 2, 1, "mma"),
+    (64, 12, 12, "mma"),     # whisper-small: one head a KV head at a power of two
+    (128, 4, 4, "mma"), (256, 1, 1, "mma"),
+])
+def test_decode_variant_rule_by_group(hd, H, KV, want):
+    """One query head a KV head at the padded head dims (80, 112, 160) stays
+    on the SIMT walk, measured faster there; more heads, and the powers of
+    two at any group, take the tensor cores."""
+    q = torch.empty((2, H, hd), dtype=torch.bfloat16)
+    assert tcore.variant(q, torch.empty((2, 32, KV, hd), dtype=torch.bfloat16)) == want
+    assert tcore.variant(q, torch.empty((9, 16, KV, hd), dtype=torch.bfloat16)) == want
+
+
+@pytest.mark.parametrize("hd", tcore.MMA_HEAD_DIMS)
+def test_decode_mma_ring_layout(hd):
+    """The mma walk's tile layout: each row's chunks map one to one onto
+    slots inside that row's stride (whole 128-byte groups from 8 chunks on,
+    so the swizzle never leaves the row), and the eight rows ldmatrix reads
+    at one chunk fall on distinct 16-byte bank groups (of the 8 in 128 bytes,
+    or all of a row's chunks when it has fewer)."""
+    n, stride = hd // 8, tcore.mma_row_chunks(hd)
+    assert stride >= n and (n < 8 or stride % 8 == 0)
+    assert stride == {80: 16, 112: 16, 160: 24}.get(hd, n)
+    rows = range(tcore.MMA_TILE_ROWS)
+    for row in rows:
+        slots = [tcore.mma_ring_slot(hd, row, c) for c in range(n)]
+        assert len(set(slots)) == n
+        assert all(row * stride <= x < (row + 1) * stride for x in slots)
+    groups = min(n, 8)
+    for c in range(n):
+        banks = [tcore.mma_ring_slot(hd, row, c) % groups for row in rows]
+        assert len(set(banks)) == groups
+        assert all(banks.count(b) == len(banks) // groups for b in set(banks))
 
 
 def test_variant_counts_start_at_zero_and_reset():
@@ -759,7 +810,7 @@ def test_variant_counts_start_at_zero_and_reset():
     tops.reset_launch_counts()
     assert tops.variant_counts() == {
         "flash_attention": {"simt": 0, "wgmma": 0},
-        "flash_attention_bwd": {"simt": 0, "wgmma": 0},
+        "flash_attention_bwd": {"simt": 0, "wgmma": 0, "tf32x3": 0},
         "paged_decode_attention": {"simt": 0, "mma": 0},
         "decode_attention": {"simt": 0, "mma": 0},
         "fused_linear": {"simt": 0, "simt_tiled": 0, "wgmma": 0},
@@ -888,12 +939,17 @@ def _decode_on_card(cuda, dtype, *, B, S, H, KV, hd, pos, poison=False, seed=6):
     (dict(B=4, S=300, H=8, KV=1, hd=128, pos=[299, 0, 150, 77]), "mma"),
     (dict(B=3, S=77, H=6, KV=2, hd=64, pos=[76, 3, 40]), "mma"),
     (dict(B=2, S=16, H=4, KV=1, hd=16, pos=[5, 15]), "mma"),
-    (dict(B=4, S=300, H=8, KV=1, hd=112, pos=[299, 0, 150, 77]), "simt"),
+    (dict(B=4, S=300, H=8, KV=1, hd=112, pos=[299, 0, 150, 77]), "mma"),
     (dict(B=3, S=77, H=6, KV=2, hd=48, pos=[76, 3, 40]), "simt"),
     (dict(B=3, S=100, H=4, KV=1, hd=40, pos=[99, 0, 50]), "simt"),
     (dict(B=3, S=100, H=4, KV=2, hd=8, pos=[99, 0, 50]), "simt"),
+    # the dims between the powers of two: padded ring rows, odd k16 steps,
+    # a last pair of n8 tiles
+    (dict(B=3, S=77, H=6, KV=2, hd=80, pos=[76, 3, 40]), "mma"),
+    (dict(B=8, S=1088, H=32, KV=8, hd=160, pos=[0, 15, 16, 100, 511, 512, 777, 1087]), "mma"),
+    (dict(B=4, S=300, H=4, KV=4, hd=112, pos=[299, 0, 150, 77]), "simt"),
 ], ids=["hd256", "hd128-groups8", "hd64-groups3", "hd16", "hd112-groups8", "hd48-groups3",
-        "hd40", "hd8"])
+        "hd40", "hd8", "hd80-groups3", "hd160-groups4", "hd112-groups1"])
 def test_decode_kernel_variants_match_plain_on_card(cuda, case, kind):
     """Each walk at the bf16 head dims its rule sends it, both entry points,
     against the plain versions at the reference's bf16 tolerances."""
@@ -996,7 +1052,11 @@ def test_paged_kernel_edge_cases_on_card(cuda, case, window, dtype):
     dict(B=4, S=304, H=8, KV=2, hd=128, pos=[299, 0, 64, 303]),
     dict(B=2, S=16, H=4, KV=1, hd=16, pos=[5, 15]),
     dict(B=8, S=8192, H=4, KV=1, hd=256, pos=[8191, 0, 1, 2, 4095, 5000, 7777, 300]),
-], ids=["global-1088", "gqa-304", "reduced-16", "long-8192"])
+    dict(B=4, S=304, H=8, KV=1, hd=80, pos=[299, 0, 64, 303]),
+    dict(B=8, S=1088, H=64, KV=8, hd=112, pos=[0, 15, 16, 100, 511, 512, 777, 1087]),
+    dict(B=4, S=304, H=32, KV=8, hd=160, pos=[299, 0, 64, 303]),
+], ids=["global-1088", "gqa-304", "reduced-16", "long-8192", "hd80-groups8", "hd112-groups8",
+        "hd160-groups4"])
 def test_dense_and_paged_kernels_bitwise_equal_on_card(cuda, case, dtype):
     """One decode core behind both entry points: the paged kernel over the
     dense cache seen as a pool (one page per slot, and pages of 16) gives

@@ -8,10 +8,16 @@ over the run falls on both sides. Modes:
 
 * ``flash``: flash's forward (bf16) at a few ragged and masked shapes against
   its plain version, then its device time at the configs' prefill shapes;
-* ``flash-bwd``: flash's backward (bf16) at the training shapes, against its
-  plain version within 2e-2 of max |plain| and timed;
+* ``flash-bwd``: flash's backward at the training shapes (bf16, and fp32 at
+  `examples/train_100m_torch.py`'s), against its plain version within 2e-2
+  (bf16) or 2e-5 (fp32) of max |plain| and timed;
+* ``decode``: the dense and the paged decode kernels at the configs' ticks
+  (B=8, 3026 valid positions, bf16), against their plain versions and
+  timed;
 * ``serves``: `chip_smoke.py`'s serve-dense-family and serve-zamba2 phases
-  (tok/s, TTFT; full-width weights, minutes a copy).
+  (tok/s, TTFT; full-width weights, minutes a copy); ``serves-moe``: its
+  serve-moe phase (grok-1 at 8 layers, kimi-k2 at 1);
+* ``train-100m``: `chip_smoke.py`'s example-train-100m phase (ms a step).
 
 Device times are `chip_smoke.device_ms` (profiler device time). The last line
 is the card's name and power limit. Run on the card from the repository's
@@ -49,8 +55,17 @@ BWD_TIMED = [("zamba2 train", dict(B=2, Sq=1024, H=32, KV=32, hd=112)),
              ("granite", dict(B=1, Sq=1024, H=48, KV=1, hd=128)),
              ("grok", dict(B=1, Sq=1024, H=48, KV=8, hd=128)),
              ("minitron B=2", dict(B=2, Sq=1024, H=32, KV=8, hd=128)),
-             ("whisper enc B=2", dict(B=2, Sq=1500, H=12, KV=12, hd=64, causal=False))]
-MODES = ("flash", "flash-bwd", "serves")
+             ("whisper enc B=2", dict(B=2, Sq=1500, H=12, KV=12, hd=64, causal=False)),
+             ("train_100m fp32", dict(B=4, Sq=256, H=8, KV=2, hd=80, dtype="float32"))]
+#: (name, H, KV, hd, paged) of the decode ticks timed: 8 slots, the serves'
+#: uneven positions in 1088-deep caches (pages of 16 when paged)
+DECODE_TIMED = [("stablelm dense", 32, 8, 160, False), ("stablelm paged", 32, 8, 160, True),
+                ("kimi paged", 64, 8, 112, True), ("zamba2 dense", 32, 32, 112, False),
+                ("grok dense", 48, 8, 128, False), ("grok paged", 48, 8, 128, True),
+                ("minitron paged", 32, 8, 128, True), ("granite paged", 48, 1, 128, True),
+                ("gemma3 paged", 4, 1, 256, True)]
+UNEVEN = [0, 15, 16, 100, 511, 512, 777, 1087]
+MODES = ("flash", "flash-bwd", "decode", "serves", "serves-moe", "train-100m")
 
 
 def _flash(cs, torch, tag):
@@ -82,17 +97,46 @@ def _flash_bwd(cs, torch, tag):
     gen = torch.Generator(device="cuda").manual_seed(1)
     out, ok = [], True
     for name, case in BWD_TIMED:
-        q, k, v, o, lse, do, kw = cs._bwd_case(torch, gen, dtype="bfloat16", **case)
+        case = {"dtype": "bfloat16", **case}
+        tol = 2e-5 if case["dtype"] == "float32" else cs.BWD_REL_TOL["bfloat16"]
+        q, k, v, o, lse, do, kw = cs._bwd_case(torch, gen, **case)
         got = flash_attention.flash_attention_backward(q, k, v, o, lse, do, **kw)
         want = ref.attention_backward(q, k, v, o, lse, do, **kw)
         rel = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
                   for a, b in zip(got, want))
-        ok &= rel <= cs.BWD_REL_TOL["bfloat16"]
+        ok &= rel <= tol
         ms = cs.device_ms(torch, lambda: flash_attention.flash_attention_backward(
             q, k, v, o, lse, do, **kw), iters=20)
-        out.append(f"{name} {ms:.4f}{'' if rel <= cs.BWD_REL_TOL['bfloat16'] else ' FAIL'}")
+        out.append(f"{name} {ms:.4f}{'' if rel <= tol else ' FAIL'}")
         del q, k, v, o, lse, do, got, want
     print(tag, "BWD", " | ".join(out), flush=True)
+    return ok
+
+
+def _decode(cs, torch, tag):
+    from repro_torch.kernels import decode_attention, paged_decode_attention, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out, ok = [], True
+    for name, H, KV, hd, paged in DECODE_TIMED:
+        q, k, v, pos = cs._decode_case(torch, gen, pos=UNEVEN, dtype=torch.bfloat16, H=H, KV=KV,
+                                       hd=hd)
+        if paged:
+            B, S = k.shape[:2]
+            k, v = (x.view(B * S // 16, 16, KV, hd) for x in (k, v))
+            tbl = torch.arange(B * S // 16, dtype=torch.int32, device="cuda").view(B, S // 16)
+            call = lambda: paged_decode_attention.paged_decode_attention(  # noqa: E731
+                q, k, v, tbl, pos)
+            want = ref.paged_decode_attention(q, k, v, tbl, pos)
+        else:
+            call = lambda: decode_attention.decode_attention(q, k, v, pos)  # noqa: E731
+            want = ref.decode_attention(q, k, v, pos)
+        err, good = cs._max_err_and_ok(torch, call(), want, cs.PAGED_TOL["bfloat16"])
+        ok &= good
+        ms = cs.device_ms(torch, call, iters=50)
+        out.append(f"{name} {ms:.4f}{'' if good else ' FAIL'}")
+        del q, k, v, want
+    print(tag, "DECODE", " | ".join(out), flush=True)
     return ok
 
 
@@ -100,6 +144,18 @@ def _serves(cs, torch, tag):
     cs.log = lambda msg: print(f"<{tag}> {msg}", flush=True)
     cs.run_phase("serve-dense-family", cs.phase_serve_dense_family, torch)
     cs.run_phase("serve-zamba2", cs.phase_serve_zamba2, torch)
+    return True
+
+
+def _serves_moe(cs, torch, tag):
+    cs.log = lambda msg: print(f"<{tag}> {msg}", flush=True)
+    cs.run_phase("serve-moe", cs.phase_serve_moe, torch)
+    return True
+
+
+def _train_100m(cs, torch, tag):
+    cs.log = lambda msg: print(f"<{tag}> {msg}", flush=True)
+    cs.run_phase("example-train-100m", cs.phase_example_train_100m, torch, tag)
     return True
 
 
@@ -118,7 +174,8 @@ def _one(mode: str, tree: str, build_only: bool) -> int:
         build.load(verbose=True)
         print(tag, "built; ptxas C7515:", "C7515" in build.build_log(), flush=True)
         return 0
-    run = {"flash": _flash, "flash-bwd": _flash_bwd, "serves": _serves}[mode]
+    run = {"flash": _flash, "flash-bwd": _flash_bwd, "decode": _decode, "serves": _serves,
+           "serves-moe": _serves_moe, "train-100m": _train_100m}[mode]
     return 0 if run(cs, torch, tag) else 1
 
 
