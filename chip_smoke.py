@@ -32,9 +32,15 @@ nothing of JAX or of the JAX package. Phases:
    linear scan) with CUDA events, the profiler's device time (the library
    call's too) and, where a path finds its inputs cold, with the inputs
    cycled past the L2; each kernel's TFLOP/s on its device time. The
-   kernels with variants (flash_attention: wgmma / simt; fused_linear:
-   wgmma / simt_tiled / simt) must take the tensor-core variant at every
-   bf16 shape it covers, the timed ones included; the two decode kernels
+   kernels with variants (flash_attention: wgmma / tf32x3 / simt;
+   fused_linear: wgmma / simt_small / simt_tiled / simt) must take the
+   variant their rule names at every shape they cover (flash: the
+   tensor-core wgmma at every bf16 shape it takes, tf32x3 at every aligned
+   fp32 one: every supported head dim at groups of 1, 4, 6, 48 and 72, each
+   mask, rows with no key, ragged S, its log-sum-exp within 1e-3 and the
+   simt kernel held on the same operands; fused_linear: simt_small at Test
+   Case 2's layers, timed beside simt on the same operands and addmm), the
+   timed ones included; the two decode kernels
    (mma / simt) must take mma at their timed shape, are timed on one cache
    through both entry points (bitwise equal outputs), with the exact-FMA
    walk and with clusters of 16 for the record, and print their `-Xptxas
@@ -50,7 +56,7 @@ nothing of JAX or of the JAX package. Phases:
    tile widths, timed at every path shape against a bound built from the
    work itself, and its kernels' `-Xptxas -v` lines printed; zamba2-7b's
    shapes: flash at head_dim 112 (and 160, G=4; and 80,
-   `examples/train_100m_torch.py`'s, in fp32 on simt, bf16 on wgmma, and
+   `examples/train_100m_torch.py`'s, in fp32 on tf32x3, bf16 on wgmma, and
    ragged) and the decode core at 32 heads of 112 (simt, mma beside it), both beside
    SDPA, the scan at
    Mamba2's tick and ragged prefill with the operands laid out as
@@ -90,8 +96,9 @@ nothing of JAX or of the JAX package. Phases:
    encoder (1500 frames) and cross-attention (64 against 1500 keys) and
    bf16 rows with no key among them, and `examples/train_100m_torch.py`'s
    shape (B=4, S=256, 8 query heads over 2 at hd 80, fp32, a global and a
-   local layer: `tf32x3`, timed beside `simt`, SDPA and cold; bf16 on
-   wgmma, and ragged S = 257 too); at
+   local layer: `tf32x3`, forward and backward each timed twice beside
+   `simt` on the same operands, SDPA (TF32 off) and cold, with the bound
+   both ways; bf16 on wgmma, and ragged S = 257 too); at
    gemma3-1b's training shape, hd 112, hd 160 G=4, G=48, G=6 and zamba2-7b's
    training shape the wgmma variant timed warm (twice) and cold beside the
    simt variant on the same operands (which it must beat), its plain version
@@ -110,7 +117,9 @@ nothing of JAX or of the JAX package. Phases:
    beside the simt variant on the same operands and the plain version;
 4. reduced: REDUCED gemma3-1b in fp32 (TF32 off): prefill plus 16
    teacher-forced paged decode ticks on the card against the same functions
-   on the CPU;
+   on the CPU (here and in every REDUCED fp32 phase below, the card run's
+   flash forward launches are logged by variant and must all be on
+   `tf32x3`);
 5. serve: full gemma3-1b (26 layers, d_model 1152, vocab 262144, bf16) serves
    16 synthetic requests (prompts 64-1024 tokens, 16-64 new tokens) on 8
    slots through `ContinuousBatchingScheduler.serve()` with the paged KV
@@ -128,7 +137,7 @@ nothing of JAX or of the JAX package. Phases:
 9. tc2: the paper's Test Case 2, all three rows (``numpy`` on the port's
    `hostcpu` backend, ``torch`` and ``fused_linear`` on the card): equal
    accuracy above 0.85, img-0 scores within 1e-4, `fused_linear` launched
-   twice per batch, every launch on the fp32 `simt` variant;
+   twice per batch, every launch on the fp32 `simt_small` variant;
 10. reduced-xlstm: REDUCED xlstm-125m in fp32 on the card against the CPU:
    forward logits and loss, prefill plus 16 teacher-forced ticks carrying
    the recurrent states (within 1e-4), a dense continuous serve and a serial
@@ -260,7 +269,7 @@ nothing of JAX or of the JAX package. Phases:
 38. example-hetero: `examples/heterogeneous_inference_torch.py`'s three
    rows through its `run` on the card: phase 9's checks (equal accuracy
    above 0.85, img-0 scores within 1e-4, `fused_linear` twice a batch, on
-   `simt`);
+   `simt_small`);
 39. example-serve-demo: `examples/serve_demo_torch.py`'s two acts (two
    clients and a channel server over localsim; a router and two workers
    created at run time) at REDUCED fp32 on the card, token for token equal
@@ -273,7 +282,7 @@ nothing of JAX or of the JAX package. Phases:
    defaults (30 steps, B=4 x 256, a checkpoint at 25) through its `train`
    (the spmd compute manager over an NCCL world of one that it starts and
    destroys): finite, falling losses, `expected_train_launches` flash
-   forward (simt) and backward (tf32x3) launches a step, ms a step, training
+   forward and backward launches a step (both tf32x3), ms a step, training
    tok/s, peak memory; a second run resumes at 25 and its step-30 loss
    equals the first's within 1e-5 relative (bit equality reported). The
    flash forward and backward at its shape are timed in phase 3 beside the
@@ -442,6 +451,19 @@ def require_variant(variants, kernel: str, want: str, n: int, what: str) -> None
             f"{what}: {kernel} launches by variant {got}, expected all {n} on {want}")
 
 
+def require_fp32_flash(tag: str) -> None:
+    """The flash forward launches counted since the counts were last zeroed
+    (a REDUCED fp32 phase's run on the card): logged by variant, and every
+    one required on `tf32x3`, the rule's variant for aligned fp32 operands."""
+    from repro_torch.kernels import ops
+
+    got = ops.variant_counts()["flash_attention"]
+    if sum(got.values()):
+        log(f"[{tag}] flash forward launches by variant {got}")
+    require(got["tf32x3"] == sum(got.values()),
+            f"{tag}: flash forward launches by variant {got}, expected all on tf32x3")
+
+
 def _max_err_and_ok(torch, got, want, tol) -> tuple:
     got32, want32 = got.float(), want.float()
     diff = (got32 - want32).abs()
@@ -451,10 +473,14 @@ def _max_err_and_ok(torch, got, want, tol) -> tuple:
 
 
 def _flash_case(torch, gen, *, Sq, Skv, H, KV, hd, dtype, B=1, causal=True, window=0,
-                prefix_len=0, q_offset=0):
+                prefix_len=0, q_offset=0, unaligned_q=False):
+    """Seeded q, k, v (q one element into a larger buffer with
+    `unaligned_q`: off 16 bytes), the kernel's output and the plain one."""
     from repro_torch.kernels import flash_attention, ref
 
     q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
+    if unaligned_q:
+        q = torch.cat([q.new_zeros(1), q.flatten()])[1:].view(q.shape)
     k = torch.randn((B, Skv, KV, hd), generator=gen, device="cuda").to(dtype)
     v = torch.randn((B, Skv, KV, hd), generator=gen, device="cuda").to(dtype)
     kw = dict(causal=causal, window=window, prefix_len=prefix_len, q_offset=q_offset)
@@ -462,6 +488,24 @@ def _flash_case(torch, gen, *, Sq, Skv, H, KV, hd, dtype, B=1, causal=True, wind
     want = ref.attention(q, k, v, **kw)
     torch.cuda.synchronize()
     return (q, k, v, kw), got, want
+
+
+def _flash_kind(dtype_name: str, case: dict) -> str:
+    """The forward variant flash's rule gives a case's operands: `wgmma`
+    (`_tensor_core_case`), `tf32x3` for fp32 (16-byte aligned, as fresh
+    tensors are unless the case asks for an unaligned q), `simt` for the
+    rest."""
+    if _tensor_core_case(dtype_name, case):
+        return "wgmma"
+    return "tf32x3" if dtype_name == "float32" and not case.get("unaligned_q") else "simt"
+
+
+#: masks of the tf32x3 forward's cases, in turn over the head dims and
+#: groups: causal, a window, a prefix-LM, a q_offset (Skv > Sq), rows with no
+#: key (a window past the last key), bidirectional with Skv < Sq
+TF32X3_MASKS = (dict(B=2, Sq=77, Skv=77), dict(Sq=100, Skv=100, window=16),
+                dict(Sq=90, Skv=90, prefix_len=30), dict(Sq=50, Skv=90, q_offset=40),
+                dict(Sq=50, Skv=20, window=8), dict(Sq=60, Skv=41, causal=False))
 
 
 def _tensor_core_case(dtype_name: str, case: dict) -> bool:
@@ -506,7 +550,7 @@ def check_flash(torch, gen) -> dict:
         dict(Sq=64, Skv=300, H=4, KV=1, hd=128, dtype=torch.bfloat16, q_offset=236, prefix_len=250),
     ]
     # head dims between the powers of two (wgmma in bf16, tiles padded to
-    # 128 / 192 columns; simt in fp32): zamba2-7b's shared block (32 heads
+    # 128 / 192 columns; tf32x3 in fp32): zamba2-7b's shared block (32 heads
     # over 32, head_dim 112) at its prefill shape and ragged; stablelm-12b's
     # head_dim 160 with 4 query heads a KV head
     cases += [
@@ -550,7 +594,7 @@ def check_flash(torch, gen) -> dict:
         dict(Sq=77, Skv=77, H=64, KV=8, hd=112, dtype=torch.float32),
     ]
     # examples/train_100m_torch.py's attention (8 query heads over 2 at head_dim
-    # 80, fp32, B=4 x 256, causal; its local layers' window 256: simt), in
+    # 80, fp32, B=4 x 256, causal; its local layers' window 256: tf32x3), in
     # bf16 (wgmma, tiles padded to 128 columns) and at a ragged length
     cases += [
         dict(B=4, Sq=256, Skv=256, H=8, KV=2, hd=80, dtype=torch.float32),
@@ -571,30 +615,51 @@ def check_flash(torch, gen) -> dict:
         dict(B=8, Sq=512, Skv=512, H=48, KV=8, hd=128, dtype=torch.bfloat16),
         dict(B=3, Sq=100, Skv=100, H=96, KV=1, hd=128, dtype=torch.bfloat16),
     ]
+    # fp32 on tf32x3 at every head dim and at groups of 1, 4, 6, 48 and 72
+    # (more query heads a KV head than a block's 64 rows), the masks in turn
+    for i, (hd, G) in enumerate((hd, G) for hd in flash_attention.SUPPORTED_HEAD_DIMS
+                                for G in (1, 4, 6, 48, 72)):
+        cases.append(dict(TF32X3_MASKS[i % len(TF32X3_MASKS)], H=G, KV=1, hd=hd,
+                          dtype=torch.float32))
+    cases += [dict(B=2, Sq=77, Skv=77, H=8, KV=2, hd=80, dtype=torch.float32, unaligned_q=True),
+              dict(Sq=50, Skv=20, H=4, KV=1, hd=16, dtype=torch.float32, window=8,
+                   unaligned_q=True)]
     # the serial engine's prefill, 8 prompts of 512 tokens: a grid over a wave,
     # so two consumer warpgroups a block
     serial = [dict(B=8, Sq=512, Skv=512, H=4, KV=1, hd=256, dtype=torch.bfloat16, window=w)
               for w in (0, 512)]
     worst, worst_tol = 0.0, None
-    consumers_seen = set()
+    consumers_seen, kinds_seen = set(), set()
     for case in cases + serial:
         before = dict(flash_attention.variant_launches)
-        (q, k, _, _), got, want = _flash_case(torch, gen, **case)
+        (q, k, v, kw), got, want = _flash_case(torch, gen, **case)
         kind = [n for n, c in flash_attention.variant_launches.items() if c != before[n]]
         name = str(case["dtype"]).split(".")[-1]
         err, ok = _max_err_and_ok(torch, got, want, TOL[name])
         desc = ", ".join(f"{k}={v}" for k, v in case.items() if k != "dtype")
-        tc = _tensor_core_case(name, case)
+        want_kind = _flash_kind(name, case)
+        kinds_seen.add(want_kind)
         layout = kind[0]
         if kind == ["wgmma"]:
             consumers = flash_attention.consumer_warpgroups(q, k)
             consumers_seen.add(consumers)
             layout = f"wgmma, {consumers} consumer warpgroup{'s' if consumers > 1 else ''}"
+        extra = ""
+        if want_kind == "tf32x3":
+            # its log-sum-exp (rows with a key), and the simt kernel on the
+            # same operands (the C entry point's code 0), as fp32 ran before
+            _, lse = flash_attention.flash_attention_with_lse(q, k, v, **kw)
+            _, lse_plain = ref.attention_with_lse(q, k, v, **kw)
+            live = lse_plain > -1e29
+            lse_err = float((lse - lse_plain)[live].abs().max()) if live.any() else 0.0
+            simt_err, simt_ok = _max_err_and_ok(torch, _fwd_simt(torch, q, k, v, **kw), want,
+                                                TOL[name])
+            extra = f"; lse max err {lse_err:.3e}, simt on the same operands {simt_err:.3e}"
+            ok = ok and lse_err <= LSE_ATOL and simt_ok
         log(f"[kernels] flash_attention {name} {desc} ({layout}): max_abs_err={err:.3e} "
-            f"tol={TOL[name]} {'ok' if ok else 'FAIL'}")
+            f"tol={TOL[name]}{extra} {'ok' if ok else 'FAIL'}")
         require(ok, f"flash_attention disagrees with its plain version ({desc}, {name})")
-        require(kind == ["wgmma" if tc else "simt"],
-                f"flash_attention ({desc}, {name}) ran {kind}")
+        require(kind == [want_kind], f"flash_attention ({desc}, {name}) ran {kind}")
         if case in serial:
             require(consumers == 2, f"flash_attention ({desc}) ran {consumers} consumer "
                     f"warpgroups a block, expected 2")
@@ -602,6 +667,7 @@ def check_flash(torch, gen) -> dict:
             worst, worst_tol = err, TOL[name]
     require(consumers_seen == {1, 2},
             f"the compared wgmma cases ran {sorted(consumers_seen)} consumer warpgroups a block")
+    require(kinds_seen == {"wgmma", "tf32x3", "simt"}, f"the cases ran {sorted(kinds_seen)}")
 
     # timing at the serving path's heaviest prefill: a 1024-token prompt
     # through a global layer (causal, no window), bf16
@@ -714,7 +780,7 @@ FLASH_SIMT_BESIDE = ("zamba2-7b prefill", "stablelm-12b prefill", "granite-20b p
 
 
 def _fwd_simt(torch, q, k, v, **kw):
-    """The `simt` forward at operands the rule gives to `wgmma`: its C entry
+    """The `simt` forward at operands the rule gives to `wgmma` or `tf32x3`: its C entry
     point with the simt code, for the before-and-after timing only (no
     launch is counted: no path runs it); the twin of `_bwd_simt`."""
     from repro_torch.kernels import build, flash_attention
@@ -1105,26 +1171,28 @@ TRAIN_100M_ATTENTION = dict(B=4, Sq=256, H=8, KV=2, hd=80)
 
 
 def time_flash_hd80(torch, gen) -> tuple:
-    """The flash forward (`simt`) and backward (`tf32x3`) at
+    """The flash forward and backward (both `tf32x3`) at
     `TRAIN_100M_ATTENTION` in fp32, timed (CUDA events and the profiler's
-    device time) beside the plain version and SDPA (its backward through
-    autograd, the same output gradient), the backward also twice, cold, and
-    beside the `simt` backward on the same operands (the rule's old
-    variant, through the C entry point), with the bound from the pairs the
-    causal mask keeps (the backward's both ways: at the fp32 FMA peak, and
-    as three products at the TF32 peak). Returns (forward row, backward
-    row) for the two kernels' `other_timings`."""
+    device time) beside the plain version and SDPA (TF32 off; its backward
+    through autograd, the same output gradient), each also twice, cold, and
+    beside the `simt` kernel on the same operands (the rule's old variant,
+    through the C entry point), with the bound from the pairs the causal
+    mask keeps, both ways: at the fp32 FMA peak, and as three products at
+    the TF32 peak. Returns (forward row, backward row) for the two kernels'
+    `other_timings`."""
     from repro_torch.kernels import flash_attention, ref
     from repro_torch.kernels.ref import _build_mask
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     q, k, v, out, lse, do, kw = _bwd_case(torch, gen, dtype="float32", **TRAIN_100M_ATTENTION)
     B, Sq, H, hd = q.shape
     fwd = lambda: flash_attention.flash_attention(q, k, v, **kw)  # noqa: E731
     bwd = lambda: flash_attention.flash_attention_backward(  # noqa: E731
         q, k, v, out, lse, do, **kw)
-    require(launched_variant(flash_attention, fwd) == "simt"
+    require(launched_variant(flash_attention, fwd) == "tf32x3"
             and launched_variant(flash_attention.backward, bwd) == "tf32x3",
-            "flash at train_100m's shape did not run simt forward and tf32x3 backward")
+            "flash at train_100m's shape did not run the tf32x3 forward and backward")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -1138,27 +1206,40 @@ def time_flash_hd80(torch, gen) -> tuple:
     pairs = B * int(_build_mask(Sq, Sq, device="cuda", **kw).sum().item())
     f_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     f_flops = 4 * hd * H * pairs
-    fb_bytes = f_bytes / PEAK_BYTES_PER_S * 1e3
-    fb_ops = f_flops / PEAK_FLOPS["float32"] * 1e3
-    fma_bound, fma_by, b_bytes, b_flops = _bwd_bound_ms(q, k, lse, kw)
-    tb_bytes = b_bytes / PEAK_BYTES_PER_S * 1e3
-    tb_ops = 3 * b_flops / PEAK_FLOPS["tfloat32"] * 1e3
-    # the least time is the lower of the two ways to do the work: fp32 FMA,
-    # or three TF32 products a product on the tensor cores (tf32x3's way)
-    tf32_bound = max(tb_bytes, tb_ops)
-    tf32_by = "bytes" if tb_bytes >= tb_ops else "operations"
-    b_bound, b_by = min((tf32_bound, tf32_by), (fma_bound, fma_by))
+
+    def both_ways(n_bytes, flops):
+        """(bound, bound_by, at the fp32 FMA peak, as three TF32 products):
+        the least time is the lower of the two ways to do the work, fp32 FMA
+        or three TF32 products a product on the tensor cores (tf32x3's
+        way), each the larger of its bytes and its operations."""
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        ways = [(max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+                for t_ops in (flops / PEAK_FLOPS["float32"] * 1e3,
+                              3 * flops / PEAK_FLOPS["tfloat32"] * 1e3)]
+        return (*min(ways), ways[0][0], ways[1][0])
+
+    f_bound, f_by, f_fma, f_tf32 = both_ways(f_bytes, f_flops)
+    _, _, b_bytes, b_flops = _bwd_bound_ms(q, k, lse, kw)
+    b_bound, b_by, fma_bound, tf32_bound = both_ways(b_bytes, b_flops)
     shape = (f"train_100m: B={B} Sq=Skv={Sq} H={H} KV={k.shape[2]} hd={hd} fp32 causal "
-             f"(forward simt, backward tf32x3)")
+             f"(forward and backward tf32x3)")
+    simt_fwd = lambda: _fwd_simt(torch, q, k, v, **kw)  # noqa: E731
     with torch.no_grad():
         fwd_row = dict(
-            shape=shape, variant="simt", ms=time_ms(torch, fwd), device_ms=device_ms(torch, fwd),
+            shape=shape, variant="tf32x3", ms=time_ms(torch, fwd),
+            device_ms=device_ms(torch, fwd), simt_device_ms=device_ms(torch, simt_fwd),
             plain_ms=time_ms(torch, lambda: ref.attention(q, k, v, **kw)),
             plain_device_ms=device_ms(torch, lambda: ref.attention(q, k, v, **kw), iters=5),
             library_ms=time_ms(torch, lib_fwd), library_device_ms=device_ms(torch, lib_fwd),
             library_err=float((lib_fwd().transpose(1, 2) - want).abs().max().item()),
-            bound_ms=max(fb_bytes, fb_ops), bytes=f_bytes, flops=f_flops,
-            bound_by="bytes" if fb_bytes >= fb_ops else "operations")
+            kernel_err=float((fwd() - want).abs().max().item()),
+            simt_err=float((simt_fwd() - want).abs().max().item()),
+            device_ms_again=device_ms(torch, fwd),
+            cold_device_ms=cold_device_ms(
+                torch, lambda *xs: flash_attention.flash_attention(*xs, **kw), (q, k, v),
+                sum(x.nbytes for x in (q, k, v))),
+            bound_ms=f_bound, bound_by=f_by, bytes=f_bytes, flops=f_flops,
+            bound_tf32x3_ms=f_tf32, bound_fp32_fma_ms=f_fma)
     simt_bwd = lambda: _bwd_simt(torch, q, k, v, out, lse, do, **kw)  # noqa: E731
     bwd_row = dict(
         shape=shape, variant="tf32x3", ms=time_ms(torch, bwd, iters=10),
@@ -1187,6 +1268,14 @@ def time_flash_hd80(torch, gen) -> tuple:
             f"{row.get('library_err', row.get('library_dq_err')):.3e}); bound "
             f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {row['bytes']} B, "
             f"{row['flops']} FLOP); {row['tflops']:.3f} TFLOP/s on the device time")
+    log(f"[kernels] flash_attention tf32x3 at train_100m: device {fwd_row['device_ms']:.4f} "
+        f"/ again {fwd_row['device_ms_again']:.4f} ms, cold {fwd_row['cold_device_ms']:.4f} ms; "
+        f"simt on the same operands {fwd_row['simt_device_ms']:.4f} ms; SDPA "
+        f"{fwd_row['library_device_ms']:.4f} ms; max err vs plain: tf32x3 "
+        f"{fwd_row['kernel_err']:.3e}, simt {fwd_row['simt_err']:.3e}, SDPA "
+        f"{fwd_row['library_err']:.3e}; bound {f_bound * 1e3:.2f} us, the lower of "
+        f"{f_tf32 * 1e3:.2f} us as three products at the TF32 peak and {f_fma * 1e3:.2f} us at "
+        f"the fp32 FMA peak")
     log(f"[kernels] flash_attention_bwd tf32x3 at train_100m: device {bwd_row['device_ms']:.4f} "
         f"/ again {bwd_row['device_ms_again']:.4f} ms, cold {bwd_row['cold_device_ms']:.4f} ms "
         f"(chunk, splits {bwd_row['plan']}); simt on the same operands "
@@ -1201,6 +1290,12 @@ def time_flash_hd80(torch, gen) -> tuple:
         require(bwd_row[key] / dq_scale <= tol,
                 f"the {kind_} backward's dq at train_100m is off its plain version by "
                 f"{bwd_row[key] / dq_scale:.3e} (tol {tol})")
+    for key in ("kernel_err", "simt_err"):  # the forward's, within fp32's tolerance
+        require(fwd_row[key] <= TOL["float32"]["atol"] + TOL["float32"]["rtol"] * float(
+            want.abs().max()), f"the forward's {key} at train_100m is {fwd_row[key]:.3e}")
+    require(max(fwd_row["device_ms"], fwd_row["device_ms_again"]) < fwd_row["simt_device_ms"],
+            f"the tf32x3 forward at train_100m ({fwd_row['device_ms']:.4f} ms) is not faster "
+            f"than simt's {fwd_row['simt_device_ms']:.4f} ms on the same operands")
     require(max(bwd_row["device_ms"], bwd_row["device_ms_again"]) < bwd_row["simt_device_ms"],
             f"the tf32x3 backward at train_100m ({bwd_row['device_ms']:.4f} ms) is not faster "
             f"than simt's {bwd_row['simt_device_ms']:.4f} ms on the same operands")
@@ -1723,6 +1818,37 @@ def _linear_bound_ms(M, K, N, elem, dtype_name) -> tuple:
     return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations"), n_bytes, flops
 
 
+#: the variant fused_linear's rule names for each checked (dtype, M, K, N)
+#: on a card of 132 SMs: simt_small where W and 16 rows of x fit 48 KB and
+#: the product is under a wave of 64 x 64 tiles (Test Case 2's layers,
+#: ragged and tiny products; bf16 where TMA's alignment fails), wgmma for
+#: bf16 with K, N multiples of 8, simt for the rest of fp32's small products
+LINEAR_KINDS = {
+    **{("float32", M, K, N): "simt_small" for M, K, N in ((256, 64, 32), (256, 32, 10),
+                                                         (77, 50, 10))},
+    ("float32", 128, 128, 128): "simt", ("float32", 256, 384, 128): "simt",
+    **{("bfloat16", M, K, N): "wgmma" for M, K, N in ((256, 64, 32), (128, 128, 128),
+                                                     (256, 384, 128), (1000, 520, 264),
+                                                     (300, 72, 8), (1536, 1024, 1280))},
+    ("bfloat16", 256, 32, 10): "simt_small", ("bfloat16", 77, 50, 10): "simt_small",
+}
+
+
+def _linear_simt(torch, x, w, b, act):
+    """The `simt` fused_linear at operands the rule gives to `simt_small`:
+    its C entry point with the simt code, for the before-and-after timing
+    only (no launch is counted: no path runs it); the twin of `_fwd_simt`."""
+    from repro_torch.kernels import build, fused_linear
+
+    y = torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype, device=x.device)
+    err = fused_linear._entry()(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), x.shape[0], w.shape[1],
+        x.shape[1], fused_linear._DTYPE_CODES[x.dtype], fused_linear.ACTS[act],
+        fused_linear._VARIANT_CODES["simt"], torch.cuda.current_stream().cuda_stream)
+    build.check(err, "fused_linear (simt, timing)")
+    return y
+
+
 def check_fused_linear(torch, gen) -> dict:
     from repro_torch.kernels import build, fused_linear
 
@@ -1750,9 +1876,9 @@ def check_fused_linear(torch, gen) -> dict:
                     f"max_abs_err={err:.3e} tol={LINEAR_TOL[name]} {'ok' if ok else 'FAIL'}")
                 require(ok, f"fused_linear disagrees with its plain version "
                         f"(M={M} K={K} N={N} act={act}, {name})")
-                if dtype == torch.bfloat16:  # N = 10 and K = 50 are not TMA-aligned
-                    want_kind = "simt" if K % 8 or N % 8 else "wgmma"
-                    require(kind == want_kind, f"fused_linear bf16 M={M} K={K} N={N} ran {kind}")
+                want_kind = LINEAR_KINDS[name, M, K, N]
+                require(kind == want_kind, f"fused_linear {name} M={M} K={K} N={N} ran {kind}, "
+                        f"expected {want_kind}")
                 if err > worst:
                     worst, worst_tol = err, LINEAR_TOL[name]
 
@@ -1761,6 +1887,14 @@ def check_fused_linear(torch, gen) -> dict:
                    for sh in ((M, K), (K, N), (N,)))
         x, w, b = (t.to(dtype) for t in (x, w, b))
         kind = launched_variant(fused_linear, lambda: fused_linear.fused_linear(x, w, b, act=act))
+        beside = {}
+        if kind == "simt_small":  # the simt kernel on the same operands, as before
+            simt_err, simt_ok = _max_err_and_ok(
+                torch, _linear_simt(torch, x, w, b, act),
+                fused_linear.fused_linear_ref(x, w, b, act=act), LINEAR_TOL["float32"])
+            require(simt_ok, f"fused_linear simt M={M} K={K} N={N} disagrees: {simt_err:.3e}")
+            beside = dict(simt_device_ms=device_ms(
+                torch, lambda: _linear_simt(torch, x, w, b, act), iters=iters), simt_err=simt_err)
         t_kernel = time_ms(torch, lambda: fused_linear.fused_linear(x, w, b, act=act), iters=iters)
         t_plain = time_ms(torch, lambda: fused_linear.fused_linear_ref(x, w, b, act=act),
                           iters=iters)
@@ -1774,26 +1908,35 @@ def check_fused_linear(torch, gen) -> dict:
         bound, by, n_bytes, flops = _linear_bound_ms(M, K, N, x.element_size(), name)
         err = float((fused_linear.fused_linear(x, w, b, act=act).float()
                      - fused_linear.fused_linear_ref(x, w, b, act=act).float()).abs().max())
+        if beside:
+            beside["device_ms_again"] = device_ms(
+                torch, lambda: fused_linear.fused_linear(x, w, b, act=act), iters=iters)
         log(f"[kernels] fused_linear timing M={M} K={K} N={N} {name} act={act} ({kind}): kernel "
             f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, addmm {t_lib:.4f} ms (bias only; the "
             f"activation would be one more launch); device time per call: kernel "
-            f"{d_kernel:.4f} ms, plain {d_plain:.4f} ms, addmm {d_lib:.4f} ms; max_abs_err vs "
-            f"plain {err:.3e}; bound "
+            f"{d_kernel:.4f} ms, plain {d_plain:.4f} ms, addmm {d_lib:.4f} ms"
+            + (f", simt on the same operands {beside['simt_device_ms']:.4f} ms (max_abs_err "
+               f"{beside['simt_err']:.3e}), {kind} again {beside['device_ms_again']:.4f} ms"
+               if beside else "")
+            + f"; max_abs_err vs plain {err:.3e}; bound "
             f"{bound * 1e3:.3f} us by {by} ({n_bytes} B, {flops} FLOP); "
             f"{flops / (d_kernel * 1e-3) / 1e12:.2f} TFLOP/s on the device time")
         return dict(shape=f"M={M} K={K} N={N} {name} act={act}", variant=kind, ms=t_kernel,
                     plain_ms=t_plain, device_ms=d_kernel, plain_device_ms=d_plain,
                     library_ms=t_lib, library_device_ms=d_lib, bound_ms=bound, bound_by=by,
-                    max_abs_err=err, tflops=flops / (d_kernel * 1e-3) / 1e12)
+                    max_abs_err=err, tflops=flops / (d_kernel * 1e-3) / 1e12, **beside)
 
-    # the Test Case 2 path: layer 1 (256 x 64 @ 64 x 32, relu), fp32
+    # the Test Case 2 path: layer 1 (256 x 64 @ 64 x 32, relu) and layer 2
+    # (256 x 32 @ 32 x 10, none), fp32, each beside simt on the same operands
     main = timings(256, 64, 32, torch.float32, "relu", iters=100)
+    layer2 = timings(256, 32, 10, torch.float32, "none", iters=100)
     large = [timings(*LARGE_GEMM, torch.float32, "none", iters=5),
              timings(*LARGE_GEMM, torch.bfloat16, "none", iters=5)]
-    require(main["variant"] == "simt" and large[0]["variant"] == "simt_tiled"
-            and large[1]["variant"] == "wgmma",
-            f"timed fused_linear variants {main['variant']}, {large[0]['variant']}, "
-            f"{large[1]['variant']}; expected simt, simt_tiled, wgmma")
+    require([main["variant"], layer2["variant"], large[0]["variant"], large[1]["variant"]]
+            == ["simt_small", "simt_small", "simt_tiled", "wgmma"],
+            f"timed fused_linear variants {main['variant']}, {layer2['variant']}, "
+            f"{large[0]['variant']}, {large[1]['variant']}; expected simt_small, simt_small, "
+            f"simt_tiled, wgmma")
     # either side of the fp32 cut-over at a wave of 128 x 128 tiles: n x n
     # tiles just under the card's SM count (simt), (n + 1) x (n + 1) over it
     n = math.isqrt(build.sm_count(torch.device("cuda")) - 1)
@@ -1821,7 +1964,9 @@ def check_fused_linear(torch, gen) -> dict:
         "tflops": main["tflops"],
         "variant": main["variant"],
         "timed_shape": main["shape"],
-        "other_timings": large + cut,
+        "variants": {"simt_small": main["device_ms"], "simt": main["simt_device_ms"],
+                     "simt_tiled": large[0]["device_ms"], "wgmma": large[1]["device_ms"]},
+        "other_timings": [layer2] + large + cut,
     }
 
 
@@ -2357,6 +2502,11 @@ def phase_kernels(torch) -> list:
     fwd_hd80, bwd_hd80 = time_flash_hd80(torch, gen)
     flash["other_timings"].append(fwd_hd80)
     flash_bwd["other_timings"].append(bwd_hd80)
+    # each variant's device ms at its timed shape: wgmma at the kernel's own,
+    # tf32x3 and simt (the same operands) at train_100m's
+    for row, hd80 in ((flash, fwd_hd80), (flash_bwd, bwd_hd80)):
+        row["variants"] = {"wgmma": row["device_ms"], "tf32x3": hd80["device_ms"],
+                           "simt": hd80["simt_device_ms"]}
     return [flash, flash_bwd, check_paged(torch, gen), check_decode(torch, gen),
             check_fused_linear(torch, gen), check_scan(torch, gen), check_scan_bwd(torch, gen)]
 
@@ -2420,6 +2570,7 @@ def phase_reduced(torch) -> None:
     ops.reset_launch_counts()
     on_card = reduced_logits(torch, cfg, _to_device(params_cpu, "cuda"), prompts, steps, "cuda")
     counts = ops.launch_counts()
+    require_fp32_flash("reduced")
     on_cpu = reduced_logits(torch, cfg, params_cpu, prompts, steps, "cpu")
     require(counts["flash_attention"] == len(prompts) * cfg.num_layers
             and counts["paged_decode_attention"] == len(steps) * cfg.num_layers,
@@ -2608,6 +2759,7 @@ def phase_reduced_dense(torch) -> None:
     ops.reset_launch_counts()
     on_card = dense_logits(torch, cfg, params_card, prompts, steps, "cuda")
     counts = ops.launch_counts()
+    require_fp32_flash("reduced-dense")
     on_cpu = dense_logits(torch, cfg, params_cpu, prompts, steps, "cpu")
     require(counts["decode_attention"] == len(steps) * cfg.num_layers
             and counts["flash_attention"] == len(prompts) * cfg.num_layers,
@@ -2632,6 +2784,7 @@ def phase_reduced_dense(torch) -> None:
                                                 runtime=rt, kv_mode="dense")
             served[device] = {rid: f.tokens for rid, f in sched.serve(requests).items()}
             launches[device] = ops.launch_counts()
+            require_fp32_flash("reduced-dense")
             engine = ServeEngine(model, params, max_len=40, runtime=rt)
             generated[device] = engine.generate(engine_prompts, steps=12).tokens
     log(f"[reduced-dense] dense serve of {len(requests)} requests and serial generate "
@@ -2743,8 +2896,8 @@ def phase_tc2(torch) -> dict:
             f"expected {2 * n_batches}")
     require(all(c["fused_linear"] == 0 for k, c in counts.items() if k != "fused_linear"),
             "a row other than fused_linear launched the kernel")
-    # fp32 products of 256 rows: the exact-FMA variant with 64 x 64 tiles
-    require_variant(variants["fused_linear"], "fused_linear", "simt", 2 * n_batches,
+    # fp32 products of 256 rows (208 in the last batch): the small-product variant
+    require_variant(variants["fused_linear"], "fused_linear", "simt_small", 2 * n_batches,
                     "Test Case 2")
     log(f"[tc2] Table 2 holds: accuracy {min(accs):.4f} on every row, img-0 score spread "
         f"{max(scores) - min(scores):.2e}; fused_linear by variant "
@@ -3103,6 +3256,7 @@ def phase_reduced_prefix(torch) -> None:
                     [Request(turn2.rid, prompt2, turn2.max_new_tokens)])[turn2.rid].tokens
                 tokens[device, cache] = got
                 launches[device, cache] = ops.launch_counts()
+                require_fp32_flash("reduced-prefix")
                 if cache:
                     kv = sched.decoder.kv
                     stats[device] = sched.prefix.stats()
@@ -3385,6 +3539,7 @@ def phase_reduced_zamba2(torch) -> None:
     ops.reset_launch_counts()
     on_card = hybrid_logits(torch, cfg, params_card, prompts, steps, "cuda")
     counts = ops.launch_counts()
+    require_fp32_flash("reduced-zamba2")
     on_cpu = hybrid_logits(torch, cfg, params_cpu, prompts, steps, "cpu")
     calls = len(prompts) + len(steps)
     require(counts["flash_attention"] == n_groups * len(prompts)
@@ -3412,6 +3567,7 @@ def phase_reduced_zamba2(torch) -> None:
                                                 runtime=rt, kv_mode="dense")
             served[device] = {rid: f.tokens for rid, f in sched.serve(requests).items()}
             launches[device] = ops.launch_counts()
+            require_fp32_flash("reduced-zamba2")
             engine = ServeEngine(model, params, max_len=40, runtime=rt)
             generated[device] = engine.generate(engine_prompts, steps=12).tokens
     log(f"[reduced-zamba2] dense serve of {len(requests)} requests and serial generate "
@@ -3604,6 +3760,7 @@ def phase_reduced_dense_family(torch) -> None:
         ops.reset_launch_counts()
         on_card = dense_logits(torch, cfg, params_card, prompts, steps, "cuda")
         counts = ops.launch_counts()
+        require_fp32_flash("reduced-dense-family")
         on_cpu = dense_logits(torch, cfg, params_cpu, prompts, steps, "cpu")
         require(counts["flash_attention"] == len(prompts) * cfg.num_layers
                 and counts["decode_attention"] == len(steps) * cfg.num_layers,
@@ -3626,6 +3783,7 @@ def phase_reduced_dense_family(torch) -> None:
                 engine = ServeEngine(model, params, max_len=40, runtime=rt)
                 generated[device] = engine.generate(engine_prompts, steps=12).tokens
                 launches[device] = ops.launch_counts()
+                require_fp32_flash("reduced-dense-family")
         log(f"[reduced-dense-family] {arch} REDUCED fp32 ({cfg.num_layers} layers, "
             f"{cfg.num_heads}q/{cfg.num_kv_heads}kv x {cfg.resolved_head_dim}, act {cfg.act}, "
             f"untied): prefill of {len(prompts)} prompts + {len(steps)} teacher-forced dense ticks:"
@@ -3985,6 +4143,7 @@ def phase_reduced_fleet(torch) -> None:
                         device="cuda", **paged)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        require_fp32_flash("reduced-fleet")
     got = {rid: res.get("tokens") for rid, res in out.results.items()}
     settled = out.stats["per_worker_settled"]
     ticks = sum(s.ticks for s in made)
@@ -4293,6 +4452,7 @@ def phase_reduced_moe(torch) -> None:
         ops.reset_launch_counts()
         on_card = dense_logits(torch, cfg, params_card, prompts, steps, "cuda")
         counts = ops.launch_counts()
+        require_fp32_flash("reduced-moe")
         on_cpu = dense_logits(torch, cfg, params_cpu, prompts, steps, "cpu")
         require(counts["flash_attention"] == len(prompts) * cfg.num_layers
                 and counts["decode_attention"] == len(steps) * cfg.num_layers,
@@ -4318,6 +4478,7 @@ def phase_reduced_moe(torch) -> None:
                 engine = ServeEngine(model, params, max_len=40, runtime=rt)
                 generated[device] = engine.generate(engine_prompts, steps=12).tokens
                 launches[device] = ops.launch_counts()
+                require_fp32_flash("reduced-moe")
         same = {m: served["cuda", m] == served["cpu", m] for m in ("dense", "paged")}
         log(f"[reduced-moe] {arch} REDUCED fp32 ({cfg.num_layers} layers, {cfg.num_experts} "
             f"experts top-{cfg.experts_per_token}, {cfg.act}, {cfg.num_heads}q/"
@@ -4516,6 +4677,7 @@ def _reduced_bundle(torch, arch: str, extra: str, make_extra, n_text: int, tag: 
         runs[device] = _bundle_generate(torch, model, params, batch, chain, prefix + n_text,
                                         prefix + n_text + chain)
         runs[device] += (ops.launch_counts(),)
+        require_fp32_flash(tag)
     err_first = float((runs["cuda"][3] - runs["cpu"][3]).abs().max())
     err_last = float((runs["cuda"][4] - runs["cpu"][4]).abs().max())
     same = bool(np.array_equal(runs["cuda"][0], runs["cpu"][0]))
@@ -4714,6 +4876,7 @@ def phase_reduced_train(torch) -> None:
     ops.reset_launch_counts()
     card = _one_train_step(torch, cfg, params, batch, "cuda")
     counts, variants = ops.launch_counts(), ops.variant_counts()
+    require_fp32_flash("reduced-train")
     cpu = _one_train_step(torch, cfg, params, batch, "cpu")
     keys = ("loss", "ce_loss", "grad_norm", "lr")
     metric_err = max(abs(card[2][k] - cpu[2][k]) / max(abs(cpu[2][k]), 1e-30) for k in keys)
@@ -4977,6 +5140,7 @@ def phase_reduced_train_families(torch) -> None:
         ops.reset_launch_counts()
         card = _one_train_step(torch, cfg, params, batch, "cuda")
         counts, variants = ops.launch_counts(), ops.variant_counts()
+        require_fp32_flash("reduced-train-families")
         cpu = _one_train_step(torch, cfg, params, batch, "cpu")
         keys = ("loss", "ce_loss", "grad_norm", "lr")
         metric_err = max(abs(card[2][k] - cpu[2][k]) / max(abs(cpu[2][k]), 1e-30) for k in keys)
@@ -5521,7 +5685,7 @@ def phase_example_hetero(torch) -> dict:
     require(max(scores) - min(scores) < 1e-4, f"img-0 scores spread {max(scores) - min(scores)}")
     require(counts["fused_linear"] == n_launch and sum(counts.values()) == n_launch,
             f"example-hetero launches {counts}, expected fused_linear {n_launch} and nothing else")
-    require_variant(variants, "fused_linear", "simt", n_launch, "example-hetero")
+    require_variant(variants, "fused_linear", "simt_small", n_launch, "example-hetero")
     return counts
 
 
@@ -5549,8 +5713,10 @@ def phase_example_serve_demo(torch) -> dict:
     params_card = _to_device(params_cpu, "cuda")
     acts = {}
     for device, params in (("cuda", params_card), ("cpu", params_cpu)):
+        ops.reset_launch_counts()
         _, replies = ex.serve_channels(model, params, device)
         fleet = ex.serve_fleet(model, params, device)
+        require_fp32_flash("example-serve-demo REDUCED")
         acts[device] = ({rid: toks for rid, (toks, _) in replies.items()},
                         {rid: r["tokens"] for rid, r in fleet.results.items()})
     for i, act in enumerate(("act 1 (channel server)", "act 2 (fleet)")):
@@ -5697,7 +5863,8 @@ def phase_example_train_100m(torch, card: str) -> dict:
                 and sum(got.values()) == (fwd + bwd) * n,
                 f"example-train-100m {tag}: {got}, expected {fwd} forward and {bwd} backward "
                 f"flash launches a step")
-        require_variant(kinds, "flash_attention", "simt", fwd * n, f"example-train-100m {tag}")
+        require_variant(kinds, "flash_attention", "tf32x3", fwd * n,
+                        f"example-train-100m {tag}")
         require_variant(kinds, "flash_attention_bwd", "tf32x3", bwd * n,
                         f"example-train-100m {tag}")
     last, again = first.history[-1]["loss"], resumed.history[-1]["loss"]

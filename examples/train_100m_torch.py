@@ -23,7 +23,8 @@ the card, gloo with ``--device cpu``. The parameters stay plain tensors, as
 the reference's do (`make_train_step` without a mesh), so no DTensor
 dispatch is paid; `sharding.ambient.constrain` leaves plain tensors as they
 are. The model's head_dim is 80: every attention, forward and backward, runs
-the flash kernels' `simt` variant on the card.
+the flash kernels' `tf32x3` variant on the card (fp32 on the tensor cores as
+three TF32 products a product).
 """
 from __future__ import annotations
 

@@ -12,7 +12,7 @@
 // bf16) a call is at most ~2 GFLOP, 2.2 us at the tensor cores' 989 TFLOP/s;
 // with one prompt only 16-64 blocks exist, so the chain of key tiles of the
 // last query rows -- per tile two products, the softmax between them and a
-// wait on the tile's load -- sets the time, not the card's peak. Two
+// wait on the tile's load -- sets the time, not the card's peak. Three
 // variants, chosen by an explicit rule in the wrapper
 // (`kernels/flash_attention.py::variant`):
 //
@@ -54,20 +54,33 @@
 //   head, batch) order, whose neighbouring blocks share a KV head: the
 //   global order cost 10-13 % there (one wave, or walks of equal length),
 //   for a reason not measured.
-// * simt (fp32, head_dim 16 / 32, more than 64 query heads per KV head): one
-//   block per (32 query rows, head, batch), K/V tiles of 32 keys staged in
-//   fp32 shared memory, scalar FMA on the CUDA cores. fp32 stays off TF32,
-//   whose rounding would break the 2e-5 fp32 parity. Any head_dim that is a
-//   multiple of 8 instantiates; those of the repo's configs and examples do
-//   (16, 32, 64, 80, 112, 128, 160, 256), hd 160 asking for 65,920 bytes of
-//   shared memory.
+// * tf32x3 (fp32, every supported head_dim and group size, 16-byte-aligned
+//   operands): both products on the tensor cores by `mma.sync` m16n8k8 TF32,
+//   each as three TF32 products of the operands' high and low parts (fp32
+//   accumulation; `tf32x3.cuh`, shared with the backward): fp32's 2e-5
+//   parity, which one TF32 product would break. At
+//   `examples/train_100m_torch.py`'s shape (B=4, S=256, 8 query heads over
+//   2, hd 80, causal) its bound is 2.04 us, three products at the TF32 peak
+//   (its bytes: 1.96 us), where the fp32 FMA peak gives 5.03 us. A block owns
+//   64 (position, query head) rows of one KV head (the G heads share each
+//   K/V tile, any G) and eight warps: four row groups of 16 x two halves of
+//   every key tile, merged at the end in a fixed order. K/V tiles arrive by
+//   cp.async in a two-stage ring and are split into TF32 parts once, as
+//   they land; see the kernel.
+// * simt (bf16 at head_dim 16 / 32 or with more than 64 query heads per KV
+//   head; any dtype with unaligned operands): one block per (32 query rows,
+//   head, batch), K/V tiles of 32 keys staged in fp32 shared memory, scalar
+//   FMA on the CUDA cores. Any head_dim that is a multiple of 8
+//   instantiates; those of the repo's configs and examples do (16, 32, 64,
+//   80, 112, 128, 160, 256), hd 160 asking for 65,920 bytes of shared
+//   memory.
 //
-// Either variant also writes each query row's log-sum-exp (fp32, (B, H,
+// Every variant also writes each query row's log-sum-exp (fp32, (B, H,
 // Sq), natural log of the scaled scores) when the caller passes a buffer for
 // it: the training path's forward, whose gradient comes from
 // `flash_attention_bwd.cu`. Serving passes none, and nothing else changes.
 //
-// Both walk only the key tiles a block's rows can attend to (causal upper
+// All three walk only the key tiles a block's rows can attend to (causal upper
 // bound, window lower bound), which is exact whenever every row has at least
 // one valid key (checked per block; blocks with a row that has none visit
 // every tile, so such a row averages V over all keys, as the Pallas kernel
@@ -76,6 +89,7 @@
 // not apply.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -630,13 +644,266 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
                                       causal, window, prefix_len, q_offset, stream);
 }
 
+// ---------------------------------------------------------------------------
+// tf32x3: fp32 on the tensor cores, three TF32 products a product
+// ---------------------------------------------------------------------------
+
+namespace ft {
+constexpr int ROWS = 64;  // (position, query head) rows of a block: 16 a row group of two warps
+constexpr int NT = 256;   // eight warps: four row groups x two halves of every key tile
+// Keys a K / V tile holds: 64 up to hd 112, then fewer, so that the block's
+// tiles (Q; a two-stage ring of K and V; their low parts) fit the shared
+// memory: 203 KB at hd 112, 164 KB at 160, 163 KB at 256.
+template <int HD>
+__host__ __device__ constexpr int keys() { return HD <= 112 ? 64 : HD <= 160 ? 32 : 16; }
+template <int HD>
+constexpr size_t smem_bytes() {  // Q; K, V x 2 stages (raw, then hi in place); K lo, V lo
+  return sizeof(float) * size_t(ROWS + 6 * keys<HD>()) * (HD + 4);
+}
+}  // namespace ft
+
+// A block per (64 rows, b * KV + kvh); a row is a (position, query head)
+// pair of the KV head's G heads, flattened position-major, so the heads
+// that share a KV head share each K / V tile whatever G is (48, 72: a row
+// block may hold part of a position's heads). Eight warps: warp w holds rows
+// 16 (w % 4) .. + 15 and takes half w / 4 of every key tile, with its own
+// running max, sum and output; the halves merge in a fixed order at the end
+// (no atomics). K / V tiles arrive by 16-byte cp.async in a two-stage ring
+// (the next tile's loads fly while this one is multiplied), are split into
+// TF32 hi (in place) and lo once, and both products read them from there:
+// S = Q K^T by `prod_rows` (Q's fragments split as they are read), the
+// online softmax on the accumulator fragment in fp32 (log2 units), O += P V
+// by `prod_acc` with P's accumulator as its A fragment. `longest_first` (a
+// causal grid of more than one wave): row blocks from the last, so the
+// longest walks of every (batch, KV head) start first; otherwise row blocks
+// innermost, so neighbouring blocks share a KV head.
+template <int HD>
+__global__ void __launch_bounds__(ft::NT, 1) flash_attention_tf32x3_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H, int KV,
+    float scale_log2, int causal, int window, int prefix_len, int q_offset, int longest_first) {
+  namespace tx = repro::tf32x3;
+  using repro::sm90::cp_async16;
+  constexpr int R = ft::ROWS, BK = ft::keys<HD>(), LD = HD + 4, NJ = BK / 16, N8 = HD / 8;
+  constexpr int V4 = HD / 4;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;               // [R][LD]
+  float* ring = Qs + R * LD;      // [2][K, V][BK][LD]
+  float* Kl = ring + 4 * BK * LD;  // [BK][LD]
+  float* Vl = Kl + BK * LD;        // [BK][LD]
+
+  const int G = H / KV, rows = Sq * G;
+  const int n_rb = (rows + R - 1) / R, nz = int(gridDim.x) / n_rb;
+  const int rb = longest_first ? n_rb - 1 - int(blockIdx.x) / nz : int(blockIdx.x) % n_rb;
+  const int z = longest_first ? int(blockIdx.x) % nz : int(blockIdx.x) / n_rb;
+  const int b = z / KV, kvh = z % KV;
+  const int x0 = rb * R, nrow = min(R, rows - x0);
+  const int qp_lo = q_offset + x0 / G, qp_hi = q_offset + (x0 + nrow - 1) / G;
+  int k_begin, k_end;
+  key_range(qp_lo, qp_hi, Skv, causal, window, prefix_len, &k_begin, &k_end);
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  const size_t q_row = size_t(H) * HD, kv_row = size_t(KV) * HD;
+  const float* qb = q + size_t(b) * Sq * q_row + size_t(kvh) * G * HD;
+  const float* kbase = k + size_t(b) * Skv * kv_row + size_t(kvh) * HD;
+  const float* vbase = v + size_t(b) * Skv * kv_row + size_t(kvh) * HD;
+
+  // Q rows x -> (position (x0 + x) / G, head (x0 + x) % G), zeros past nrow
+  for (int e = threadIdx.x; e < R * V4; e += ft::NT) {
+    const int x = e / V4, d = (e - x * V4) * 4, xr = min(x0 + x, rows - 1);
+    cp_async16(Qs + x * LD + d, qb + size_t(xr / G) * q_row + size_t(xr % G) * HD + d,
+               x < nrow ? 16 : 0);
+  }
+  // keys kt .. kt + BK - 1 into ring stage s, zeros past k_end
+  auto load_tile = [&](int kt, int s) {
+    float* Ks = ring + 2 * s * BK * LD;
+    for (int e = threadIdx.x; e < BK * V4; e += ft::NT) {
+      const int j = e / V4, d = (e - j * V4) * 4, key = min(kt + j, k_end - 1);
+      const int n = kt + j < k_end ? 16 : 0;
+      cp_async16(Ks + j * LD + d, kbase + size_t(key) * kv_row + d, n);
+      cp_async16(Ks + (BK + j) * LD + d, vbase + size_t(key) * kv_row + d, n);
+    }
+    repro::sm90::cp_async_commit();
+  };
+  if (n_tiles > 0) load_tile(k_begin, 0);
+  else repro::sm90::cp_async_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const int rg = 16 * (warp & 3), kh = (warp >> 2) * (BK / 2);  // rows, first key of the half
+  int qp[2];  // the query positions of this thread's rows rg + g (+ 8)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) qp[h] = q_offset + (x0 + rg + g + 8 * h) / G;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i & 1, kt = k_begin + i * BK;
+    repro::sm90::cp_async_wait<0>();
+    __syncthreads();  // tile i landed for every thread; tile i - 1's products are done
+    if (i + 1 < n_tiles) load_tile(kt + BK, s ^ 1);
+    float* Kh = ring + 2 * s * BK * LD;
+    float* Vh = Kh + BK * LD;
+    for (int e = threadIdx.x; e < 2 * BK * V4; e += ft::NT) {  // K then V: hi in place, lo apart
+      const int r = e / V4, d = (e - r * V4) * 4;
+      float4* src = reinterpret_cast<float4*>(Kh + r * LD + d);
+      const float4 xv = *src;
+      uint32_t hi[4], lo[4];
+      tx::split(xv.x, hi[0], lo[0]);
+      tx::split(xv.y, hi[1], lo[1]);
+      tx::split(xv.z, hi[2], lo[2]);
+      tx::split(xv.w, hi[3], lo[3]);
+      *reinterpret_cast<uint4*>(src) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(Kl + r * LD + d) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    __syncthreads();
+
+    // S = Q K^T: rows rg + g (+ 8), keys kt + kh + 8 jj + 2c (+ 1)
+    float sc[NJ][4];
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) sc[jj][0] = sc[jj][1] = sc[jj][2] = sc[jj][3] = 0.f;
+    tx::prod_rows<HD, NJ>(sc, Qs + rg * LD, Kh + kh * LD, Kl + kh * LD, lane);
+
+    // online softmax on the fragment, in log2 units of the scaled scores
+    const bool whole = kt + BK <= k_end && (!causal || kt + BK - 1 <= qp_lo) &&
+                       (window <= 0 || qp_hi - kt < window);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, key = kt + kh + 8 * jj + 2 * c + (e & 1);
+        float sv = sc[jj][e] * scale_log2;
+        if (!whole) {
+          bool allowed = true;
+          if (causal) {
+            allowed = key <= qp[h];
+            if (prefix_len > 0) allowed = allowed || (qp[h] < prefix_len && key < prefix_len);
+          }
+          if (window > 0) allowed = allowed && (qp[h] - key < window);
+          sv = key < k_end ? (allowed ? sv : NEG_INF) : REPRO_ABSENT;
+        }
+        sc[jj][e] = sv;
+        mx[h] = fmaxf(mx[h], sv);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[jj][e] - m[e >> 1]);
+        sc[jj][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    tx::prod_acc<HD, NJ>(acc, sc, Vh + kh * LD, Vl + kh * LD, lane);  // O += P V
+  }
+
+  // merge the two halves of every key tile: half 1 hands its output, max and
+  // sum over in shared memory (the ring's room), half 0 adds them and stores
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  repro::sm90::cp_async_wait<0>();
+  __syncthreads();
+  float* red = ring;              // [R][LD]: R <= 4 * BK rows of the ring
+  float* red_m = ring + R * LD;   // [R], then [R] sums
+  if (warp >= 4) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* row = red + (rg + g + 8 * h) * LD + 2 * c;
+#pragma unroll
+      for (int n = 0; n < N8; ++n)
+        *reinterpret_cast<float2*>(row + 8 * n) = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+      if (c == 0) {
+        red_m[rg + g + 8 * h] = m[h];
+        red_m[R + rg + g + 8 * h] = l[h];
+      }
+    }
+  }
+  __syncthreads();
+  if (warp < 4) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int x = rg + g + 8 * h;
+      if (x >= nrow) continue;
+      const float m2 = red_m[x], mm = fmaxf(m[h], m2);
+      const float a1 = exp2f(m[h] - mm), a2 = exp2f(m2 - mm);
+      const float sum = l[h] * a1 + red_m[R + x] * a2;
+      const int pos = (x0 + x) / G, head = kvh * G + (x0 + x) % G;
+      // log-sum-exp in natural units, at (b, head, pos) of the (B, H, Sq) output
+      if (lse != nullptr && c == 0)
+        lse[(size_t(b) * H + head) * Sq + pos] =
+            (mm + log2f(fmaxf(sum, 1e-30f))) * 0.6931471805599453f;
+      const float inv = 1.f / fmaxf(sum, 1e-30f);
+      const float* other = red + x * LD + 2 * c;
+      float* orow = o + (size_t(b) * Sq + pos) * q_row + size_t(head) * HD + 2 * c;
+#pragma unroll
+      for (int n = 0; n < N8; ++n) {
+        const float2 p2 = *reinterpret_cast<const float2*>(other + 8 * n);
+        *reinterpret_cast<float2*>(orow + 8 * n) =
+            make_float2((acc[n][2 * h] * a1 + p2.x * a2) * inv,
+                        (acc[n][2 * h + 1] * a1 + p2.y * a2) * inv);
+      }
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                          int Sq, int Skv, int H, int KV, float scale, int causal, int window,
+                          int prefix_len, int q_offset, cudaStream_t stream) {
+  static_assert(ft::ROWS <= 4 * ft::keys<HD>(), "the halves' merge fits the ring's room");
+  constexpr size_t bytes = ft::smem_bytes<HD>();
+  static const cudaError_t attr = cudaFuncSetAttribute(  // once a process: one card
+      flash_attention_tf32x3_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (attr != cudaSuccess) return attr;
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  const long long n_rb = (static_cast<long long>(Sq) * (H / KV) + ft::ROWS - 1) / ft::ROWS;
+  const long long blocks = n_rb * KV * B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // walks that differ by row block (causal, no prefix, no window) over more
+  // blocks than the card runs at once: the longest first (see the kernel)
+  const int longest_first =
+      causal && prefix_len == 0 && window <= 0 && n_rb > 1 && blocks > sms;
+  flash_attention_tf32x3_kernel<HD><<<unsigned(blocks), ft::NT, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, Sq, Skv, H, KV, scale * 1.4426950408889634f, causal, window,
+      prefix_len, q_offset, longest_first);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point. q, o: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); contiguous,
 // one dtype (0 fp32, 1 bf16); variant 0 simt, 1 wgmma (bf16; hd 64 / 80 /
 // 112 / 128 / 160 / 256; H / KV at most 64; q, k, v, o 16-byte aligned) with
 // `consumers` (1 or 2) consumer warpgroups a block, which the wrapper picks
-// by the grid's size.
+// by the grid's size; 2 tf32x3 (fp32; every supported hd and H / KV; q, k,
+// v, o 16-byte aligned).
 // `lse`: null, or fp32 (B, H, Sq) that receives each query row's
 // log-sum-exp of its scaled, masked scores (the backward's input).
 // Returns the cudaError_t of the launch.
@@ -664,6 +931,28 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     }
     return int(fn(q, k, v, o, lse, B, Sq, Skv, H, KV, scale, causal, window, prefix_len,
                   q_offset, consumers, s));
+  }
+  if (variant == 2) {
+    if (dtype != repro::kFloat32 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+        !aligned16(o))
+      return int(cudaErrorInvalidValue);
+#define REPRO_FWD_TF32X3(N)                                                                    \
+  case N:                                                                                      \
+    return int(launch_tf32x3<N>(q, k, v, o, lse, B, Sq, Skv, H, KV, scale, causal, window,     \
+                                prefix_len, q_offset, s));
+    switch (hd) {
+      REPRO_FWD_TF32X3(16)
+      REPRO_FWD_TF32X3(32)
+      REPRO_FWD_TF32X3(64)
+      REPRO_FWD_TF32X3(80)
+      REPRO_FWD_TF32X3(112)
+      REPRO_FWD_TF32X3(128)
+      REPRO_FWD_TF32X3(160)
+      REPRO_FWD_TF32X3(256)
+      default:
+        return int(cudaErrorInvalidValue);
+    }
+#undef REPRO_FWD_TF32X3
   }
   if (variant != 0) return int(cudaErrorInvalidValue);
   if (dtype == repro::kFloat32)

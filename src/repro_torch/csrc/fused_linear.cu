@@ -12,8 +12,9 @@
 // What bounds it on the H100: a large product is bound by operations --
 // 989 TFLOP/s for bf16 on the tensor cores, 67 TFLOP/s for fp32 on the CUDA
 // cores -- and Test Case 2's small products (256 x 64 @ 64 x 32, then
-// 256 x 32 @ 32 x 10, ~1 MFLOP) by launch latency. Three variants, chosen
-// by an explicit rule in the wrapper (`kernels/fused_linear.py::variant`):
+// 256 x 32 @ 32 x 10, ~1 MFLOP) by latency: one chain of loads, products
+// and a store. Four variants, chosen by an explicit rule in the wrapper
+// (`kernels/fused_linear.py::variant`):
 //
 // * wgmma (bf16, K and N multiples of 8, x and W 16-byte aligned): the
 //   tensor cores. A 128 x 256 output tile a block; one producer warp keeps a
@@ -31,10 +32,18 @@
 //   128 x 128 tile a block, 8 x 8 outputs a thread, K slices of 16 loaded by
 //   16-byte `cp.async` into two shared-memory buffers (the next slice loads
 //   while this one is multiplied) and read back as float4.
+// * simt_small (fp32, and bf16 that wgmma does not take, when W whole and
+//   16 rows of x fit 48 KB of shared memory and the product is under a wave
+//   of 64 x 64 tiles): Test Case 2's products. A block of 16 rows stages W
+//   and its rows of x with one round of 16-byte `cp.async` (both are
+//   contiguous runs of memory, so ragged K and N need no masking in the
+//   loads; element loads where the pointers are not 16-byte aligned), waits
+//   once, and each thread runs exact fp32 FMA chains over K for its outputs:
+//   16 blocks at a 256-row batch, one load round instead of simt's K / 16
+//   rounds with two barriers each. No TF32: Table 2 compares the rows'
+//   scores to 1e-4.
 // * simt (everything else, fp32 or bf16, any shape): a 64 x 64 tile, K slices
-//   of 16, a 4 x 4 micro-tile, ragged M, N, K masked in the loads. Small
-//   problems stay here: Test Case 2's 256-row batches give 4 blocks, where a
-//   128 x 128 tile would give 2.
+//   of 16, a 4 x 4 micro-tile, ragged M, N, K masked in the loads.
 #include "common.cuh"
 #include "hopper.cuh"
 #include "wgmma.cuh"
@@ -42,9 +51,10 @@
 namespace {
 
 using repro::sm90::aligned16;
+using repro::sm90::cp_async16;
 
 enum Act : int { kNone = 0, kRelu = 1, kGelu = 2 };
-enum Variant : int { kSimt = 0, kSimtTiled = 1, kWgmma = 2 };
+enum Variant : int { kSimt = 0, kSimtTiled = 1, kWgmma = 2, kSimtSmall = 3 };
 
 __device__ __forceinline__ float apply_act(float y, int act) {
   if (act == kRelu) return fmaxf(y, 0.f);
@@ -189,13 +199,6 @@ namespace st {
 constexpr int BM = 128, BN = 128, BK = 16, NT = 256;  // 16 x 16 threads, 8 x 8 outputs each
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   repro::sm90::smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
 __global__ void __launch_bounds__(st::NT, 2) fused_linear_simt_tiled_kernel(
     const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
     float* __restrict__ y, int M, int N, int K, int act) {
@@ -221,7 +224,7 @@ __global__ void __launch_bounds__(st::NT, 2) fused_linear_simt_tiled_kernel(
       const bool ok = k0 + r < K && n0 + c < N;
       cp_async16(&Bs[buf][r][c], ok ? w + size_t(k0 + r) * N + n0 + c : w, ok ? 16 : 0);
     }
-    asm volatile("cp.async.commit_group;" ::: "memory");
+    repro::sm90::cp_async_commit();
   };
 
   // rows ty*4 + i and 64 + ty*4 + i, columns tx*4 + j and 64 + tx*4 + j:
@@ -237,9 +240,9 @@ __global__ void __launch_bounds__(st::NT, 2) fused_linear_simt_tiled_kernel(
   for (int kt = 0; kt < k_tiles; ++kt) {
     if (kt + 1 < k_tiles) {
       load((kt + 1) & 1, (kt + 1) * st::BK);
-      asm volatile("cp.async.wait_group 1;" ::: "memory");
+      repro::sm90::cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      repro::sm90::cp_async_wait<0>();
     }
     __syncthreads();
     const int buf = kt & 1;
@@ -375,13 +378,83 @@ cudaError_t launch_simt_tiled(const void* x, const void* w, const void* b, void*
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// simt_small: a product whose W fits a block's shared memory
+// ---------------------------------------------------------------------------
+
+namespace sm {
+constexpr int BM = 16;  // rows of x a block: 16 blocks at Test Case 2's 256-row batches
+constexpr int NT = 256;
+// W whole (rounded up to 16 bytes) and the block's BM rows of x, in x's
+// dtype: at most the shared memory a block gets without opting in
+constexpr size_t MAX_SMEM = 48 * 1024;
+inline size_t smem_bytes(int K, int N, size_t elem) {
+  return (size_t(K) * N * elem + 15) / 16 * 16 + size_t(BM) * K * elem;
+}
+}  // namespace sm
+
+// n elements from `src` to shared `dst`: whole 16-byte chunks by cp.async
+// when both are 16-byte aligned (`vec`), the rest by element loads.
+template <typename T>
+__device__ __forceinline__ void stage_flat(T* dst, const T* src, int n, bool vec) {
+  constexpr int E = 16 / sizeof(T);
+  int done = 0;
+  if (vec) {
+    done = n / E * E;
+    for (int i = threadIdx.x * E; i < done; i += sm::NT * E) cp_async16(dst + i, src + i, 16);
+  }
+  for (int i = done + threadIdx.x; i < n; i += sm::NT) dst[i] = src[i];
+}
+
+// A block owns BM rows of y, all N columns: W (K x N) and its rows of x are
+// contiguous runs of memory, staged whole by one round of loads (16-byte
+// cp.async where aligned, so ragged K and N cost nothing), then each
+// thread's outputs are exact fp32 FMA chains over K from shared memory, the
+// bias and the activation fused into the one store.
+template <typename T>
+__global__ void __launch_bounds__(sm::NT) fused_linear_small_kernel(
+    const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
+    T* __restrict__ y, int M, int N, int K, int act, int vec) {
+  extern __shared__ uint8_t smem_raw[];
+  T* Ws = reinterpret_cast<T*>(smem_raw);  // [K][N]
+  T* Xs = reinterpret_cast<T*>(smem_raw + (size_t(K) * N * sizeof(T) + 15) / 16 * 16);  // [BM][K]
+  const int m0 = blockIdx.x * sm::BM, rows = min(sm::BM, M - m0);
+  stage_flat(Ws, w, K * N, vec);
+  stage_flat(Xs, x + size_t(m0) * K, rows * K, vec);
+  repro::sm90::cp_async_commit();
+  repro::sm90::cp_async_wait<0>();
+  __syncthreads();
+  for (int e = threadIdx.x; e < rows * N; e += sm::NT) {
+    const int r = e / N, n = e - r * N;
+    const T* xr = Xs + r * K;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int kk = 0; kk < K; ++kk)
+      acc = fmaf(repro::to_float(xr[kk]), repro::to_float(Ws[kk * N + n]), acc);
+    y[size_t(m0 + r) * N + n] =
+        repro::from_float<T>(apply_act(acc + repro::to_float(bias[n]), act));
+  }
+}
+
+template <typename T>
+cudaError_t launch_small(const void* x, const void* w, const void* b, void* y, int M, int N,
+                         int K, int act, cudaStream_t stream) {
+  const size_t bytes = sm::smem_bytes(K, N, sizeof(T));
+  if (bytes > sm::MAX_SMEM) return cudaErrorInvalidValue;
+  fused_linear_small_kernel<T><<<(M + sm::BM - 1) / sm::BM, sm::NT, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
+      static_cast<T*>(y), M, N, K, act, int(aligned16(x) && aligned16(w)));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point. x: (M, K); w: (K, N); b: (N,); y: (M, N). All contiguous,
 // one float dtype (0 fp32, 1 bf16); act 0 none, 1 relu, 2 gelu (tanh);
 // variant 0 simt, 1 simt_tiled (fp32; K, N multiples of 4; x, w, b, y
 // 16-byte aligned), 2 wgmma (bf16; K, N multiples of 8; x, w 16-byte
-// aligned). Returns the cudaError_t of the launch.
+// aligned), 3 simt_small (W whole and 16 rows of x within 48 KB of shared
+// memory). Returns the cudaError_t of the launch.
 extern "C" int fused_linear_fwd(const void* x, const void* w, const void* b, void* y, int M,
                                 int N, int K, int dtype, int act, int variant, void* stream) {
   if (M < 1 || N < 1 || K < 1 || act < kNone || act > kGelu) return int(cudaErrorInvalidValue);
@@ -397,6 +470,12 @@ extern "C" int fused_linear_fwd(const void* x, const void* w, const void* b, voi
         !aligned16(b) || !aligned16(y) || (M + st::BM - 1) / st::BM > 65535)
       return int(cudaErrorInvalidValue);
     return int(launch_simt_tiled(x, w, b, y, M, N, K, act, s));
+  }
+  if (variant == kSimtSmall) {
+    if (dtype == repro::kFloat32) return int(launch_small<float>(x, w, b, y, M, N, K, act, s));
+    if (dtype == repro::kBFloat16)
+      return int(launch_small<__nv_bfloat16>(x, w, b, y, M, N, K, act, s));
+    return int(cudaErrorInvalidValue);
   }
   if (variant != kSimt || (long long)((M + BM - 1) / BM) > 65535) return int(cudaErrorInvalidValue);
   if (dtype == repro::kFloat32) return int(launch<float>(x, w, b, y, M, N, K, act, s));

@@ -107,6 +107,23 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// One thread's 16-byte copy global -> shared (both 16-byte aligned), of
+// which the first `src_bytes` (0 or 16) are read and the rest zero-filled;
+// completes with the thread's next `cp_async_commit` group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 // Named barriers between warpgroups (ids 1..15; 0 is __syncthreads):
 // `count` threads in all, a multiple of 32. `named_arrive` does not wait;
 // writes to shared memory before it are visible to the threads that pass

@@ -2,7 +2,7 @@
 (`csrc/flash_attention.cu`) and its gradient (`csrc/flash_attention_bwd.cu`).
 
 The forward replaces the reference's Pallas TPU kernel
-`repro/kernels/flash_attention.py::flash_attention`. The source holds two
+`repro/kernels/flash_attention.py::flash_attention`. The source holds three
 variants, and `variant` picks one by an explicit rule (nothing is caught and
 retried):
 
@@ -16,18 +16,24 @@ retried):
   to 192). Every bf16 prefill of the full-width configs takes it.
   `consumer_warpgroups` picks one or two consumer warpgroups a block by the
   grid's size.
-* ``simt``: everything else (fp32, whose 2e-5 parity TF32 would break, such
-  as `examples/train_100m_torch.py` at hd 80; head dims 16 and 32 of the
-  REDUCED configs; more than 64 query heads per KV head): scalar fp32 FMA,
-  32 query rows a block.
+* ``tf32x3``: fp32 with q, k, v 16-byte aligned, every supported head dim
+  and group size (`examples/train_100m_torch.py` at hd 80, the REDUCED
+  configs): both products on the tensor cores as three TF32 products of
+  the operands' high and low TF32 parts (fp32 accumulation), which keeps
+  fp32's 2e-5 parity where one TF32 product would break it; the backward's
+  scheme (`csrc/tf32x3.cuh`). Rows are (position, query head) pairs of one
+  KV head, 64 a block, so the G heads share each K/V tile.
+* ``simt``: everything else (bf16 at head dims 16 and 32 of the REDUCED
+  configs; bf16 with more than 64 query heads per KV head; unaligned
+  operands): scalar fp32 FMA, 32 query rows a block.
 
 Head dims outside `SUPPORTED_HEAD_DIMS` raise: each is an instantiation of
 the CUDA templates, and the build instantiates only these.
 
-Both mask ragged Sq / Skv themselves, so any prompt length runs without
+All three mask ragged Sq / Skv themselves, so any prompt length runs without
 padding (the Pallas wrapper needs block multiples), and visit only the key
 tiles a block's rows can attend to. See the source for the block layouts.
-With ``return_lse=True`` either variant also writes each query row's
+With ``return_lse=True`` every variant also writes each query row's
 log-sum-exp (fp32, (B, H, Sq)), the backward's input.
 
 The gradient, `flash_attention_backward`, stands for the gradient of that
@@ -37,7 +43,8 @@ whose gradient this reproduces). `FlashAttentionFn` wires it into autograd;
 is on and an input requires grad; called directly under grad mode with such
 an input, `flash_attention` raises rather than return an output that
 autograd would silently cut off. `backward_variant` picks its variant by
-the forward's rule for bf16 and its own for fp32:
+the forward's rule (and ``simt`` for an unaligned output or output
+gradient):
 
 * ``wgmma``: every product on the tensor cores (S and dP by `wgmma` from
   TMA-fed shared memory, dV, dK and dQ with P or dS as the bf16 A operand in
@@ -60,8 +67,10 @@ the forward's rule for bf16 and its own for fp32:
   more than 64 query heads per KV head; any dtype with q, k, v, out or
   d_out unaligned).
 
-All three are deterministic (no atomics) and all take rows with no key
-(the reference's uniform average, no gradient to q or k).
+Every variant of both is deterministic (no atomics) and takes rows with no
+key (the reference's uniform average, no gradient to q or k). For fp32 the
+forward and the backward take the same variant, so a training step runs
+one family.
 
 The wrappers check device, dtype, shape and contiguity, allocate outputs
 and scratch with `torch.empty`, launch on the current stream without
@@ -87,8 +96,7 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160, 256)
 #: head dims the tensor-core variants take: tiles of whole 64-column boxes
 WGMMA_HEAD_DIMS = (64, 80, 112, 128, 160, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANT_CODES = {"simt": 0, "wgmma": 1}
-_BACKWARD_VARIANT_CODES = {**_VARIANT_CODES, "tf32x3": 2}
+_VARIANT_CODES = {"simt": 0, "wgmma": 1, "tf32x3": 2}
 #: (position, query head) rows of one consumer warpgroup of the wgmma variant.
 WGMMA_ROWS = 64
 
@@ -97,7 +105,7 @@ launches = 0
 #: The same launches by variant.
 variant_launches = {name: 0 for name in _VARIANT_CODES}
 #: Calls of `flash_attention_backward`, and the same calls by variant.
-backward = build.LaunchCounter(tuple(_BACKWARD_VARIANT_CODES))
+backward = build.LaunchCounter(tuple(_VARIANT_CODES))
 #: Keys of a dK/dV block's tile in the backward's wgmma and tf32x3 variants.
 WGMMA_KEYS = 64
 #: A dK/dV block's fixed cost in query-tile visits: its K / V load, its
@@ -131,31 +139,27 @@ def _tensor_core_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 
 def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel variant `flash_attention` launches for these operands (see
-    the module note); a rule on dtype, head_dim, group size and alignment
-    only."""
-    return "wgmma" if _tensor_core_operands(q, k, v) else "simt"
+    the module note): ``wgmma`` for bf16 at head_dim 64 / 80 / 112 / 128 /
+    160 / 256 with at most 64 query heads per KV head, ``tf32x3`` for fp32
+    (every head dim and group size), both with q, k, v 16-byte aligned;
+    ``simt`` otherwise. A rule on dtype, head_dim, group size and alignment
+    only: every variant takes every mask, rows with no key included."""
+    if _tensor_core_operands(q, k, v):
+        return "wgmma"
+    if q.dtype == torch.float32 and all(t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        return "tf32x3"
+    return "simt"
 
 
 def backward_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      out: Optional[torch.Tensor] = None,
                      d_out: Optional[torch.Tensor] = None) -> str:
     """The variant `flash_attention_backward` launches for these operands:
-    ``wgmma`` for bf16 at head_dim 64 / 80 / 112 / 128 / 160 / 256 with at
-    most 64 query heads per KV head and q, k, v 16-byte aligned (the
-    forward's rule); ``tf32x3`` for fp32 with q, k, v 16-byte aligned (every
-    head dim and group size: the example's and REDUCED training); ``simt``
-    otherwise (bf16 at hd 16 and 32 or with groups over 64, and unaligned
-    operands). `out` and `d_out`, where given, must be 16-byte aligned too
-    for ``wgmma`` and ``tf32x3``. A rule on dtype, head_dim, group size and
-    alignment only: every variant takes every mask, rows with no key
-    included."""
+    the forward's (`variant`), or ``simt`` when `out` or `d_out`, where
+    given, is not 16-byte aligned."""
     if any(t is not None and t.data_ptr() % 16 for t in (out, d_out)):
         return "simt"
-    if _tensor_core_operands(q, k, v):
-        return "wgmma"
-    if q.dtype == torch.float32 and all(t.data_ptr() % 16 == 0 for t in (q, k, v)):
-        return "tf32x3"
-    return "simt"
+    return variant(q, k, v)
 
 
 def tf32x3_walk_rows(head_dim: int) -> int:
@@ -433,7 +437,7 @@ def flash_attention_backward(
         partial.data_ptr() if partial is not None else None,
         B, Sq, Skv, H, KV, hd, _DTYPE_CODES[q.dtype], float(scale),
         int(bool(causal)), int(window or 0), int(prefix_len), int(q_offset),
-        _BACKWARD_VARIANT_CODES[kind], chunk, splits,
+        _VARIANT_CODES[kind], chunk, splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, f"flash_attention_backward ({kind})")

@@ -176,12 +176,11 @@ def test_flash_wrappers_refuse_head_dims_not_built(hd):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_head_dim_80_runs_simt_both_ways(dtype):
-    """The example's fp32 forward stays on simt and its backward takes the
-    three-pass TF32 variant (fp32's accuracy on the tensor cores); its
-    widths in bf16 take wgmma (tiles padded to 128 columns), forward and
-    backward."""
+    """The example's fp32 forward and backward take the three-pass TF32
+    variant (fp32's accuracy on the tensor cores); its widths in bf16 take
+    wgmma (tiles padded to 128 columns), forward and backward."""
     q = torch.empty((4, 256, 8, 80), dtype=dtype)
     k = torch.empty((4, 256, 2, 80), dtype=dtype)
     fp32 = dtype == torch.float32
-    assert tflash.variant(q, k, k) == ("simt" if fp32 else "wgmma")
+    assert tflash.variant(q, k, k) == ("tf32x3" if fp32 else "wgmma")
     assert tflash.backward_variant(q, k, k) == ("tf32x3" if fp32 else "wgmma")

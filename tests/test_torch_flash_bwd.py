@@ -340,10 +340,8 @@ def test_backward_variant_rule(dtype, H, KV, hd, layout, want):
     assert tflash.backward_variant(q, k, v, out, d_out) == want
     if layout in ("unaligned-out", "unaligned-d_out"):
         assert tflash.backward_variant(q, k, v) != "simt"  # q, k, v alone are aligned
-    elif dtype == "bfloat16":  # the forward's rule; fp32's forward stays on simt
-        assert tflash.backward_variant(q, k, v) == tflash.variant(q, k, v)
-    else:
-        assert tflash.variant(q, k, v) == "simt"
+    else:  # the forward's rule, fp32's tf32x3 included
+        assert tflash.backward_variant(q, k, v) == tflash.variant(q, k, v) == want
 
 
 def test_backward_counter_counts_by_variant():
@@ -631,6 +629,90 @@ def test_three_tf32_products_keep_fp32_parity(kw):
             assert max(errs) <= bound, errs
         else:
             assert max(errs) > 2e-5, errs
+
+
+# ---------------------------------------------------------------------------
+# the fp32 forward's tf32x3 variant: its arithmetic
+# ---------------------------------------------------------------------------
+
+
+def _tf32x3_forward_keys(hd):
+    """Keys of a K / V tile of the tf32x3 forward (`csrc/flash_attention.cu::
+    ft::keys`); each of a block's two warp halves takes half of every tile."""
+    return 64 if hd <= 112 else 32 if hd <= 160 else 16
+
+
+def _tf32x3_forward(q, k, v, *, passes, scale, **kw):
+    """The tf32x3 forward's arithmetic in plain torch: S = Q K^T and O += P V
+    as three TF32 products of the operands' high and low parts (`passes=3`;
+    `passes=1`: one TF32 product), fp32 accumulation; the online softmax in
+    log2 units over the kernel's key tiles, each tile's two halves walked by
+    their own warps with their own max, sum and output, merged at the end;
+    masked scores at the reference's -1e30 (rows with no key: the uniform
+    average)."""
+    def parts(x):
+        hi = _tf32_round(x)
+        return hi, _tf32_round(x - hi)
+
+    def mm(a, b):
+        ah, al = parts(a)
+        bh, bl = parts(b)
+        return ah @ bh if passes == 1 else ah @ bh + (al @ bh + ah @ bl)
+
+    B, Sq, H, hd = q.shape
+    Skv, G = k.shape[1], H // k.shape[2]
+    qh = q.transpose(1, 2)
+    kh, vh = (x.transpose(1, 2).repeat_interleave(G, dim=1) for x in (k, v))
+    mask = tref._build_mask(Sq, Skv, **kw)
+    tile = _tf32x3_forward_keys(hd)
+    halves = []
+    for first in (0, tile // 2):
+        m = torch.full((B, H, Sq, 1), -1e30)
+        l = torch.zeros((B, H, Sq, 1))
+        acc = torch.zeros((B, H, Sq, hd))
+        for kt in range(0, Skv, tile):
+            lo, hi = kt + first, min(kt + first + tile // 2, Skv)
+            if lo >= hi:
+                continue
+            s = mm(qh, kh[:, :, lo:hi].transpose(-1, -2)) * (scale * 1.4426950408889634)
+            s = torch.where(mask[:, lo:hi], s, torch.tensor(-1e30))
+            mx = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha, p = torch.exp2(m - mx), torch.exp2(s - mx)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + mm(p, vh[:, :, lo:hi])
+            m = mx
+        halves.append((m, l, acc))
+    (m1, l1, a1), (m2, l2, a2) = halves
+    top = torch.maximum(m1, m2)
+    w1, w2 = torch.exp2(m1 - top), torch.exp2(m2 - top)
+    return ((a1 * w1 + a2 * w2) / (l1 * w1 + l2 * w2).clamp_min(1e-30)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,kw", [
+    pytest.param(4, 45, 45, 4, 1, 16, dict(window=16), id="reduced-gemma3"),
+    pytest.param(2, 64, 64, 8, 2, 80, {}, id="train100m-widths"),
+    pytest.param(1, 40, 40, 6, 1, 160, dict(prefix_len=12), id="hd160-g6-prefix"),
+    pytest.param(1, 12, 20, 4, 1, 32, dict(q_offset=15, window=4), id="empty-rows"),
+])
+def test_tf32x3_forward_arithmetic_keeps_fp32_parity(B, Sq, Skv, H, KV, hd, kw):
+    """The tf32x3 forward's arithmetic (`_tf32x3_forward`) within 2e-5 of
+    the reference's oracle (`repro.kernels.ref.attention`, fp32), where one
+    TF32 product a product misses that tolerance: the premise of the
+    variant, at a REDUCED shape and at the example's widths."""
+    full = dict(causal=True, window=0, prefix_len=0, q_offset=0)
+    full.update(kw)
+    q, k, v, _ = (torch.from_numpy(x) for x in _inputs(Sq + hd, B, Sq, Skv, H, KV, hd))
+    want = tref.attention(q, k, v, **kw)
+    if jref is not None:
+        jwant = np.array(jref.attention(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                                         jnp.asarray(v.numpy()), **kw))
+        np.testing.assert_allclose(want.numpy(), jwant, rtol=TOL, atol=TOL)
+        want = torch.from_numpy(jwant)
+    errs = {}
+    for passes in (3, 1):
+        got = _tf32x3_forward(q, k, v, passes=passes, scale=hd**-0.5, **full)
+        errs[passes] = float((got - want).abs().max())
+    assert errs[3] <= 2e-5 < errs[1], errs
 
 
 # ---------------------------------------------------------------------------

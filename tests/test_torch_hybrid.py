@@ -347,7 +347,7 @@ def test_flash_kernel_takes_head_dims_112_and_160():
     for hd in (112, 160):
         q = torch.zeros((1, 4, 4, hd), dtype=torch.bfloat16)
         assert flash_attention.variant(q, q, q) == "wgmma"  # tiles padded to 128 / 192 columns
-        assert flash_attention.variant(q.float(), q.float(), q.float()) == "simt"
+        assert flash_attention.variant(q.float(), q.float(), q.float()) == "tf32x3"
         with pytest.raises(ValueError, match="CUDA device"):  # the head dim passes the checks
             flash_attention.flash_attention(q, q, q)
     q = torch.zeros((1, 4, 4, 100))

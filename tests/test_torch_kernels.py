@@ -560,10 +560,23 @@ def _unaligned(shape, dtype):
     ("bfloat16", 256, 64, 32, "aligned", H100_SMS, "wgmma"),   # Test Case 2's layer 1 in bf16
     ("bfloat16", 4096, 4096, 4096, "aligned", H100_SMS, "wgmma"),
     ("bfloat16", 77, 512, 264, "aligned", H100_SMS, "wgmma"),  # ragged M, N tiles: TMA fills
-    ("bfloat16", 256, 32, 10, "aligned", H100_SMS, "simt"),    # N = 10: W's rows not 16-B strided
-    ("bfloat16", 256, 50, 32, "aligned", H100_SMS, "simt"),    # K = 50: x's rows not 16-B strided
-    ("bfloat16", 256, 64, 32, "unaligned-x", H100_SMS, "simt"),
-    ("float32", 256, 64, 32, "aligned", H100_SMS, "simt"),     # Test Case 2: 64 x 64 tiles
+    # small products whose W fits a block: one round of loads, any widths
+    ("bfloat16", 256, 32, 10, "aligned", H100_SMS, "simt_small"),  # N = 10: not TMA-aligned
+    ("bfloat16", 256, 50, 32, "aligned", H100_SMS, "simt_small"),  # K = 50
+    ("bfloat16", 256, 64, 32, "unaligned-x", H100_SMS, "simt_small"),
+    ("float32", 256, 64, 32, "aligned", H100_SMS, "simt_small"),   # Test Case 2's layer 1
+    ("float32", 256, 32, 10, "aligned", H100_SMS, "simt_small"),   # and its layer 2
+    ("float32", 208, 64, 32, "aligned", H100_SMS, "simt_small"),   # its last batch of 2000
+    ("float32", 77, 50, 10, "unaligned-x", H100_SMS, "simt_small"),
+    ("float32", 8384, 32, 10, "aligned", H100_SMS, "simt_small"),  # 131 tiles of 64 x 64
+    # ragged products past simt_small's limits stay on simt: a wave of 64 x 64
+    # tiles, a W over the shared memory
+    ("float32", 8448, 32, 10, "aligned", H100_SMS, "simt"),        # 132 tiles: a wave
+    ("float32", 256, 64, 32, "aligned", 4, "simt"),                # a wave of a 4-SM card
+    ("float32", 128, 128, 128, "aligned", H100_SMS, "simt"),       # W + x rows: 72 KB
+    ("float32", 77, 160, 70, "aligned", H100_SMS, "simt"),         # 54 KB
+    ("float32", 77, 160, 60, "aligned", H100_SMS, "simt_small"),   # 47.5 KB
+    ("bfloat16", 4096, 4094, 4096, "aligned", H100_SMS, "simt"),
     ("float32", 1024, 1024, 1024, "aligned", H100_SMS, "simt"),  # 64 tiles: under a wave
     ("float32", 1024, 1024, 1024, "aligned", 64, "simt_tiled"),  # a wave of a 64-SM card
     ("float32", 1408, 1024, 1408, "aligned", H100_SMS, "simt"),  # 121 tiles
@@ -589,7 +602,8 @@ def test_fused_linear_variant_rule(monkeypatch, dtype, M, K, N, layout, sms, wan
     ("bfloat16", 4, 1, 32, "aligned", "simt"),          # REDUCED head dims
     ("bfloat16", 4, 1, 16, "aligned", "simt"),
     ("bfloat16", 4, 1, 256, "unaligned-q", "simt"),
-    ("float32", 4, 1, 256, "aligned", "simt"),          # fp32 stays exact: no TF32
+    ("float32", 4, 1, 256, "aligned", "tf32x3"),        # fp32: three TF32 products
+    ("float32", 4, 1, 256, "unaligned-q", "simt"),
     # head dims padded to whole 64-column tiles, and groups that do not divide
     # 64 (64 // G whole positions a warpgroup)
     ("bfloat16", 32, 32, 112, "aligned", "wgmma"),      # zamba2-7b
@@ -598,8 +612,11 @@ def test_fused_linear_variant_rule(monkeypatch, dtype, M, K, N, layout, sms, wan
     ("bfloat16", 48, 8, 128, "aligned", "wgmma"),       # grok-1-314b: 60 rows of 64
     ("bfloat16", 64, 8, 112, "aligned", "wgmma"),       # kimi-k2-1t-a32b
     ("bfloat16", 8, 2, 80, "aligned", "wgmma"),         # train_100m's widths in bf16
-    ("float32", 8, 2, 80, "aligned", "simt"),           # train_100m itself: fp32
-    ("float32", 32, 32, 112, "aligned", "simt"),
+    ("float32", 8, 2, 80, "aligned", "tf32x3"),         # train_100m itself: fp32
+    ("float32", 32, 32, 112, "aligned", "tf32x3"),
+    ("float32", 4, 1, 16, "aligned", "tf32x3"),         # REDUCED serving and training
+    ("float32", 72, 1, 64, "aligned", "tf32x3"),        # more heads than 64 a KV head
+    ("float32", 8, 2, 80, "unaligned-q", "simt"),
     ("bfloat16", 65, 1, 128, "aligned", "simt"),        # more heads than a warpgroup's rows
     ("bfloat16", 96, 1, 112, "aligned", "simt"),
     ("bfloat16", 6, 1, 160, "unaligned-q", "simt"),
@@ -619,15 +636,35 @@ def test_flash_variant_rule(dtype, H, KV, hd, layout, want):
 def test_flash_variant_rule_at_padded_head_dims(dtype, hd, H, KV):
     """bf16 at head dims padded to whole 64-column tiles takes the tensor
     cores at every group of at most 64 query heads a KV head, the forward
-    and the backward alike; larger groups stay on simt; fp32's forward stays
-    on simt and its backward takes the three-pass TF32 tensor-core walk at
-    every group."""
+    and the backward alike; larger groups stay on simt; fp32 takes the
+    three-TF32-product tensor-core variants at every group, forward and
+    backward."""
     dt = TDT[dtype]
     q = torch.empty((1, 9, H, hd), dtype=dt)
     k = torch.empty((1, 9, KV, hd), dtype=dt)
-    want = "wgmma" if dtype == "bfloat16" and H // KV <= 64 else "simt"
+    want = ("tf32x3" if dtype == "float32" else "wgmma" if H // KV <= 64 else "simt")
     assert tflash.variant(q, k, k) == want
-    assert tflash.backward_variant(q, k, k) == ("tf32x3" if dtype == "float32" else want)
+    assert tflash.backward_variant(q, k, k) == want
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 112, 128, 160, 256])
+@pytest.mark.parametrize("G", [1, 4, 6, 48, 72])
+def test_flash_forward_takes_tf32x3_for_fp32_at_every_head_dim_and_group(hd, G):
+    """fp32 operands that are 16-byte aligned take the tf32x3 forward at
+    every supported head dim and group size, the backward's variant; an
+    unaligned q, k or v (or output, for the backward) sends both to simt,
+    and bf16 keeps its rule."""
+    assert set(tflash.SUPPORTED_HEAD_DIMS) == {16, 32, 64, 80, 112, 128, 160, 256}
+    q = torch.empty((2, 9, 2 * G, hd))
+    k = torch.empty((2, 9, 2, hd))
+    assert tflash.variant(q, k, k) == tflash.backward_variant(q, k, k, q, q) == "tf32x3"
+    for name in "qkv":
+        ops = {"q": q, "k": k, "v": k}
+        ops[name] = _unaligned(ops[name].shape, torch.float32)
+        assert tflash.variant(ops["q"], ops["k"], ops["v"]) == "simt"
+    assert tflash.backward_variant(q, k, k, _unaligned(q.shape, torch.float32)) == "simt"
+    bf = tflash.variant(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    assert bf == ("wgmma" if hd in tflash.WGMMA_HEAD_DIMS and G <= 64 else "simt")
 
 
 @pytest.mark.parametrize("B,Sq,H,KV,sms,want", [
@@ -809,11 +846,11 @@ def test_variant_counts_start_at_zero_and_reset():
     assert tops.variant_counts()["fused_linear"]["wgmma"] >= 1
     tops.reset_launch_counts()
     assert tops.variant_counts() == {
-        "flash_attention": {"simt": 0, "wgmma": 0},
+        "flash_attention": {"simt": 0, "wgmma": 0, "tf32x3": 0},
         "flash_attention_bwd": {"simt": 0, "wgmma": 0, "tf32x3": 0},
         "paged_decode_attention": {"simt": 0, "mma": 0},
         "decode_attention": {"simt": 0, "mma": 0},
-        "fused_linear": {"simt": 0, "simt_tiled": 0, "wgmma": 0},
+        "fused_linear": {"simt": 0, "simt_tiled": 0, "wgmma": 0, "simt_small": 0},
         "gated_linear_scan": {"simt": 0, "mma": 0, "step": 0},
         "gated_linear_scan_bwd": {"simt": 0, "mma": 0},
     }
@@ -860,17 +897,92 @@ def test_flash_kernel_matches_plain_on_card(cuda, Sq, window, kw, dtype):
                               "hd80-ragged"])
 def test_flash_simt_at_wide_head_dims_matches_plain_on_card(cuda, hd, H, KV, Sq, dtype):
     """The simt kernel at the head dims between the powers of two, through
-    fp32 operands (bf16 there takes wgmma: the next test)."""
-    gen = torch.Generator(device=cuda).manual_seed(hd + Sq)
-    q = torch.randn((1, Sq, H, hd), generator=gen, device=cuda).to(TDT[dtype])
-    k = torch.randn((1, Sq, KV, hd), generator=gen, device=cuda).to(TDT[dtype])
-    v = torch.randn((1, Sq, KV, hd), generator=gen, device=cuda).to(TDT[dtype])
+    fp32 operands with q off 16 bytes (aligned fp32 takes tf32x3 and bf16
+    wgmma there: the next tests)."""
+    q, k, v = _wide_head_dim_operands(cuda, hd, H, KV, Sq, dtype)
+    q = torch.cat([q.new_zeros(1), q.flatten()])[1:].view(q.shape)  # the same values, unaligned
     assert tflash.variant(q, k, v) == "simt"
     got = tops.attention(q, k, v)
     want = tref.attention(q, k, v)
     torch.cuda.synchronize()
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _wide_head_dim_operands(cuda, hd, H, KV, Sq, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(hd + Sq)
+    return tuple(torch.randn((1, Sq, n, hd), generator=gen, device=cuda).to(TDT[dtype])
+                 for n in (H, KV, KV))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32"])
+@pytest.mark.parametrize("hd,H,KV,Sq", [(112, 32, 32, 1024), (112, 32, 32, 77), (160, 32, 8, 300),
+                                        (80, 8, 2, 256), (80, 8, 2, 257)],
+                         ids=["zamba2-prefill", "zamba2-ragged", "hd160-gqa", "hd80-train100m",
+                              "hd80-ragged"])
+def test_flash_tf32x3_at_wide_head_dims_matches_plain_on_card(cuda, hd, H, KV, Sq, dtype):
+    """The tf32x3 forward on the simt test's cases (the same operands,
+    aligned), at fp32's tolerance, and its log-sum-exp."""
+    q, k, v = _wide_head_dim_operands(cuda, hd, H, KV, Sq, dtype)
+    assert tflash.variant(q, k, v) == "tf32x3"
+    before = tflash.variant_launches["tf32x3"]
+    got, lse = tflash.flash_attention_with_lse(q, k, v)
+    want, want_lse = tref.attention_with_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert tflash.variant_launches["tf32x3"] == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,kw", [
+    (2, 77, 77, 1, 1, 16, {}), (2, 77, 77, 4, 1, 32, {"window": 16}),
+    (1, 300, 300, 6, 1, 64, {"prefix_len": 100}), (1, 64, 300, 48, 1, 128, {"q_offset": 236}),
+    (1, 100, 100, 72, 1, 256, {}), (1, 50, 20, 6, 1, 160, {"window": 8}),
+    (1, 130, 77, 4, 4, 112, {"causal": False}), (4, 256, 256, 8, 2, 80, {}),
+], ids=["hd16", "hd32-window", "hd64-g6-prefix", "hd128-g48-offset", "hd256-g72",
+        "hd160-empty-rows", "hd112-bidirectional-ragged", "train100m"])
+def test_flash_tf32x3_forward_matches_plain_on_card(cuda, B, Sq, Skv, H, KV, hd, kw):
+    """The tf32x3 forward at every group size class and mask, against the
+    plain version at fp32's tolerance (rows with no key: the uniform
+    average)."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + Sq + H)
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=cuda)
+    k = torch.randn((B, Skv, KV, hd), generator=gen, device=cuda)
+    v = torch.randn((B, Skv, KV, hd), generator=gen, device=cuda)
+    assert tflash.variant(q, k, v) == "tf32x3"
+    got = tflash.flash_attention(q, k, v, **kw)
+    want = tref.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=ATTN_TOL["float32"], atol=ATTN_TOL["float32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,M,K,N,layout", [
+    ("float32", 256, 64, 32, "aligned"), ("float32", 256, 32, 10, "aligned"),
+    ("float32", 208, 64, 32, "aligned"), ("float32", 77, 50, 10, "unaligned-x"),
+    ("float32", 5, 3, 7, "aligned"), ("bfloat16", 256, 32, 10, "aligned"),
+    ("bfloat16", 256, 64, 32, "unaligned-x"), ("bfloat16", 77, 50, 10, "aligned"),
+])
+def test_fused_linear_simt_small_matches_plain_on_card(cuda, M, K, N, layout, dtype):
+    """simt_small at Test Case 2's products (both layers, the last batch),
+    ragged and unaligned, every activation, against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x, w, b = (0.3 * torch.randn(sh, generator=gen, device=cuda).to(TDT[dtype])
+               for sh in ((M, K), (K, N), (N,)))
+    if layout == "unaligned-x":
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(M, K)
+    assert tlinear.variant(x, w, b) == "simt_small"
+    tol = ATTN_TOL[dtype]
+    for act in ("none", "relu", "gelu"):
+        before = tlinear.variant_launches["simt_small"]
+        got = tops.fused_linear(x, w, b, act=act)
+        want = tlinear.fused_linear_ref(x, w, b, act=act)
+        torch.cuda.synchronize()
+        assert tlinear.variant_launches["simt_small"] == before + 1
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
@@ -1136,7 +1248,8 @@ def test_flash_wgmma_matches_plain_on_card(cuda, hd, Sq, kw):
     (128, 128, 128, "wgmma"), (256, 64, 32, "wgmma"),              # aligned
     (1000, 520, 264, "wgmma"), (300, 72, 8, "wgmma"),              # ragged tiles
     (1536, 1024, 1280, "wgmma"),                                    # over 1024^3
-    (256, 32, 10, "simt"), (77, 50, 10, "simt"),                   # not TMA-aligned
+    (256, 32, 10, "simt_small"), (77, 50, 10, "simt_small"),       # not TMA-aligned
+    (1000, 520, 262, "simt"),                                      # ... nor a small W
 ])
 def test_fused_linear_bf16_variants_match_plain_on_card(cuda, M, K, N, kind, act):
     gen = torch.Generator(device=cuda).manual_seed(M + K + N)

@@ -18,6 +18,9 @@ over the run falls on both sides. Modes:
   (tok/s, TTFT; full-width weights, minutes a copy); ``serves-moe``: its
   serve-moe phase (grok-1 at 8 layers, kimi-k2 at 1);
 * ``train-100m``: `chip_smoke.py`'s example-train-100m phase (ms a step).
+* ``flash-bwd-bits``: the fp32 flash backward (`tf32x3`) on inputs made on
+  the CPU from fixed seeds (out and lse from the plain version there), a
+  SHA-256 digest of every gradient's bytes: equal digests, the same bits.
 
 Device times are `chip_smoke.device_ms` (profiler device time). The last line
 is the card's name and power limit. Run on the card from the repository's
@@ -65,7 +68,11 @@ DECODE_TIMED = [("stablelm dense", 32, 8, 160, False), ("stablelm paged", 32, 8,
                 ("minitron paged", 32, 8, 128, True), ("granite paged", 48, 1, 128, True),
                 ("gemma3 paged", 4, 1, 256, True)]
 UNEVEN = [0, 15, 16, 100, 511, 512, 777, 1087]
-MODES = ("flash", "flash-bwd", "decode", "serves", "serves-moe", "train-100m")
+#: (B, S, H, KV, hd, masks) of the fp32 backward's bit comparison
+BITS_CASES = [(4, 256, 8, 2, 80, {}), (4, 256, 8, 2, 80, {"window": 64}),
+              (2, 77, 6, 1, 160, {}), (1, 130, 4, 1, 256, {"prefix_len": 50}),
+              (2, 45, 4, 1, 16, {"window": 16}), (1, 40, 4, 1, 112, {"q_offset": 30, "window": 8})]
+MODES = ("flash", "flash-bwd", "decode", "serves", "serves-moe", "train-100m", "flash-bwd-bits")
 
 
 def _flash(cs, torch, tag):
@@ -111,6 +118,30 @@ def _flash_bwd(cs, torch, tag):
         del q, k, v, o, lse, do, got, want
     print(tag, "BWD", " | ".join(out), flush=True)
     return ok
+
+
+def _flash_bwd_bits(cs, torch, tag):
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention, ref
+
+    digest = hashlib.sha256()
+    for i, (B, S, H, KV, hd, kw) in enumerate(BITS_CASES):
+        rng = np.random.default_rng(100 + i)
+        Skv = S + kw.get("q_offset", 0)
+        q, do = (torch.from_numpy(rng.standard_normal((B, S, H, hd), dtype=np.float32))
+                 for _ in range(2))
+        k, v = (torch.from_numpy(rng.standard_normal((B, Skv, KV, hd), dtype=np.float32))
+                for _ in range(2))
+        out, lse = ref.attention_with_lse(q, k, v, **kw)
+        args = [t.contiguous().cuda() for t in (q, k, v, out, lse, do)]
+        assert flash_attention.backward_variant(*args[:4], args[5]) == "tf32x3"
+        for g in flash_attention.flash_attention_backward(*args, **kw):
+            digest.update(g.cpu().numpy().tobytes())
+    print(tag, "BWD-BITS", digest.hexdigest(), flush=True)
+    return True
 
 
 def _decode(cs, torch, tag):
@@ -175,7 +206,8 @@ def _one(mode: str, tree: str, build_only: bool) -> int:
         print(tag, "built; ptxas C7515:", "C7515" in build.build_log(), flush=True)
         return 0
     run = {"flash": _flash, "flash-bwd": _flash_bwd, "decode": _decode, "serves": _serves,
-           "serves-moe": _serves_moe, "train-100m": _train_100m}[mode]
+           "serves-moe": _serves_moe, "train-100m": _train_100m,
+           "flash-bwd-bits": _flash_bwd_bits}[mode]
     return 0 if run(cs, torch, tag) else 1
 
 
