@@ -14,6 +14,8 @@ used only when the caller asks for it (``device="cpu"``, as the tests do).
   their kernels on the current stream and returns. `execute()` records a
   `torch.cuda.Event` after the launch; the returned Future polls that event
   and resolves through its blocking `synchronize()` on an untimed wait.
+  With tracing on (`core/tracing.py`) the call is a ``unit.enqueue`` span
+  and the blocking wait a ``unit.wait`` span, each with the unit's name.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from repro_torch.core.definitions import (
     ProcessingUnitStatus,
     UnsupportedOperationError,
 )
+from repro_torch.core import tracing
 from repro_torch.core.events import Event, completed_event
 from repro_torch.core.managers import (
     CommunicationManager,
@@ -252,18 +255,20 @@ class TorchComputeManager(ComputeManager):
         pu.current_state = state
         pu.status = ProcessingUnitStatus.EXECUTING
         dev = pu.context
+        unit = state.execution_unit
         try:
-            if dev.type == "cuda":
-                with torch.cuda.device(dev):
-                    result = state.execution_unit.fn(*state.args, **state.kwargs)
-            else:
-                result = state.execution_unit.fn(*state.args, **state.kwargs)
+            with tracing.span("unit.enqueue", unit=unit.name):
+                if dev.type == "cuda":
+                    with torch.cuda.device(dev):
+                        result = unit.fn(*state.args, **state.kwargs)
+                else:
+                    result = unit.fn(*state.args, **state.kwargs)
         except BaseException as e:  # noqa: BLE001 - surfaced through the Future
             state.mark_finished(error=e)
             pu.status = ProcessingUnitStatus.READY
             return state.future
         pu.status = ProcessingUnitStatus.READY
-        done = _stream_event(dev, name=f"torchdev-exec:{state.execution_unit.name}")
+        done = _stream_event(dev, name=f"torchdev-exec:{unit.name}")
         if done.done():
             state.mark_finished(result=result)
             return state.future
@@ -289,7 +294,8 @@ class TorchComputeManager(ComputeManager):
             return
         done, result = state.continuation
         try:
-            done.wait()
+            with tracing.span("unit.wait", unit=state.execution_unit.name):
+                done.wait()
             state.mark_finished(result=result)
         except BaseException as e:  # noqa: BLE001 - surfaced through the Future
             state.mark_finished(error=e)

@@ -21,7 +21,10 @@ gathered from the pool (`prefill_prefix`).
 All computation is dispatched through the compute manager of a HiCR
 `Runtime` (registry-built): prefill, the batched decode step, the slot pack,
 the commit of a prefilled cache into pages and the fused interval are
-execution units.
+execution units. With tracing on (`core/tracing.py`) the paged decoder's
+prefill, commit and interval are ``decoder.prefill``, ``decoder.commit`` and
+``decoder.interval`` spans: their time outside the unit's ``unit.enqueue``
+and ``unit.wait`` is the uploads and the copies to the host.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import tracing
 from repro_torch.core.runtime import Runtime
 from repro_torch.models.model_zoo import ModelBundle
 
@@ -330,9 +334,11 @@ class PagedSlotDecoder:
             # the dense prefill shapes ring-local caches; a shared layout
             # commits full-depth caches: admissions must gather-prefill
             raise RuntimeError("shared-prefix decoder: use prefill_prefix()")
-        tokens = torch.as_tensor(np.asarray(prompt, dtype=np.int32)[None, :], device=self.device)
-        first, state = self.rt.run(self._prefill_unit, self.params, {"tokens": tokens})
-        return int(first.cpu()[0]), state
+        with tracing.span("decoder.prefill"):
+            tokens = torch.as_tensor(np.asarray(prompt, dtype=np.int32)[None, :],
+                                     device=self.device)
+            first, state = self.rt.run(self._prefill_unit, self.params, {"tokens": tokens})
+            return int(first.cpu()[0]), state
 
     def prefill_prefix(self, tail: Sequence[int], gather_row: np.ndarray, offset: int):
         """Prefill only the uncached `tail` of a prompt against the shared
@@ -342,11 +348,13 @@ class PagedSlotDecoder:
         to commit into pages)."""
         if self._prefix_unit is None:
             raise RuntimeError("decoder was built without shared_prefix=True")
-        tokens = torch.as_tensor(np.asarray(tail, dtype=np.int32)[None, :], device=self.device)
-        row = torch.as_tensor(np.asarray(gather_row, dtype=np.int32), device=self.device)
-        first, state = self.rt.run(self._prefix_unit, self.params, self.kv.pools, row, tokens,
-                                   int(offset))
-        return int(first.cpu()[0]), state
+        with tracing.span("decoder.prefill"):
+            tokens = torch.as_tensor(np.asarray(tail, dtype=np.int32)[None, :],
+                                     device=self.device)
+            row = torch.as_tensor(np.asarray(gather_row, dtype=np.int32), device=self.device)
+            first, state = self.rt.run(self._prefix_unit, self.params, self.kv.pools, row,
+                                       tokens, int(offset))
+            return int(first.cpu()[0]), state
 
     def load(
         self,
@@ -370,11 +378,12 @@ class PagedSlotDecoder:
             [last_token, pos, 0, steps_left, eos_id if eos_id is not None else -1, capacity],
             dtype=np.int32,
         )
-        self.kv.pools, self.ctl = self.rt.run(
-            self._commit_unit, self.kv.pools, state,
-            torch.as_tensor(np.asarray(full_row, np.int32), device=self.device),
-            self._ring_rows[slot], self.ctl, slot, torch.as_tensor(arm, device=self.device),
-        )
+        with tracing.span("decoder.commit"):
+            self.kv.pools, self.ctl = self.rt.run(
+                self._commit_unit, self.kv.pools, state,
+                torch.as_tensor(np.asarray(full_row, np.int32), device=self.device),
+                self._ring_rows[slot], self.ctl, slot, torch.as_tensor(arm, device=self.device),
+            )
 
     # -- one fused interval --------------------------------------------------
     def run_interval(self, full_table: np.ndarray):
@@ -382,10 +391,11 @@ class PagedSlotDecoder:
         Returns (token_buffer (slots, K) with -1 for inactive ticks,
         done mask (slots,), positions (slots,)) as host arrays — the only
         device->host copy of the interval."""
-        table = torch.as_tensor(np.asarray(full_table, np.int32), device=self.device)
-        self.kv.pools, self.ctl, summary = self.rt.run(
-            self._fused_unit, self.params, self.kv.pools, table, self.ctl,
-        )
-        summary = summary.cpu().numpy()
+        with tracing.span("decoder.interval"):
+            table = torch.as_tensor(np.asarray(full_table, np.int32), device=self.device)
+            self.kv.pools, self.ctl, summary = self.rt.run(
+                self._fused_unit, self.params, self.kv.pools, table, self.ctl,
+            )
+            summary = summary.cpu().numpy()
         K = self.sync_interval
         return summary[:, :K], summary[:, K].astype(bool), summary[:, K + 1]

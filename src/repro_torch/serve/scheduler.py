@@ -29,6 +29,11 @@ LRU-evicts pages only the cache holds before refusing admission.
 Token semantics match the reference's scheduler exactly in every mode: the
 first emitted token is the greedy pick from the prefill logits; each later
 token comes from one decode step at the request's own position.
+
+With tracing on (`core/tracing.py`) each admission is a ``sched.admit`` span
+and each step a ``sched.step`` span (paged: ``sched.grow``, the decoder's
+``decoder.interval`` and ``sched.harvest`` inside it), whose meta count the
+tokens each slot had before the step and made in it.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.core import tracing
 from repro_torch.core.runtime import Runtime
 from repro_torch.models.model_zoo import ModelBundle
 
@@ -174,6 +180,12 @@ class ContinuousBatchingScheduler:
         the request's worst-case pages (backpressure); a request needing
         more pages than the pool holds raises. Requests finishing at their
         first token are completed without consuming a slot."""
+        with tracing.span("sched.admit", rid=request.rid, prompt=len(request.prompt)) as sp:
+            admitted = self._admit(request, sp)
+            sp.note(admitted=admitted)
+            return admitted
+
+    def _admit(self, request: Request, sp) -> bool:
         if request.max_new_tokens < 1:
             raise ValueError(f"request {request.rid!r}: max_new_tokens must be >= 1")
         prompt_len = len(request.prompt)
@@ -232,6 +244,7 @@ class ContinuousBatchingScheduler:
                             self.prefix.unlock(m)
                         return False  # retry once pages free up
 
+        sp.note(shared_pages=len(m.nodes) if m is not None else 0, new_pages=new_pages)
         try:
             if self.prefix is not None:
                 # shared-prefix decoders always admit through the gather
@@ -325,12 +338,17 @@ class ContinuousBatchingScheduler:
         batched decode tick; paged mode runs one fused `sync_interval`-tick
         interval on the device and harvests at the sync point. Returns the
         newly finished requests."""
-        done, self._finished = self._finished, []
-        if self.active_count == 0:  # nothing to decode: skip the tick
-            return done
-        if self.kv_mode == "dense":
-            return done + self._step_dense()
-        return done + self._step_paged()
+        with tracing.span("sched.step") as sp:
+            if sp:
+                rows = [(row, len(row.emitted)) for row in self._table if row is not None]
+                ticks = self.ticks
+            done, self._finished = self._finished, []
+            if self.active_count:  # nothing to decode: skip the tick
+                done += self._step_dense() if self.kv_mode == "dense" else self._step_paged()
+            if sp:
+                sp.note(ticks=self.ticks - ticks, finished=[f.rid for f in done],
+                        slots=[(row.request.rid, n0, len(row.emitted) - n0) for row, n0 in rows])
+        return done
 
     def _step_dense(self) -> List[FinishedRequest]:
         done: List[FinishedRequest] = []
@@ -373,10 +391,18 @@ class ContinuousBatchingScheduler:
 
     def _step_paged(self) -> List[FinishedRequest]:
         done: List[FinishedRequest] = []
-        self._grow_pages()
+        with tracing.span("sched.grow"):
+            self._grow_pages()
         out_buf, done_mask, pos = self.decoder.run_interval(self._page_table)
         self._pos_host[:] = pos
         self.ticks += self.decoder.sync_interval
+        with tracing.span("sched.harvest"):
+            self._harvest(out_buf, done_mask, done)
+        return done
+
+    def _harvest(self, out_buf, done_mask, done: List[FinishedRequest]) -> None:
+        """At a sync point: append each slot's new tokens and evict the
+        slots that finished, into `done`."""
         for slot, row in enumerate(self._table):
             if row is None:
                 continue
@@ -397,7 +423,6 @@ class ContinuousBatchingScheduler:
                 self._page_table[slot, :] = 0
                 self._table[slot] = None
                 self._free.append(slot)
-        return done
 
     # -- batch loop ----------------------------------------------------------
     def serve(self, requests: Iterable[Request]) -> Dict[str, FinishedRequest]:

@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from repro_torch.core import tracing
+
 from .tree import tree_leaves, tree_map, tree_unzip
 
 
@@ -163,15 +165,18 @@ def init(cfg: OptimizerConfig, params):
 @torch.no_grad()
 def update(cfg: OptimizerConfig, grads, state, params):
     """(new params, new state, {"grad_norm", "lr"}): clip, then the
-    optimizer's step."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    if cfg.name == "adamw":
-        new_params, new_state = adamw_update(cfg, grads, state, params)
-    elif cfg.name == "adafactor":
-        new_params, new_state = adafactor_update(cfg, grads, state, params)
-    else:
-        raise KeyError(cfg.name)
-    return new_params, new_state, {"grad_norm": gnorm, "lr": schedule(cfg, new_state["count"])}
+    optimizer's step (``train.clip`` and ``train.update`` spans)."""
+    with tracing.span("train.clip"):
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    with tracing.span("train.update"):
+        if cfg.name == "adamw":
+            new_params, new_state = adamw_update(cfg, grads, state, params)
+        elif cfg.name == "adafactor":
+            new_params, new_state = adafactor_update(cfg, grads, state, params)
+        else:
+            raise KeyError(cfg.name)
+        lr = schedule(cfg, new_state["count"])
+    return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
 
 
 def for_arch(arch_params_bytes: int) -> OptimizerConfig:

@@ -26,6 +26,11 @@ the data axes comes from the loss being a mean over the global batch: each
 gradient arrives as a partial sum and is redistributed to its parameter's
 placements, which is the reduction. No explicit all-reduce is added.
 
+With tracing on (`core/tracing.py`) a step is a ``train.step`` span {tokens}
+holding ``train.forward`` (`model.loss`) and ``train.backward`` (autograd and
+the fp32 casts of the gradients) {micro} once a microbatch, then the
+optimizer's ``train.clip`` and ``train.update`` (`train/optimizer.py::update`).
+
 Two steps are not elementwise: int8 compression scales each leaf by its
 largest value, and Adafactor factors and clips each leaf. The reference's
 leaves are its layer stacks, so both run on the parameters and gradients
@@ -42,6 +47,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import tracing
 from repro_torch.models import bridge
 from repro_torch.models.model_zoo import ModelBundle, logical_axes
 from repro_torch.sharding import partition
@@ -98,13 +104,15 @@ def compute_grads(model: ModelBundle, params, batch: dict, *, microbatches: int 
         specs = partition.input_shardings(micro, mesh, model.cfg, None)
         return partition.distribute(micro, specs, mesh)
 
-    def grad_of(micro):
+    def grad_of(micro, i=0):
         live = [p.detach().requires_grad_(True) for p in leaves]
         with torch.enable_grad(), _mesh_scope(mesh):
-            loss, metrics = model.loss(tree_unflatten(params, live), place(micro))
-            grads = torch.autograd.grad(loss, live, allow_unused=True)
-            grads = [torch.zeros_like(p, dtype=torch.float32) if g is None else _like(g.float(), p)
-                     for p, g in zip(leaves, grads)]
+            with tracing.span("train.forward", micro=i):
+                loss, metrics = model.loss(tree_unflatten(params, live), place(micro))
+            with tracing.span("train.backward", micro=i):
+                grads = torch.autograd.grad(loss, live, allow_unused=True)
+                grads = [torch.zeros_like(p, dtype=torch.float32) if g is None
+                         else _like(g.float(), p) for p, g in zip(leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     k = microbatches
@@ -119,7 +127,7 @@ def compute_grads(model: ModelBundle, params, batch: dict, *, microbatches: int 
         micro = {name: (x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
                         if isinstance(x, torch.Tensor) and x.dim() >= 1 else x)
                  for name, x in batch.items()}
-        l_i, m_i, g_i = grad_of(micro)
+        l_i, m_i, g_i = grad_of(micro, i)
         if grads is None:
             loss, metrics, grads = l_i, m_i, g_i
             continue
@@ -154,6 +162,12 @@ def make_train_step(model: ModelBundle, opt_cfg: opt_lib.OptimizerConfig,
     factored = opt_cfg.name == "adafactor"
 
     def train_step(params, opt_state, ef_state, batch):
+        with tracing.span("train.step") as sp:
+            if sp and "tokens" in batch:
+                sp.note(tokens=int(np.prod(batch["tokens"].shape)))
+            return step(params, opt_state, ef_state, batch)
+
+    def step(params, opt_state, ef_state, batch):
         loss, metrics, grads = compute_grads(model, params, batch,
                                              microbatches=train_cfg.microbatches, mesh=mesh)
         if grads_hook is not None:
